@@ -1,0 +1,19 @@
+"""aimet_tpu_torch — the PyTorch/CUDA port of aimet_tpu for NVIDIA Hopper.
+
+Layout and names follow ``aimet_tpu``: ``ops/`` holds the kernel wrappers
+(hand-written CUDA C++ in ``csrc/``, built at first use by ``_build``),
+each beside its plain PyTorch version; ``models/`` and ``serving/`` hold
+the model and the W4A8 serving path. Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``.
+"""
+from .models.transformer import Transformer, TransformerConfig
+from .serving.batcher import ContinuousBatcher, Request
+from .serving.quantized_llm import (QuantizedLLM, quantize_transformer_weights,
+                                    quantized_forward,
+                                    random_quantized_weights)
+
+__all__ = [
+    "ContinuousBatcher", "QuantizedLLM", "Request", "Transformer",
+    "TransformerConfig", "quantize_transformer_weights", "quantized_forward",
+    "random_quantized_weights",
+]

@@ -1,0 +1,131 @@
+"""Build the hand-written Hopper kernels in ``csrc/`` at first use.
+
+Each ``.cu`` source is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` into an object file, and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+No PyTorch headers are involved, so a build takes seconds.
+
+The library lives under ``aimet_tpu_torch/_build/<hash>/``, keyed by a hash
+of the sources and the flags, so an edited source rebuilds and an unchanged
+one is loaded as it is. No ``--use_fast_math``: the kernels' integer codes
+must match the plain versions bit for bit, which needs IEEE division and
+round-half-to-even.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_NAME = "libaimet_tpu_torch_kernels.so"
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes. Every function returns cudaError_t.
+SIGNATURES = {
+    # x, q, sx, M, K, x_is_bf16, stream
+    "aimet_act_quant": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # xq, sx, wp, sw, out, ws, M, N, K2, splits, out_is_bf16, stream
+    "aimet_w4a8_gemm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                        _VP],
+    # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out,
+    # B, S, H, KH, D, sqrt_d, io_is_bf16, stream
+    "aimet_decode_attention": [_VP] * 11 + [_I] * 5 + [_F, _I, _VP],
+}
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def find_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the aimet_tpu_torch kernels")
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile (if not yet built) and return the path of the library.
+    Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    # objects go to a directory of this process's own, so concurrent first
+    # uses (test workers) never link each other's half-written files
+    work = out_dir / f"objs.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = work / (src.stem + ".o")
+        cmd = [nvcc, *CFLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _, p in procs:
+        text, _ = p.communicate()
+        log.append(f"== {src.name} (rc {p.returncode})\n{text}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    tmp = work / LIB_NAME
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(tmp),
+         *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)        # atomic: a concurrent loader sees all or none
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point with ``args``; raise if it returned a CUDA
+    error (a refused or failed launch)."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device``, for a kernel launch."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,126 @@
+"""One-token GQA decode attention over the INT8 KV cache, appending the new
+row in place — counterpart of ``aimet_tpu/ops/decode_attention_fused.py``.
+
+On a CUDA tensor ``fused_decode_attention`` launches kernel K3
+(``csrc/decode_attention.cu``); on a CPU tensor it takes the plain version
+``fused_decode_attention_torch``, which follows the JAX package's XLA decode
+path (``serving/quantized_llm._attention_from_qkv``) op for op.
+
+Unlike the TPU kernel, positions may differ per row (continuous batching),
+and none of the TPU's layout constraints (D % 128, S % 32, batch groups)
+apply.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from .. import _build
+from .._device import on_cuda
+from ..models.transformer import apply_rope
+from ._common import div_ieee
+from .kv_cache import QuantizedKVCache, append_kv, reciprocal
+
+_MAX_REP = 8
+_MAX_D = 128
+_WARPS = 16
+_SMEM_LIMIT = 227 * 1024
+
+
+def _positions(positions, batch: int, device) -> torch.Tensor:
+    return torch.as_tensor(positions, device=device).to(
+        torch.int32).reshape(-1).expand(batch).contiguous()
+
+
+def fused_decode_attention_torch(qkv, cos, sin, k_cache, v_cache, k_scale,
+                                 v_scale, positions, *, n_heads: int,
+                                 n_kv_heads: int):
+    """Plain version; same arguments and results as
+    :func:`fused_decode_attention`."""
+    B = qkv.shape[0]
+    S, KH, D = k_cache.shape[1:]
+    H = n_heads
+    rep = H // KH
+    pos = _positions(positions, B, qkv.device).to(torch.int64)
+    q = apply_rope(qkv[:, :H * D].reshape(B, 1, H, D), cos[:, None],
+                   sin[:, None])
+    k = apply_rope(qkv[:, H * D:(H + KH) * D].reshape(B, 1, KH, D),
+                   cos[:, None], sin[:, None])
+    v = qkv[:, (H + KH) * D:].reshape(B, 1, KH, D)
+    cache = append_kv(QuantizedKVCache(k_cache, v_cache, k_scale, v_scale),
+                      k, v, pos)
+    q5 = q.reshape(B, 1, KH, rep, D)
+    q5 = q5 * div_ieee(k_scale[:, None, :, None, None],
+                       float(np.sqrt(D))).to(q5.dtype)
+    scores = torch.einsum("btkrd,bskd->bkrts", q5,
+                          cache.k.to(q5.dtype)).to(torch.float32)
+    live = (torch.arange(S, device=qkv.device)[None, :]
+            <= pos[:, None])[:, None, None, None, :]          # (B,1,1,1,S)
+    scores = scores.masked_fill(~live, -1e30)
+    probs = F.softmax(scores, dim=-1).to(qkv.dtype)
+    out = torch.einsum("bkrts,bskd->btkrd", probs, cache.v.to(qkv.dtype))
+    out = out * v_scale[:, None, :, None, None].to(out.dtype)
+    return out.reshape(B, H * D), k_cache, v_cache
+
+
+def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
+                           positions, *, n_heads: int, n_kv_heads: int):
+    """One-token GQA decode attention with INT8-KV append.
+
+    qkv: (B, (H + 2 KH) D) this step's fused QKV projection, f32 or bf16.
+    cos/sin: (B, D/2) or (1, D/2) f32 rope rows for each row's position.
+    k_cache/v_cache: (B, S, KH, D) int8, updated IN PLACE at ``positions``.
+    k_scale/v_scale: (B, KH) f32 scales fixed at prefill.
+    positions: (B,) int32 per-row positions, or a scalar for every row. A
+    position outside [0, S) writes nothing (see ``csrc/decode_attention.cu``
+    for what it attends over).
+
+    Returns (attn_mix (B, H D) in qkv's dtype, k_cache, v_cache)."""
+    B = qkv.shape[0]
+    if k_cache.dim() != 4:
+        raise ValueError("caches must be (B, S, KH, D)")
+    S, KH, D = k_cache.shape[1:]
+    H = n_heads
+    if KH != n_kv_heads or H % KH or qkv.shape != (B, (H + 2 * KH) * D):
+        raise ValueError(f"shape mismatch: qkv {tuple(qkv.shape)}, cache "
+                         f"{tuple(k_cache.shape)}, H={H}, KH={n_kv_heads}")
+    cos = cos.reshape(-1, D // 2)
+    sin = sin.reshape(-1, D // 2)
+    if not on_cuda(qkv, k_cache, v_cache, k_scale, v_scale):
+        return fused_decode_attention_torch(
+            qkv, cos, sin, k_cache, v_cache, k_scale, v_scale, positions,
+            n_heads=n_heads, n_kv_heads=n_kv_heads)
+    rep = H // KH
+    smem = 4 * (rep * D + rep * S + _WARPS * rep * D)
+    if rep > _MAX_REP or D % 4 or D > _MAX_D or smem > _SMEM_LIMIT:
+        raise ValueError(f"decode attention kernel takes rep <= {_MAX_REP}, "
+                         f"D % 4 == 0, D <= {_MAX_D} and at most "
+                         f"{_SMEM_LIMIT} bytes of shared memory (needs "
+                         f"{smem})")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
+    for t in (k_cache, v_cache):
+        if t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError("caches must be contiguous int8 (updated in "
+                             "place)")
+    qkv = qkv.contiguous()
+    cos = cos.to(torch.float32).expand(B, D // 2).contiguous()
+    sin = sin.to(torch.float32).expand(B, D // 2).contiguous()
+    ks = k_scale.to(torch.float32).contiguous()
+    vs = v_scale.to(torch.float32).contiguous()
+    iks, ivs = reciprocal(ks), reciprocal(vs)
+    pos = _positions(positions, B, qkv.device)
+    out = torch.empty((B, H * D), dtype=qkv.dtype, device=qkv.device)
+    fused_decode_attention.launches += 1
+    _build.launch(
+        "aimet_decode_attention", qkv.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        ks.data_ptr(), vs.data_ptr(), iks.data_ptr(), ivs.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), B, S, H, KH, D,
+        float(np.float32(np.sqrt(D))), int(qkv.dtype == torch.bfloat16),
+        _build.stream_ptr(qkv.device))
+    return out, k_cache, v_cache
+
+
+fused_decode_attention.launches = 0

@@ -1,0 +1,190 @@
+"""W4A8 integer matmul: split-half packed INT4 weights x per-row INT8
+activations — the port's part of ``aimet_tpu/ops/int_matmul.py``.
+
+Host math (weight/activation quantizers, the split-half packing) is plain
+PyTorch. The matmul itself runs two hand-written Hopper kernels on a CUDA
+tensor (``csrc/act_quant.cu`` then ``csrc/w4a8_gemm.cu``); on a CPU tensor
+the wrappers take the plain versions beside them.
+
+Storage contract kept byte for byte (``pack_int4_split_half``): packed row
+``r`` holds ``W[r] + 8`` in its low nibble and ``W[r + K/2]`` (two's
+complement) in its high nibble, so a weight tree packed by the JAX package
+loads unchanged.
+
+Activations are quantized in f32 whatever their dtype, as the TPU kernel
+``_w4a8_fusedq_kernel`` does. (The JAX package's XLA oracle and its K-split
+path quantize a bf16 input in bf16, which gives different codes.)
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build
+from .._device import on_cuda
+from ._common import div_ieee
+
+_GEMM_DTYPES = (torch.float32, torch.bfloat16)
+_SMS = 132          # H100 SXM streaming multiprocessors
+_TILE_M, _TILE_N, _TILE_P = 64, 128, 64
+
+
+def quantize_weight_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel INT4, packed split-half:
+    w (K, N) -> (packed (K//2, N) int8, scale (N,) f32); K must be even."""
+    amax = w.abs().amax(dim=0)
+    scale = div_ieee(amax.clamp_min(1e-8), 7.0)
+    q = torch.round(w / scale[None, :]).clamp(-7, 7)
+    return pack_int4_split_half(q), scale.to(torch.float32)
+
+
+def pack_int4_split_half(q: torch.Tensor) -> torch.Tensor:
+    """(K, N) int codes in [-8, 7] -> (K//2, N) int8:
+    byte = ((q[k + K/2] & 0xF) << 4) | (q[k] + 8)."""
+    K = q.shape[0]
+    if K % 2:
+        raise ValueError(f"K must be even, got {K}")
+    q = q.to(torch.int32)
+    lo = (q[: K // 2] + 8) & 0xF
+    hi = (q[K // 2:] & 0xF) << 4
+    return (lo | hi).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(K//2, N) split-half int8 -> (K, N) int8 codes in [-8, 7]."""
+    p = packed.to(torch.int32)
+    lo = (p & 0xF) - 8
+    hi = p >> 4                       # arithmetic: sign-extends the nibble
+    return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+def _quantize_activation_plain(x: torch.Tensor):
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=1)
+    scale = div_ieee(amax.clamp_min(1e-8), 127.0)
+    q = torch.round(xf / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_activation_per_row(x: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic symmetric per-row INT8 in f32: x (M, K) -> (codes (M, K)
+    int8, scale (M,) f32), scale = max(amax, 1e-8) / 127. On a CUDA tensor
+    this launches kernel K1 (``csrc/act_quant.cu``)."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    if not on_cuda(x):
+        return _quantize_activation_plain(x)
+    if x.dtype not in _GEMM_DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    x = x.contiguous()
+    M, K = x.shape
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    quantize_activation_per_row.launches += 1
+    _build.launch("aimet_act_quant", x.data_ptr(), q.data_ptr(),
+                  sx.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
+                  _build.stream_ptr(x.device))
+    return q, sx
+
+
+quantize_activation_per_row.launches = 0
+
+
+def _exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 matrices: int64 on the CPU, float64 on
+    the card (every partial sum stays below 2**53, so both are exact)."""
+    if a.device.type == "cpu":
+        return (a.to(torch.int64) @ b.to(torch.int64)).to(torch.int32)
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def w4a8_gemm_torch(x_q: torch.Tensor, x_scale: torch.Tensor,
+                    w_packed: torch.Tensor, w_scale: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of the GEMM on quantized activations:
+    (sum_k xq[m,k] W[k,n]) * sx[m] * sw[n], cast to ``out_dtype``."""
+    acc = _exact_int_matmul(x_q, unpack_int4(w_packed))
+    return (acc.to(torch.float32) * x_scale[:, None]
+            * w_scale.to(torch.float32)[None, :]).to(out_dtype)
+
+
+def matmul_w4a8_torch(x: torch.Tensor, w_packed: torch.Tensor,
+                      w_scale: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of the W4A8 matmul (counterpart of the JAX package's
+    ``matmul_w4a8_xla``, quantizing in f32)."""
+    x_q, x_scale = _quantize_activation_plain(x)
+    return w4a8_gemm_torch(x_q, x_scale, w_packed, w_scale,
+                           out_dtype or x.dtype)
+
+
+def _splits(M: int, N: int, K2: int) -> int:
+    """K splits for the GEMM grid: fill the card with ~4 blocks per SM when
+    the M x N tiles alone cannot, keeping at least two K steps per split."""
+    tiles = -(-M // _TILE_M) * -(-N // _TILE_N)
+    ktiles = -(-K2 // _TILE_P)
+    want = -(-4 * _SMS // tiles)
+    return max(1, min(want, ktiles // 2))
+
+
+def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
+              w_packed: torch.Tensor, w_scale: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """GEMM on per-row quantized activations: x_q (M, K) int8, x_scale (M,)
+    f32, split-half INT4 weights (K//2, N) int8, w_scale (N,) f32 ->
+    (M, N) ``out_dtype``. On a CUDA tensor it launches kernel K2
+    (``csrc/w4a8_gemm.cu``); on a CPU tensor it takes ``w4a8_gemm_torch``."""
+    M, K = x_q.shape
+    K2, N = w_packed.shape
+    if K != 2 * K2 or x_scale.shape != (M,) or w_scale.shape != (N,):
+        raise ValueError(f"shape mismatch: x_q {tuple(x_q.shape)}, w_packed "
+                         f"{tuple(w_packed.shape)}, w_scale "
+                         f"{tuple(w_scale.shape)}")
+    if not on_cuda(x_q, x_scale, w_packed, w_scale):
+        return w4a8_gemm_torch(x_q, x_scale, w_packed, w_scale, out_dtype)
+    if out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    for t, dt in ((x_q, torch.int8), (w_packed, torch.int8),
+                  (x_scale, torch.float32), (w_scale, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"expected {dt}, got {t.dtype}")
+    # the kernel reads 16-byte vectors: contiguous, 16-byte aligned operands
+    x_q, w_packed = (t.contiguous() for t in (x_q, w_packed))
+    x_q, w_packed = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (x_q, w_packed))
+    x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    splits = _splits(M, N, K2)
+    ws = (torch.zeros((M, N), dtype=torch.int32, device=x_q.device)
+          if splits > 1 else out)
+    w4a8_gemm.launches += 1
+    _build.launch("aimet_w4a8_gemm", x_q.data_ptr(), x_scale.data_ptr(),
+                  w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+                  ws.data_ptr(), M, N, K2, splits,
+                  int(out_dtype == torch.bfloat16),
+                  _build.stream_ptr(x_q.device))
+    return out
+
+
+w4a8_gemm.launches = 0
+
+
+def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
+                w_scale: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """W4A8 matmul: x (M, K) f32/bf16 @ split-half INT4 weights
+    (K//2, N) int8 with per-column scales (N,) f32 -> (M, N) ``out_dtype``
+    (default x's dtype).
+
+    On CUDA tensors: kernel K1 (per-row activation quantizer) then K2 (the
+    GEMM). On CPU tensors: the plain versions. Both give the same bits."""
+    if x.dim() != 2 or w_packed.dim() != 2:
+        raise ValueError("x must be (M, K) and w_packed (K//2, N)")
+    if x.shape[1] != 2 * w_packed.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match w_packed "
+                         f"{tuple(w_packed.shape)}")
+    x_q, x_scale = quantize_activation_per_row(x)
+    return w4a8_gemm(x_q, x_scale, w_packed, w_scale, out_dtype or x.dtype)

@@ -1,0 +1,300 @@
+"""True-quant LLM inference in W4A8: packed INT4 weights, per-row INT8
+activations, INT8 KV cache — counterpart of
+``aimet_tpu/serving/quantized_llm.py``.
+
+Every projection and the ``lm_head`` go through ``matmul_w4a8`` (kernels K1
+and K2 on the card), and each decode step's attention through
+``fused_decode_attention`` (kernel K3). Prefill attention is plain tensor
+ops over the INT8 cache, as in the JAX package. The KV caches are updated
+in place.
+
+Only ``w4a8`` mode is ported so far; ``w8`` and ``w4`` need the W8 and
+weight-only W4 kernels of later slices and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from .._device import DeviceLike, resolve_device
+from ..models.transformer import TransformerConfig, apply_rope, rope_freqs
+from ..ops._common import div_ieee
+from ..ops.decode_attention_fused import fused_decode_attention
+from ..ops.int_matmul import matmul_w4a8, quantize_weight_int4
+from ..ops.kv_cache import (QuantizedKVCache, init_quantized_kv_cache,
+                            prefill_kv)
+
+_NOT_PORTED = {
+    "w8": "ROADMAP.md queue B, 'matmul_w8 / _w8_kernel' (w8 serving mode)",
+    "w4": "ROADMAP.md queue B, 'matmul_w4 / _w4_kernel' (w4 serving mode)",
+}
+
+
+def check_mode(mode: str) -> None:
+    if mode in _NOT_PORTED:
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported to aimet_tpu_torch yet; it needs "
+            f"{_NOT_PORTED[mode]}")
+    if mode != "w4a8":
+        raise ValueError(f"unknown mode {mode!r}")
+
+
+@torch.no_grad()
+def quantize_transformer_weights(params, cfg: TransformerConfig,
+                                 mode: str = "w4a8") -> Dict[str, Any]:
+    """Float weights -> the W4A8 weight tree (packed INT4 + per-channel
+    scales, float norms and embedding), with the JAX package's structure:
+    ``wq|wk|wv`` fused into ``wqkv`` and ``w_gate|w_up`` into
+    ``w_gateup``.
+
+    ``params`` is the float ``Transformer``'s state dict (flax names) or the
+    module itself."""
+    check_mode(mode)
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    p = {k: v.detach() for k, v in params.items()}
+    out = {"layers": [], "embed": p["embed.embedding"],
+           "final_norm": p["final_norm.scale"],
+           "lm_head": pad_vocab_for_decode(
+               quantize_weight_int4(p["lm_head.kernel"]))}
+    for i in range(cfg.n_layers):
+        pre = f"layer_{i}."
+        kern = lambda name: p[pre + name + ".kernel"]
+        out["layers"].append({
+            "attn_norm": p[pre + "attn_norm.scale"],
+            "mlp_norm": p[pre + "mlp_norm.scale"],
+            "wqkv": quantize_weight_int4(torch.cat(
+                [kern("attn.wq"), kern("attn.wk"), kern("attn.wv")], dim=1)),
+            "wo": quantize_weight_int4(kern("attn.wo")),
+            "w_gateup": quantize_weight_int4(torch.cat(
+                [kern("mlp.w_gate"), kern("mlp.w_up")], dim=1)),
+            "w_down": quantize_weight_int4(kern("mlp.w_down")),
+        })
+    return out
+
+
+def pad_vocab_for_decode(lm_head_pair, multiple: int = 4096):
+    """Zero-pad the lm_head's output dim to a multiple of ``multiple`` (a
+    storage contract shared with the JAX package). Padded columns have
+    scale 0, so their logits are 0; the forward slices them off."""
+    wq, scale = lm_head_pair
+    pad = (-wq.shape[1]) % multiple
+    if pad == 0:
+        return lm_head_pair
+    return F.pad(wq, (0, pad)), F.pad(scale, (0, pad))
+
+
+@torch.no_grad()
+def random_quantized_weights(cfg: TransformerConfig, mode: str = "w4a8",
+                             seed: int = 0,
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """A random transformer drawn directly in quantized storage on
+    ``device`` (default ``cuda``), with the structure of
+    :func:`quantize_transformer_weights`: uniform random int8 bytes (every
+    byte is a valid packed INT4 pair) and scales U(0.5, 1.5) * 0.02/sqrt(K),
+    which keep activations O(1) through the stack."""
+    check_mode(mode)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rand_q(k_dim, n_dim):
+        q = torch.randint(-128, 128, (k_dim // 2, n_dim), dtype=torch.int8,
+                          generator=gen, device=dev)
+        scale = (torch.rand((n_dim,), generator=gen, device=dev) + 0.5) \
+            * (0.02 / np.sqrt(k_dim))
+        return q, scale
+
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {
+        "embed": torch.randn((cfg.vocab_size, D), generator=gen, device=dev,
+                             dtype=torch.bfloat16) * 0.02,
+        "final_norm": torch.ones((D,), dtype=cfg.dtype, device=dev),
+        "lm_head": pad_vocab_for_decode(rand_q(D, cfg.vocab_size)),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        out["layers"].append({
+            "attn_norm": torch.ones((D,), dtype=cfg.dtype, device=dev),
+            "mlp_norm": torch.ones((D,), dtype=cfg.dtype, device=dev),
+            "wqkv": rand_q(D, (H + 2 * KH) * hd),
+            "wo": rand_q(H * hd, D),
+            "w_gateup": rand_q(D, 2 * cfg.d_ff),
+            "w_down": rand_q(cfg.d_ff, D),
+        })
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def quantized_weight_bytes(qw) -> int:
+    """Total bytes of the quantized weight tree."""
+    return sum(t.numel() * t.element_size() for t in _leaves(qw))
+
+
+def tree_to(tree, device):
+    """The weight tree with every tensor moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree
+
+
+def _rms_norm(x, scale, eps):
+    var = x.to(torch.float32).square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def _proj(x, wq_scale):
+    """x (B, T, D) @ W4A8 weight -> (B, T, out)."""
+    wq, scale = wq_scale
+    b, t, d = x.shape
+    return matmul_w4a8(x.reshape(b * t, d), wq, scale).reshape(b, t, -1)
+
+
+def _prefill_attention(cfg, qkv, cos, sin, mask, cache, prompt_lengths):
+    """Prefill attention in plain tensor ops (the JAX package leaves it to
+    XLA): quantize K/V into the cache (in place), attend over the INT8
+    cache."""
+    B, T, _ = qkv.shape
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rep = H // KH
+    q = apply_rope(qkv[..., :H * D].reshape(B, T, H, D), cos, sin)
+    k = apply_rope(qkv[..., H * D:(H + KH) * D].reshape(B, T, KH, D), cos,
+                   sin)
+    v = qkv[..., (H + KH) * D:].reshape(B, T, KH, D)
+    prefill_kv(cache, k, v, 0, lengths=prompt_lengths)
+    q5 = q.reshape(B, T, KH, rep, D)
+    q5 = q5 * div_ieee(cache.k_scale[:, None, :, None, None],
+                       float(np.sqrt(D))).to(q5.dtype)
+    scores = torch.einsum("btkrd,bskd->bkrts", q5,
+                          cache.k.to(q5.dtype)).to(torch.float32)
+    scores = scores.masked_fill(~mask[:, :, None], -1e30)
+    probs = F.softmax(scores, dim=-1).to(qkv.dtype)
+    out = torch.einsum("bkrts,bskd->btkrd", probs, cache.v.to(qkv.dtype))
+    out = out * cache.v_scale[:, None, :, None, None].to(out.dtype)
+    return out.reshape(B, T, H * D)
+
+
+@torch.no_grad()
+def quantized_forward(qw, cfg: TransformerConfig, tokens: torch.Tensor,
+                      caches: List[QuantizedKVCache], cache_index=0,
+                      prefill: bool = True, mode: str = "w4a8",
+                      prompt_lengths=None):
+    """Returns (logits (B, T, vocab) f32, caches).
+
+    Prefill (``prefill=True``) writes rows [0, T) of ``caches``, with
+    ``prompt_lengths`` (B,) keeping right-padding out of the KV scales.
+    Decode (``prefill=False``) takes one token per row at ``cache_index``:
+    an int for every row or a (B,) tensor of per-slot positions. The caches
+    are updated in place."""
+    check_mode(mode)
+    B, T = tokens.shape
+    dev = tokens.device
+    x = qw["embed"][tokens].to(cfg.dtype)
+    D2 = cfg.head_dim // 2
+    if prefill:
+        positions = torch.arange(T, device=dev)
+        S = caches[0].k.shape[1]
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= positions[:, None])[None, None]
+        cos, sin = rope_freqs(cfg, positions)
+    else:
+        if T != 1:
+            raise ValueError(f"decode takes one token per row, got T={T}")
+        pos = torch.as_tensor(cache_index, device=dev).to(
+            torch.int32).reshape(-1).expand(B)
+        cos, sin = rope_freqs(cfg, pos)                   # (B, D/2)
+    for layer, c in zip(qw["layers"], caches):
+        qkv = _proj(_rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                    layer["wqkv"])
+        if prefill:
+            attn = _prefill_attention(cfg, qkv, cos, sin, mask, c,
+                                      prompt_lengths)
+        else:
+            attn, _, _ = fused_decode_attention(
+                qkv.reshape(B, -1), cos.reshape(B, D2), sin.reshape(B, D2),
+                c.k, c.v, c.k_scale, c.v_scale, pos,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+            attn = attn.reshape(B, 1, -1)
+        x = x + _proj(attn, layer["wo"])
+        gu = _proj(_rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                   layer["w_gateup"])
+        x = x + _proj(F.silu(gu[..., :cfg.d_ff]) * gu[..., cfg.d_ff:],
+                      layer["w_down"])
+    x = _rms_norm(x, qw["final_norm"], cfg.norm_eps)
+    wq, scale = qw["lm_head"]
+    logits = matmul_w4a8(x.reshape(B * T, -1), wq, scale)
+    logits = logits[:, :cfg.vocab_size]       # drop the vocab padding
+    return logits.reshape(B, T, -1).to(torch.float32), caches
+
+
+class QuantizedLLM:
+    """User-facing serving model: prefill + greedy decode with INT8 KV.
+
+    ``params``: the float ``Transformer`` (or its state dict) to quantize.
+    ``device``: ``cuda`` unless the caller passes ``"cpu"``; without CUDA
+    and without an explicit CPU device this raises."""
+
+    def __init__(self, params, cfg: TransformerConfig, mode: str = "w4a8",
+                 max_len: int = 256, device: DeviceLike = None, _qw=None):
+        check_mode(mode)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.mode = mode
+        self.max_len = max_len
+        qw = (_qw if _qw is not None
+              else quantize_transformer_weights(params, cfg, mode))
+        self.qw = tree_to(qw, self.device)
+
+    @classmethod
+    def from_quantized(cls, qw, cfg: TransformerConfig, mode: str = "w4a8",
+                       max_len: int = 256,
+                       device: DeviceLike = None) -> "QuantizedLLM":
+        """Build directly from a quantized weight tree."""
+        return cls(None, cfg, mode, max_len, device, _qw=qw)
+
+    def new_caches(self, batch: int) -> List[QuantizedKVCache]:
+        return [init_quantized_kv_cache(batch, self.max_len,
+                                        self.cfg.n_kv_heads,
+                                        self.cfg.head_dim, self.device)
+                for _ in range(self.cfg.n_layers)]
+
+    def prefill(self, tokens, caches, prompt_lengths=None):
+        return quantized_forward(self.qw, self.cfg, tokens, caches, 0,
+                                 prefill=True, mode=self.mode,
+                                 prompt_lengths=prompt_lengths)
+
+    def decode(self, tokens, caches, positions):
+        return quantized_forward(self.qw, self.cfg, tokens, caches,
+                                 positions, prefill=False, mode=self.mode)
+
+    @torch.no_grad()
+    def generate(self, tokens, num_steps: int) -> torch.Tensor:
+        """Greedy generation: (B, T) tokens -> (B, T + num_steps)."""
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
+        B, T = tokens.shape
+        caches = self.new_caches(B)
+        logits, caches = self.prefill(tokens, caches)
+        next_tok = logits[:, -1].argmax(-1)[:, None]
+        out = [tokens, next_tok]
+        for pos in range(T, T + num_steps - 1):
+            logits, caches = self.decode(next_tok, caches, pos)
+            next_tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(next_tok)
+        return torch.cat(out, dim=1)

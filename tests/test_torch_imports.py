@@ -1,0 +1,43 @@
+"""Import hygiene of the port: aimet_tpu_torch and chip_smoke.py import
+neither JAX/flax nor anything of aimet_tpu, and importing the port leaves
+jax out of sys.modules."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "aimet_tpu")
+
+
+def _files():
+    return sorted((ROOT / "aimet_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _files(), ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    names = list(_imported(ast.parse(path.read_text())))
+    bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, (path, bad)
+
+
+def test_importing_port_leaves_jax_unloaded():
+    code = ("import sys, aimet_tpu_torch, aimet_tpu_torch.convert; "
+            "import aimet_tpu_torch.ops.decode_attention_fused; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -1,0 +1,121 @@
+"""aimet_tpu_torch.ops.int_matmul against aimet_tpu.ops.int_matmul on the
+same numpy inputs (CPU; the JAX Pallas kernel runs in interpret mode).
+
+Tolerances: codes, packed bytes and scales bit-exact; the f32 matmul at
+rtol 1e-6 (exact integer sum, same epilogue order); the bf16 matmul within
+one bf16 ulp of the in-kernel-quantizing TPU kernel, which quantizes in f32
+as the port does, on every row where XLA's fused quantizer gives the IEEE
+codes (see the test).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aimet_tpu.ops import int_matmul as jim
+from aimet_tpu_torch.ops import int_matmul as tim
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+@pytest.mark.parametrize("k,n", [(64, 32), (160, 48), (8, 5)])
+def test_weight_int4_quant_and_pack_bit_exact(k, n):
+    w = np.random.RandomState(k).randn(k, n).astype(np.float32)
+    jp, js = jim.quantize_weight_int4(jnp.asarray(w))
+    tp, ts = tim.quantize_weight_int4(torch.from_numpy(w))
+    np.testing.assert_array_equal(tp.numpy(), _np(jp))
+    np.testing.assert_array_equal(ts.numpy(), _np(js))
+    np.testing.assert_array_equal(tim.unpack_int4(tp).numpy(),
+                                  _np(jim.unpack_int4(jp)))
+
+
+def test_pack_unpack_every_code_pair():
+    codes = np.arange(-8, 8, dtype=np.int32)
+    lo, hi = np.meshgrid(codes, codes, indexing="ij")
+    q = np.stack([lo.ravel(), hi.ravel()])                   # (2, 256)
+    tp = tim.pack_int4_split_half(torch.from_numpy(q))
+    np.testing.assert_array_equal(
+        tp.numpy(), _np(jim.pack_int4_split_half(jnp.asarray(q))))
+    np.testing.assert_array_equal(tim.unpack_int4(tp).numpy(), q)
+
+
+@pytest.mark.parametrize("m,k", [(7, 96), (1, 4), (33, 300)])
+def test_activation_quant_f32_bit_exact(m, k):
+    x = (np.random.RandomState(m).randn(m, k) * 3).astype(np.float32)
+    x[0, :] = 0.0                                 # the 1e-8 scale floor
+    jq, js = jim.quantize_activation_per_row(jnp.asarray(x))
+    tq, ts = tim.quantize_activation_per_row(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), _np(jq))
+    np.testing.assert_array_equal(ts.numpy(), _np(js))
+
+
+def _weights(k, n, seed):
+    rs = np.random.RandomState(seed)
+    packed = rs.randint(-128, 128, (k // 2, n)).astype(np.int8)
+    scale = (rs.uniform(0.5, 1.5, n) * 0.02 / np.sqrt(k)).astype(np.float32)
+    return packed, scale
+
+
+@pytest.mark.parametrize("m,k2,n", [
+    (5, 48, 40),          # odd M, K2 not a multiple of 256
+    (17, 96, 33),         # ragged N
+    (3, 4104, 16),        # K = 8208 > 8192 (the TPU's K-split path)
+])
+def test_matmul_w4a8_f32_matches_xla(m, k2, n):
+    rs = np.random.RandomState(m)
+    x = rs.randn(m, 2 * k2).astype(np.float32)
+    packed, scale = _weights(2 * k2, n, m + 1)
+    want = _np(jim.matmul_w4a8_xla(jnp.asarray(x), jnp.asarray(packed),
+                                   jnp.asarray(scale)))
+    args = (torch.from_numpy(x), torch.from_numpy(packed),
+            torch.from_numpy(scale))
+    got = tim.matmul_w4a8(*args)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(tim.matmul_w4a8_torch(*args).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("m,k2,n", [(9, 64, 24), (32, 160, 130)])
+def test_matmul_w4a8_bf16_matches_fusedq_kernel(m, k2, n):
+    rs = np.random.RandomState(k2)
+    x32 = rs.randn(m, 2 * k2).astype(np.float32)
+    xb = jnp.asarray(x32).astype(jnp.bfloat16)
+    x_bf16_as_f32 = np.array(xb.astype(jnp.float32))
+    packed, scale = _weights(2 * k2, n, k2 + 1)
+    want = np.asarray(jim.matmul_w4a8_fusedq(
+        xb, jnp.asarray(packed), jnp.asarray(scale)).astype(jnp.float32))
+    xt = torch.from_numpy(x_bf16_as_f32).to(torch.bfloat16)
+    # codes: the port's f32 quantizer == JAX's quantizer on the f32 upcast
+    tq, ts = tim.quantize_activation_per_row(xt)
+    jq, js = jim.quantize_activation_per_row(jnp.asarray(x_bf16_as_f32))
+    np.testing.assert_array_equal(tq.numpy(), _np(jq))
+    np.testing.assert_array_equal(ts.numpy(), _np(js))
+    got = tim.matmul_w4a8(xt, torch.from_numpy(packed),
+                          torch.from_numpy(scale))
+    assert got.dtype == torch.bfloat16
+    got = got.to(torch.float32).numpy()
+    # XLA's CPU fusion of x / scale is not always an IEEE division: in a
+    # fused (jit / interpret-mode) program a row's codes can shift by one
+    # level at a rounding boundary. Rows where the fused quantizer agrees
+    # with the IEEE codes must match within one bf16 ulp; the rest only
+    # within the size of a one-level code change.
+    fused_q = np.asarray(jax.jit(jim.quantize_activation_per_row)(
+        jnp.asarray(x_bf16_as_f32))[0])
+    same = (fused_q == tq.numpy()).all(axis=1)
+    assert same.sum() >= m - 2, np.flatnonzero(~same)
+    ulp = np.spacing(np.abs(want).astype(np.float32)) * 2 ** 16  # bf16 ulp
+    diff = np.abs(got - want)
+    assert np.all(diff[same] <= ulp[same]), diff[same].max()
+    assert np.all(diff[~same] <= 1e-2 * np.abs(want).max())
+
+
+def test_matmul_w4a8_rejects_bad_shapes():
+    x = torch.zeros(4, 10)
+    with pytest.raises(ValueError):
+        tim.matmul_w4a8(x, torch.zeros(4, 8, dtype=torch.int8),
+                        torch.ones(8))
+

@@ -1,0 +1,59 @@
+"""aimet_tpu_torch.ops.kv_cache against aimet_tpu.ops.kv_cache on the same
+numpy inputs. Tolerance: cache bytes and scales bit-exact."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aimet_tpu.ops import kv_cache as jkv
+from aimet_tpu_torch.ops import kv_cache as tkv
+
+B, S, KH, D = 3, 16, 2, 8
+
+
+def _caches():
+    return (jkv.init_quantized_kv_cache(B, S, KH, D),
+            tkv.init_quantized_kv_cache(B, S, KH, D))
+
+
+def _assert_same(jc, tc):
+    for name in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)), name)
+
+
+def _kv(rs, t):
+    return [(rs.randn(B, t, KH, D) * 2).astype(np.float32) for _ in range(2)]
+
+
+@pytest.mark.parametrize("lengths", [None, [5, 2, 6]])
+def test_prefill_bit_exact(lengths):
+    rs = np.random.RandomState(0)
+    k, v = _kv(rs, 6)
+    jc, tc = _caches()
+    jc = jkv.prefill_kv(jc, jnp.asarray(k), jnp.asarray(v),
+                        lengths=None if lengths is None
+                        else jnp.asarray(lengths))
+    out = tkv.prefill_kv(tc, torch.from_numpy(k), torch.from_numpy(v),
+                         lengths=lengths)
+    assert out is tc                        # in place
+    _assert_same(jc, tc)
+    jd, _ = jkv.dequantize_kv(jc)
+    td, _ = tkv.dequantize_kv(tc)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("index", [4, [4, 7, 15], [0, 16, 3]])
+def test_append_bit_exact(index):
+    """Scalar and per-slot positions; 16 is past the cache and dropped."""
+    rs = np.random.RandomState(1)
+    k0, v0 = _kv(rs, 4)
+    k1, v1 = _kv(rs, 1)
+    jc, tc = _caches()
+    jc = jkv.prefill_kv(jc, jnp.asarray(k0), jnp.asarray(v0))
+    tkv.prefill_kv(tc, torch.from_numpy(k0), torch.from_numpy(v0))
+    jidx = jnp.asarray(index, jnp.int32)
+    tidx = torch.as_tensor(index)
+    jc = jkv.append_kv(jc, jnp.asarray(k1), jnp.asarray(v1), jidx)
+    tkv.append_kv(tc, torch.from_numpy(k1), torch.from_numpy(v1), tidx)
+    _assert_same(jc, tc)
