@@ -3,8 +3,9 @@
 Layout and names follow ``aimet_tpu``: ``ops/`` holds the kernel wrappers
 (hand-written CUDA C++ in ``csrc/``, built at first use by ``_build``),
 each beside its plain PyTorch version; ``models/`` and ``serving/`` hold
-the model and the W4A8 serving path. Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+the model and the serving path in the modes ``w8`` (the default), ``w4``
+and ``w4a8``. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 from .models.transformer import Transformer, TransformerConfig
 from .serving.batcher import ContinuousBatcher, Request

@@ -10,6 +10,12 @@ of the sources and the flags, so an edited source rebuilds and an unchanged
 one is loaded as it is. No ``--use_fast_math``: the kernels' integer codes
 must match the plain versions bit for bit, which needs IEEE division and
 round-half-to-even.
+
+The whole-layer kernels (``csrc/fused_layer.cu``) synchronise the grid with
+``cooperative_groups::this_grid().sync()`` under
+``cudaLaunchCooperativeKernel``; since CUDA 11 that needs no relocatable
+device code (``-rdc``) and no device link, so every source builds with
+the same flags.
 """
 from __future__ import annotations
 
@@ -43,6 +49,15 @@ SIGNATURES = {
     # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out,
     # B, S, H, KH, D, sqrt_d, io_is_bf16, stream
     "aimet_decode_attention": [_VP] * 11 + [_I] * 5 + [_F, _I, _VP],
+    # x, w, sw, out, ws, M, N, K, splits, out_is_bf16, stream
+    "aimet_w4_gemm": [_VP] * 5 + [_I] * 5 + [_VP],
+    "aimet_w8_gemm": [_VP] * 5 + [_I] * 5 + [_VP],
+    # attn, int8, rep, head_dim, S -> bytes (not an error code)
+    "aimet_fused_layer_smem": [_I] * 5,
+    # attn, int8, smem, int* blocks
+    "aimet_fused_layer_grid": [_I] * 3 + [_VP],
+    # FusedLayerArgs*, attn, int8, grid, smem, stream
+    "aimet_fused_layer": [_VP] + [_I] * 4 + [_VP],
 }
 
 

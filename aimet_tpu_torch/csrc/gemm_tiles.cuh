@@ -1,0 +1,298 @@
+// Block-level GEMM tiles shared by the GEMM kernels (w4a8_gemm.cu,
+// wo_gemm.cu) and the whole-layer decode kernel (fused_layer.cu).
+//
+// A block of kTileThreads threads owns a kTileM x kTileN output tile and
+// walks a range of weight rows, step by step; each thread keeps a 32 x 32
+// warp tile of accumulators (8 warps: 2 along M, 4 along N). The next
+// step's global loads are issued into registers before the MMAs on the
+// current step, so loads overlap math. The weight tile is staged
+// k-contiguous ([n][k]) in shared memory, the layout mma.sync's col-major B
+// operand reads with one 32-bit load per register.
+//
+// Two tiles:
+//   s8_tile: int8 activations x split-half INT4 weights, int32 accumulators
+//            (mma.sync.m16n8k32.s8), exact. A step is 64 packed rows.
+//   bf_tile: bf16 activations x (split-half INT4 | int8) weights, f32
+//            accumulators (mma.sync.m16n8k16.bf16). A step is 64 k values:
+//            32 packed INT4 rows (their lo and hi halves) or 64 int8 rows.
+// Weight codes are unpacked in registers on their way into shared memory:
+// INT4 lo = (p & 15) - 8, hi = p >> 4 (arithmetic), both exact in bf16.
+#pragma once
+#include "common.cuh"
+
+namespace aimet {
+
+constexpr int kTileM = 64;
+constexpr int kTileN = 128;
+constexpr int kTileThreads = 256;
+
+__device__ __forceinline__ uint32_t ld_u32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 bytes from src; bytes at index >= n_valid are `fill`.
+__device__ __forceinline__ void load16(uint4& r, const int8_t* src,
+                                       int n_valid, bool vec_ok, int fill) {
+  if (vec_ok && n_valid >= 16) {
+    r = *reinterpret_cast<const uint4*>(src);
+    return;
+  }
+  int8_t* b = reinterpret_cast<int8_t*>(&r);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) b[e] = e < n_valid ? src[e] : (int8_t)fill;
+}
+
+// 16 bf16 values from src; values at index >= n_valid are 0.
+__device__ __forceinline__ void load16_bf(uint4 (&r)[2], const uint16_t* src,
+                                          int n_valid, bool vec_ok) {
+  if (vec_ok && n_valid >= 16) {
+    r[0] = *reinterpret_cast<const uint4*>(src);
+    r[1] = *reinterpret_cast<const uint4*>(src + 8);
+    return;
+  }
+  uint16_t* b = reinterpret_cast<uint16_t*>(r);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) b[e] = e < n_valid ? src[e] : (uint16_t)0;
+}
+
+// ---------------------------------------------------------------- s8 tile
+constexpr int kS8Step = 64;             // packed rows (= 2 x 64 k) a step
+constexpr int kS8Lds = kS8Step + 16;    // shared row stride in bytes
+
+struct S8Tile {
+  int8_t a[2][kTileM][kS8Lds];   // [lo/hi k half][m][k]
+  int8_t b[2][kTileN][kS8Lds];   // [lo/hi plane][n][k]
+};
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += xq[m0.., rows] . W[rows, n0..] over packed rows [p_begin, p_end):
+// xq (M, 2 K2) int8 row-major, wp (K2, N) split-half INT4.
+__device__ __forceinline__ void s8_tile(const int8_t* __restrict__ xq,
+                                        const int8_t* __restrict__ wp, int M,
+                                        int N, int K2, int m0, int n0,
+                                        int p_begin, int p_end, S8Tile& sm,
+                                        int (&acc)[2][4][4]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const size_t K = 2 * (size_t)K2;
+  const bool a_vec = (K2 % 16) == 0;
+  const bool b_vec = (N % 16) == 0;
+  // this thread's share of each step: 32 bytes of A, 32 bytes of B
+  const int a_half = tid >> 7;              // lo (0) or hi (1) k half
+  const int a_row = (tid & 127) >> 1;
+  const int a_col = (tid & 1) * 32;
+  const int b_prow = tid & 63;              // packed row within the step
+  const int b_col = (tid >> 6) * 32;        // 4 x 32 columns
+
+  uint4 ar[2], br[2];
+  auto load_step = [&](int p0) {
+    const int gm = m0 + a_row;
+    const int gk = p0 + a_col;
+    const int na = gm < M ? max(0, min(32, p_end - gk)) : 0;
+    const int8_t* asrc = xq + (size_t)min(gm, M - 1) * K +
+                         (size_t)a_half * K2 + min(gk, K2 - 1);
+    load16(ar[0], asrc, na, a_vec, 0);
+    load16(ar[1], asrc + 16, na - 16, a_vec, 0);
+    const int gp = p0 + b_prow;
+    const int gn = n0 + b_col;
+    const int nb = gp < p_end ? max(0, min(32, N - gn)) : 0;
+    // 0x08 unpacks to lo = 0, hi = 0: masked weights contribute nothing
+    const int8_t* bsrc = wp + (size_t)min(gp, K2 - 1) * N + min(gn, N - 1);
+    load16(br[0], bsrc, nb, b_vec, 0x08);
+    load16(br[1], bsrc + 16, nb - 16, b_vec, 0x08);
+  };
+  auto store_step = [&]() {
+    *reinterpret_cast<uint4*>(&sm.a[a_half][a_row][a_col]) = ar[0];
+    *reinterpret_cast<uint4*>(&sm.a[a_half][a_row][a_col + 16]) = ar[1];
+    const int8_t* b = reinterpret_cast<const int8_t*>(br);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int8_t p = b[e];
+      sm.b[0][b_col + e][b_prow] = (int8_t)((p & 0xF) - 8);
+      sm.b[1][b_col + e][b_prow] = (int8_t)(p >> 4);
+    }
+  };
+
+  if (p_begin < p_end) load_step(p_begin);
+  for (int p0 = p_begin; p0 < p_end; p0 += kS8Step) {
+    store_step();
+    __syncthreads();
+    if (p0 + kS8Step < p_end) load_step(p0 + kS8Step);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int kk = 0; kk < kS8Step; kk += 32) {
+        uint32_t a[2][4], b[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wm * 32 + mi * 16 + g;
+          a[mi][0] = ld_u32(&sm.a[h][r][kk + t * 4]);
+          a[mi][1] = ld_u32(&sm.a[h][r + 8][kk + t * 4]);
+          a[mi][2] = ld_u32(&sm.a[h][r][kk + 16 + t * 4]);
+          a[mi][3] = ld_u32(&sm.a[h][r + 8][kk + 16 + t * 4]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int n = wn * 32 + ni * 8 + g;
+          b[ni][0] = ld_u32(&sm.b[h][n][kk + t * 4]);
+          b[ni][1] = ld_u32(&sm.b[h][n][kk + 16 + t * 4]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (m0 + wm * 32 + mi * 16 >= M) continue;   // warp-uniform
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------- bf tile
+constexpr int kBfStepK = 64;            // k values a step
+constexpr int kBfLds = kBfStepK + 8;    // shared row stride in bf16 (144 B)
+
+struct BfTile {
+  uint16_t a[kTileM][kBfLds];   // bf16 bits, [m][k]
+  uint16_t b[kTileN][kBfLds];   // bf16 bits, [n][k]
+};
+
+// weight rows a step: 32 packed INT4 rows hold 64 k values
+template <bool kW4>
+__host__ __device__ constexpr int bf_step_rows() {
+  return kW4 ? kBfStepK / 2 : kBfStepK;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// acc += x[m0.., k] . W[k, n0..] over weight rows [r_begin, r_end):
+// x (M, K) bf16 row-major; kW4: w (K/2, N) split-half INT4, packed row p
+// holding k = p and k = p + K/2; else w (K, N) int8, row r holding k = r.
+template <bool kW4>
+__device__ __forceinline__ void bf_tile(const uint16_t* __restrict__ x,
+                                        const int8_t* __restrict__ w, int M,
+                                        int N, int K, int m0, int n0,
+                                        int r_begin, int r_end, BfTile& sm,
+                                        float (&acc)[2][4][4]) {
+  constexpr int R = bf_step_rows<kW4>();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int Kw = kW4 ? K / 2 : K;          // weight rows
+  const bool a_vec = (Kw % 8) == 0;        // 16-byte aligned x segments
+  const bool b_vec = (N % 16) == 0;
+  // A: 64 rows x 64 k; a thread loads 16 bf16 of one row. Columns
+  // [0, 32) of a W4 step are the lo k half, [32, 64) the hi half.
+  const int a_row = tid >> 2, a_q = tid & 3;
+  // B (W4): 32 packed rows x 128 columns, 16 bytes a thread;
+  // B (W8): 64 rows x 128 columns, 32 bytes a thread.
+  const int b_r = kW4 ? (tid & 31) : (tid & 63);
+  const int b_col = kW4 ? (tid >> 5) * 16 : (tid >> 6) * 32;
+
+  uint4 ar[2], br[2];
+  auto load_step = [&](int r0) {
+    const int gm = m0 + a_row;
+    int c, lim;                            // x column and its valid limit
+    if (kW4) {
+      const int p = r0 + (a_q & 1) * 16;   // packed row = lo k index
+      c = (a_q >> 1) * Kw + p;
+      lim = (a_q >> 1) * Kw + r_end;
+    } else {
+      c = r0 + a_q * 16;
+      lim = r_end;
+    }
+    const int na = gm < M ? max(0, min(16, lim - c)) : 0;
+    load16_bf(ar, x + (size_t)min(gm, M - 1) * K + min(c, K - 1), na, a_vec);
+    const int gr = r0 + b_r;
+    const int gn = n0 + b_col;
+    const int nb = gr < r_end ? max(0, min(kW4 ? 16 : 32, N - gn)) : 0;
+    const int8_t* bsrc = w + (size_t)min(gr, Kw - 1) * N + min(gn, N - 1);
+    // masked bytes: 0x08 unpacks to INT4 (0, 0); 0 is int8 0
+    load16(br[0], bsrc, nb, b_vec, kW4 ? 0x08 : 0);
+    if (!kW4) load16(br[1], bsrc + 16, nb - 16, b_vec, 0);
+  };
+  auto store_step = [&]() {
+    *reinterpret_cast<uint4*>(&sm.a[a_row][a_q * 16]) = ar[0];
+    *reinterpret_cast<uint4*>(&sm.a[a_row][a_q * 16 + 8]) = ar[1];
+    const int8_t* b = reinterpret_cast<const int8_t*>(br);
+    if (kW4) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int8_t p = b[e];
+        sm.b[b_col + e][b_r] = bf16_bits((float)((p & 0xF) - 8));
+        sm.b[b_col + e][R + b_r] = bf16_bits((float)(p >> 4));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        sm.b[b_col + e][b_r] = bf16_bits((float)b[e]);
+    }
+  };
+
+  if (r_begin < r_end) load_step(r_begin);
+  for (int r0 = r_begin; r0 < r_end; r0 += R) {
+    store_step();
+    __syncthreads();
+    if (r0 + R < r_end) load_step(r0 + R);
+#pragma unroll
+    for (int kk = 0; kk < kBfStepK; kk += 16) {
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + g;
+        a[mi][0] = ld_u32(&sm.a[r][kk + 2 * t]);
+        a[mi][1] = ld_u32(&sm.a[r + 8][kk + 2 * t]);
+        a[mi][2] = ld_u32(&sm.a[r][kk + 2 * t + 8]);
+        a[mi][3] = ld_u32(&sm.a[r + 8][kk + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = wn * 32 + ni * 8 + g;
+        b[ni][0] = ld_u32(&sm.b[n][kk + 2 * t]);
+        b[ni][1] = ld_u32(&sm.b[n][kk + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (m0 + wm * 32 + mi * 16 >= M) continue;     // warp-uniform
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Output coordinates of accumulator element (mi, ni, c) of this thread.
+__device__ __forceinline__ int acc_row(int mi, int c) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  return (warp >> 2) * 32 + mi * 16 + g + (c >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int acc_col(int ni, int c) {
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
+  return (warp & 3) * 32 + ni * 8 + t * 2 + (c & 1);
+}
+
+}  // namespace aimet

@@ -28,13 +28,30 @@ _WARPS = 16
 _SMEM_LIMIT = 227 * 1024
 
 
-def _positions(positions, batch: int, device) -> torch.Tensor:
-    return torch.as_tensor(positions, device=device).to(
+def positions(cache_index, batch: int, device) -> torch.Tensor:
+    """A scalar or (B,) position(s) -> (B,) int32 per-row positions."""
+    return torch.as_tensor(cache_index, device=device).to(
         torch.int32).reshape(-1).expand(batch).contiguous()
 
 
+def attention_kernel_shape_ok(H: int, KH: int, D: int, S: int,
+                              warps: int) -> None:
+    """Raise unless the attention device code (``csrc/decode_attention.cuh``)
+    takes these heads and this cache length in a block of ``warps`` warps:
+    rep = H / KH <= 8, D % 4 == 0, D <= 128, and its scratch (query rows,
+    one score row per query head, the warps' partial contexts) within the
+    block's shared memory."""
+    rep = H // KH
+    smem = 4 * (rep * D + -(-rep * S // 4) * 4 + warps * rep * D)
+    if rep > _MAX_REP or D % 4 or D > _MAX_D or smem > _SMEM_LIMIT:
+        raise ValueError(f"decode attention kernel takes rep <= {_MAX_REP}, "
+                         f"D % 4 == 0, D <= {_MAX_D} and at most "
+                         f"{_SMEM_LIMIT} bytes of shared memory (needs "
+                         f"{smem})")
+
+
 def fused_decode_attention_torch(qkv, cos, sin, k_cache, v_cache, k_scale,
-                                 v_scale, positions, *, n_heads: int,
+                                 v_scale, cache_index, *, n_heads: int,
                                  n_kv_heads: int):
     """Plain version; same arguments and results as
     :func:`fused_decode_attention`."""
@@ -42,7 +59,7 @@ def fused_decode_attention_torch(qkv, cos, sin, k_cache, v_cache, k_scale,
     S, KH, D = k_cache.shape[1:]
     H = n_heads
     rep = H // KH
-    pos = _positions(positions, B, qkv.device).to(torch.int64)
+    pos = positions(cache_index, B, qkv.device).to(torch.int64)
     q = apply_rope(qkv[:, :H * D].reshape(B, 1, H, D), cos[:, None],
                    sin[:, None])
     k = apply_rope(qkv[:, H * D:(H + KH) * D].reshape(B, 1, KH, D),
@@ -65,14 +82,14 @@ def fused_decode_attention_torch(qkv, cos, sin, k_cache, v_cache, k_scale,
 
 
 def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
-                           positions, *, n_heads: int, n_kv_heads: int):
+                           cache_index, *, n_heads: int, n_kv_heads: int):
     """One-token GQA decode attention with INT8-KV append.
 
     qkv: (B, (H + 2 KH) D) this step's fused QKV projection, f32 or bf16.
     cos/sin: (B, D/2) or (1, D/2) f32 rope rows for each row's position.
-    k_cache/v_cache: (B, S, KH, D) int8, updated IN PLACE at ``positions``.
+    k_cache/v_cache: (B, S, KH, D) int8, updated IN PLACE at ``cache_index``.
     k_scale/v_scale: (B, KH) f32 scales fixed at prefill.
-    positions: (B,) int32 per-row positions, or a scalar for every row. A
+    cache_index: (B,) int32 per-row positions, or a scalar for every row. A
     position outside [0, S) writes nothing (see ``csrc/decode_attention.cu``
     for what it attends over).
 
@@ -89,15 +106,9 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     sin = sin.reshape(-1, D // 2)
     if not on_cuda(qkv, k_cache, v_cache, k_scale, v_scale):
         return fused_decode_attention_torch(
-            qkv, cos, sin, k_cache, v_cache, k_scale, v_scale, positions,
+            qkv, cos, sin, k_cache, v_cache, k_scale, v_scale, cache_index,
             n_heads=n_heads, n_kv_heads=n_kv_heads)
-    rep = H // KH
-    smem = 4 * (rep * D + rep * S + _WARPS * rep * D)
-    if rep > _MAX_REP or D % 4 or D > _MAX_D or smem > _SMEM_LIMIT:
-        raise ValueError(f"decode attention kernel takes rep <= {_MAX_REP}, "
-                         f"D % 4 == 0, D <= {_MAX_D} and at most "
-                         f"{_SMEM_LIMIT} bytes of shared memory (needs "
-                         f"{smem})")
+    attention_kernel_shape_ok(H, KH, D, S, _WARPS)
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
     for t in (k_cache, v_cache):
@@ -110,7 +121,7 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     ks = k_scale.to(torch.float32).contiguous()
     vs = v_scale.to(torch.float32).contiguous()
     iks, ivs = reciprocal(ks), reciprocal(vs)
-    pos = _positions(positions, B, qkv.device)
+    pos = positions(cache_index, B, qkv.device)
     out = torch.empty((B, H * D), dtype=qkv.dtype, device=qkv.device)
     fused_decode_attention.launches += 1
     _build.launch(

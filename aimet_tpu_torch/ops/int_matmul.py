@@ -1,10 +1,14 @@
-"""W4A8 integer matmul: split-half packed INT4 weights x per-row INT8
-activations — the port's part of ``aimet_tpu/ops/int_matmul.py``.
+"""Integer matmuls — the port's part of ``aimet_tpu/ops/int_matmul.py``:
 
-Host math (weight/activation quantizers, the split-half packing) is plain
-PyTorch. The matmul itself runs two hand-written Hopper kernels on a CUDA
-tensor (``csrc/act_quant.cu`` then ``csrc/w4a8_gemm.cu``); on a CPU tensor
-the wrappers take the plain versions beside them.
+- W4A8: split-half packed INT4 weights x per-row INT8 activations, kernels
+  K1 (``csrc/act_quant.cu``) then K2 (``csrc/w4a8_gemm.cu``);
+- weight-only INT4 (``matmul_w4``, kernel KW4) and INT8 (``matmul_w8``,
+  kernel KW8), both ``csrc/wo_gemm.cu``: bf16 activations, f32 sums.
+
+Host math (weight/activation quantizers, the split-half packing, the
+decode split policy) is plain PyTorch. On a CUDA tensor the wrappers
+launch the kernels; on a CPU tensor they take the plain versions beside
+them.
 
 Storage contract kept byte for byte (``pack_int4_split_half``): packed row
 ``r`` holds ``W[r] + 8`` in its low nibble and ``W[r + K/2]`` (two's
@@ -37,6 +41,16 @@ def quantize_weight_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = div_ieee(amax.clamp_min(1e-8), 7.0)
     q = torch.round(w / scale[None, :]).clamp(-7, 7)
     return pack_int4_split_half(q), scale.to(torch.float32)
+
+
+def quantize_weight_per_channel(w: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel INT8: w (K, N) -> (codes (K, N) int8,
+    scale (N,) f32), scale = max(amax, 1e-8) / 127."""
+    amax = w.abs().amax(dim=0)
+    scale = div_ieee(amax.clamp_min(1e-8), 127.0)
+    q = torch.round(w / scale[None, :]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
 
 
 def pack_int4_split_half(q: torch.Tensor) -> torch.Tensor:
@@ -120,13 +134,21 @@ def matmul_w4a8_torch(x: torch.Tensor, w_packed: torch.Tensor,
                            out_dtype or x.dtype)
 
 
-def _splits(M: int, N: int, K2: int) -> int:
-    """K splits for the GEMM grid: fill the card with ~4 blocks per SM when
-    the M x N tiles alone cannot, keeping at least two K steps per split."""
+def decode_splits(M: int, N: int, steps: int) -> int:
+    """The decode tile policy of the GEMM kernels (K2, KW4, KW8): how many
+    blocks share the K range of one 64 x 128 output tile. At decode M the
+    M x N tiles alone cannot fill 132 SMs, so K is split until there are
+    ~4 blocks per SM, keeping at least two K steps per split. (The TPU's
+    ``decode_blocks`` instead sized one core's weight tiles.)"""
     tiles = -(-M // _TILE_M) * -(-N // _TILE_N)
-    ktiles = -(-K2 // _TILE_P)
     want = -(-4 * _SMS // tiles)
-    return max(1, min(want, ktiles // 2))
+    return max(1, min(want, steps // 2))
+
+
+def _used_splits(steps: int, splits: int) -> int:
+    """The non-empty splits when ``steps`` K steps go ``splits`` ways."""
+    per = -(-steps // splits)
+    return -(-steps // per)
 
 
 def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -157,7 +179,7 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
                      for t in (x_q, w_packed))
     x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-    splits = _splits(M, N, K2)
+    splits = decode_splits(M, N, -(-K2 // _TILE_P))
     ws = (torch.zeros((M, N), dtype=torch.int32, device=x_q.device)
           if splits > 1 else out)
     w4a8_gemm.launches += 1
@@ -188,3 +210,97 @@ def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
                          f"{tuple(w_packed.shape)}")
     x_q, x_scale = quantize_activation_per_row(x)
     return w4a8_gemm(x_q, x_scale, w_packed, w_scale, out_dtype or x.dtype)
+
+
+# --------------------------------------------------------------------------
+# weight-only INT4 / INT8 (KW4 / KW8)
+# --------------------------------------------------------------------------
+
+def matmul_w8_torch(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of :func:`matmul_w8` (the JAX package's
+    ``matmul_w8_xla``): f32 sums of x times the int8 codes, times the
+    column scale."""
+    acc = x.to(torch.float32) @ w_q.to(torch.float32)
+    return (acc * w_scale.to(torch.float32)[None, :]).to(
+        out_dtype or x.dtype)
+
+
+def matmul_w4_torch(x: torch.Tensor, w_packed: torch.Tensor,
+                    w_scale: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain version of :func:`matmul_w4` (the JAX package's
+    ``matmul_w4_xla``): x_lo . lo + x_hi . hi in f32, times the column
+    scale, with lo = (p & 15) - 8 and hi = p >> 4."""
+    K2 = w_packed.shape[0]
+    lo = ((w_packed & 0xF) - 8).to(torch.float32)
+    hi = (w_packed >> 4).to(torch.float32)
+    xf = x.to(torch.float32)
+    acc = xf[:, :K2] @ lo + xf[:, K2:] @ hi
+    return (acc * w_scale.to(torch.float32)[None, :]).to(
+        out_dtype or x.dtype)
+
+
+_BF_STEP_K = 64     # k values a step of the weight-only kernels
+
+
+def _weight_only(name: str, x, w, w_scale, out_dtype, w4: bool, fn):
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"x must be (M, K) and w 2-D, got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    M, K = x.shape
+    rows, N = w.shape
+    if (2 * rows if w4 else rows) != K or w_scale.shape != (N,):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, w_scale {tuple(w_scale.shape)}")
+    out_dtype = out_dtype or x.dtype
+    if not on_cuda(x, w, w_scale):
+        plain = matmul_w4_torch if w4 else matmul_w8_torch
+        return plain(x, w, w_scale, out_dtype)
+    if x.dtype != torch.bfloat16 or out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"{name} takes bfloat16 x and a float32 or bfloat16 "
+                        f"output, got {x.dtype} -> {out_dtype}")
+    if w.dtype != torch.int8 or w_scale.dtype != torch.float32:
+        raise TypeError(f"expected int8 weights and float32 scales, got "
+                        f"{w.dtype}, {w_scale.dtype}")
+    # the kernel reads 16-byte vectors: contiguous, 16-byte aligned operands
+    x, w = (t.contiguous() for t in (x, w))
+    x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+    w_scale = w_scale.contiguous()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    steps = -(-K // _BF_STEP_K)
+    splits = _used_splits(steps, decode_splits(M, N, steps))
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else out)
+    fn.launches += 1
+    _build.launch(name, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                  out.data_ptr(), ws.data_ptr(), M, N, K, splits,
+                  int(out_dtype == torch.bfloat16),
+                  _build.stream_ptr(x.device))
+    return out
+
+
+def matmul_w4(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Weight-only INT4: x (M, K) @ split-half INT4 weights (K//2, N) int8
+    with per-column scales (N,) f32 -> (M, N) ``out_dtype`` (default x's
+    dtype). On CUDA tensors (x bf16) it launches kernel KW4
+    (``csrc/wo_gemm.cu``) at every M, splitting K by
+    :func:`decode_splits`; on CPU tensors it takes
+    :func:`matmul_w4_torch`."""
+    return _weight_only("aimet_w4_gemm", x, w_packed, w_scale, out_dtype,
+                        True, matmul_w4)
+
+
+def matmul_w8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Weight-only INT8: x (M, K) @ int8 codes (K, N) with per-column
+    scales (N,) f32. On CUDA tensors (x bf16) it launches kernel KW8
+    (``csrc/wo_gemm.cu``) at every M; on CPU tensors it takes
+    :func:`matmul_w8_torch`."""
+    return _weight_only("aimet_w8_gemm", x, w_q, w_scale, out_dtype, False,
+                        matmul_w8)
+
+
+matmul_w4.launches = 0
+matmul_w8.launches = 0

@@ -3,8 +3,9 @@
 
 A fixed pool of cache slots; pending requests are admitted into free slots
 in power-of-two waves with one batched prefill; every engine step decodes
-all slots together with per-slot cache positions (through the decode
-attention kernel on the card); finished requests free their slots at once.
+all slots together with per-slot cache positions, in the model's mode
+(on the card: the decode attention kernel per layer, and in ``w4`` mode
+the fused W_o + MLP kernel); finished requests free their slots at once.
 The slot caches are updated in place: admission copies each wave's cache
 rows into its slots with ``index_copy_``.
 """

@@ -1,15 +1,34 @@
-"""True-quant LLM inference in W4A8: packed INT4 weights, per-row INT8
-activations, INT8 KV cache — counterpart of
-``aimet_tpu/serving/quantized_llm.py``.
+"""True-quant LLM inference: integer weights, INT8 KV cache — counterpart
+of ``aimet_tpu/serving/quantized_llm.py``.
 
-Every projection and the ``lm_head`` go through ``matmul_w4a8`` (kernels K1
-and K2 on the card), and each decode step's attention through
-``fused_decode_attention`` (kernel K3). Prefill attention is plain tensor
-ops over the INT8 cache, as in the JAX package. The KV caches are updated
-in place.
+Modes (the weight storage and the matmul every projection goes through):
 
-Only ``w4a8`` mode is ported so far; ``w8`` and ``w4`` need the W8 and
-weight-only W4 kernels of later slices and raise ``NotImplementedError``.
+- ``w8``: int8 (K, N) codes, weight-only (``matmul_w8``, kernel KW8);
+- ``w4``: split-half packed INT4, weight-only (``matmul_w4``, KW4);
+- ``w4a8``: packed INT4 with per-row INT8 activations (``matmul_w4a8``,
+  K1 + K2).
+
+Prefill attention is plain tensor ops over the INT8 cache, as in the JAX
+package. Decode mirrors the JAX package's dispatch
+(``quantized_llm.py:370-451``), decided from shapes and arguments before
+any launch:
+
+- INT4 modes with at most 64 rows on a model with d_model and d_ff of at
+  least 1024 take the whole-layer kernels: at a scalar ``cache_index`` one
+  ``sol_decode_layer`` per layer (KSOL; true W4A8 in ``w4a8`` mode), with
+  per-slot positions in ``w4`` mode ``fused_decode_attention`` (K3) +
+  ``fused_wo_mlp`` (KFL) with the next layer's QKV; layer 0's QKV and the
+  ``lm_head`` go through the mode's matmul;
+- everything else (``w8``; ``w4a8`` with per-slot positions, which keeps
+  true W4A8 since KFL is weight-only; smaller models or batches) runs per
+  op: the mode's matmul per projection and K3 per layer.
+
+The size gate is the JAX package's (``_fused_decode_blocks``: below that
+width one launch per layer buys nothing); the 64 rows are what one
+kernel launch takes. The TPU's other gates (backend, S % 32, B % 8,
+head_dim % 128) do not apply. On the card, ``w4``, ``w8`` and the
+whole-layer kernels take bf16 activations (``cfg.dtype``). The KV caches
+are updated in place.
 """
 from __future__ import annotations
 
@@ -23,55 +42,55 @@ from .._device import DeviceLike, resolve_device
 from ..models.transformer import TransformerConfig, apply_rope, rope_freqs
 from ..ops._common import div_ieee
 from ..ops.decode_attention_fused import fused_decode_attention
-from ..ops.int_matmul import matmul_w4a8, quantize_weight_int4
+from ..ops.decode_layer_sol import sol_decode_layer
+from ..ops.fused_layer import MAX_ROWS, fused_wo_mlp
+from ..ops.int_matmul import (matmul_w4, matmul_w4a8, matmul_w8,
+                              quantize_weight_int4,
+                              quantize_weight_per_channel)
 from ..ops.kv_cache import (QuantizedKVCache, init_quantized_kv_cache,
                             prefill_kv)
 
-_NOT_PORTED = {
-    "w8": "ROADMAP.md queue B, 'matmul_w8 / _w8_kernel' (w8 serving mode)",
-    "w4": "ROADMAP.md queue B, 'matmul_w4 / _w4_kernel' (w4 serving mode)",
-}
+MODES = ("w8", "w4", "w4a8")
+_MATMUL = {"w8": matmul_w8, "w4": matmul_w4, "w4a8": matmul_w4a8}
 
 
 def check_mode(mode: str) -> None:
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported to aimet_tpu_torch yet; it needs "
-            f"{_NOT_PORTED[mode]}")
-    if mode != "w4a8":
-        raise ValueError(f"unknown mode {mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
 
 
 @torch.no_grad()
 def quantize_transformer_weights(params, cfg: TransformerConfig,
-                                 mode: str = "w4a8") -> Dict[str, Any]:
-    """Float weights -> the W4A8 weight tree (packed INT4 + per-channel
-    scales, float norms and embedding), with the JAX package's structure:
-    ``wq|wk|wv`` fused into ``wqkv`` and ``w_gate|w_up`` into
-    ``w_gateup``.
+                                 mode: str = "w8") -> Dict[str, Any]:
+    """Float weights -> the integer weight tree (per-channel symmetric
+    codes + f32 scales, float norms and embedding), with the JAX package's
+    structure: ``wq|wk|wv`` fused into ``wqkv`` and ``w_gate|w_up`` into
+    ``w_gateup``. ``w8``: int8 (K, N) codes; ``w4``/``w4a8``: split-half
+    packed INT4 (K/2, N).
 
     ``params`` is the float ``Transformer``'s state dict (flax names) or the
     module itself."""
     check_mode(mode)
+    quant = (quantize_weight_per_channel if mode == "w8"
+             else quantize_weight_int4)
     if isinstance(params, torch.nn.Module):
         params = params.state_dict()
     p = {k: v.detach() for k, v in params.items()}
     out = {"layers": [], "embed": p["embed.embedding"],
            "final_norm": p["final_norm.scale"],
-           "lm_head": pad_vocab_for_decode(
-               quantize_weight_int4(p["lm_head.kernel"]))}
+           "lm_head": pad_vocab_for_decode(quant(p["lm_head.kernel"]))}
     for i in range(cfg.n_layers):
         pre = f"layer_{i}."
         kern = lambda name: p[pre + name + ".kernel"]
         out["layers"].append({
             "attn_norm": p[pre + "attn_norm.scale"],
             "mlp_norm": p[pre + "mlp_norm.scale"],
-            "wqkv": quantize_weight_int4(torch.cat(
+            "wqkv": quant(torch.cat(
                 [kern("attn.wq"), kern("attn.wk"), kern("attn.wv")], dim=1)),
-            "wo": quantize_weight_int4(kern("attn.wo")),
-            "w_gateup": quantize_weight_int4(torch.cat(
+            "wo": quant(kern("attn.wo")),
+            "w_gateup": quant(torch.cat(
                 [kern("mlp.w_gate"), kern("mlp.w_up")], dim=1)),
-            "w_down": quantize_weight_int4(kern("mlp.w_down")),
+            "w_down": quant(kern("mlp.w_down")),
         })
     return out
 
@@ -88,21 +107,24 @@ def pad_vocab_for_decode(lm_head_pair, multiple: int = 4096):
 
 
 @torch.no_grad()
-def random_quantized_weights(cfg: TransformerConfig, mode: str = "w4a8",
+def random_quantized_weights(cfg: TransformerConfig, mode: str = "w4",
                              seed: int = 0,
                              device: DeviceLike = None) -> Dict[str, Any]:
     """A random transformer drawn directly in quantized storage on
     ``device`` (default ``cuda``), with the structure of
-    :func:`quantize_transformer_weights`: uniform random int8 bytes (every
-    byte is a valid packed INT4 pair) and scales U(0.5, 1.5) * 0.02/sqrt(K),
-    which keep activations O(1) through the stack."""
+    :func:`quantize_transformer_weights`: uniform random int8 bytes (int8
+    codes in ``w8`` mode; in the INT4 modes every byte is a valid packed
+    pair) and scales U(0.5, 1.5) * 0.02/sqrt(K), as the JAX package
+    draws them."""
     check_mode(mode)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    packed = mode != "w8"
 
     def rand_q(k_dim, n_dim):
-        q = torch.randint(-128, 128, (k_dim // 2, n_dim), dtype=torch.int8,
+        rows = k_dim // 2 if packed else k_dim
+        q = torch.randint(-128, 128, (rows, n_dim), dtype=torch.int8,
                           generator=gen, device=dev)
         scale = (torch.rand((n_dim,), generator=gen, device=dev) + 0.5) \
             * (0.02 / np.sqrt(k_dim))
@@ -160,11 +182,12 @@ def _rms_norm(x, scale, eps):
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 
 
-def _proj(x, wq_scale):
-    """x (B, T, D) @ W4A8 weight -> (B, T, out)."""
+def _proj(x, wq_scale, mode):
+    """x (B, T, D) @ quantized weight -> (B, T, out), through the mode's
+    matmul (the JAX package's ``_qmm``)."""
     wq, scale = wq_scale
     b, t, d = x.shape
-    return matmul_w4a8(x.reshape(b * t, d), wq, scale).reshape(b, t, -1)
+    return _MATMUL[mode](x.reshape(b * t, d), wq, scale).reshape(b, t, -1)
 
 
 def _prefill_attention(cfg, qkv, cos, sin, mask, cache, prompt_lengths):
@@ -191,10 +214,70 @@ def _prefill_attention(cfg, qkv, cos, sin, mask, cache, prompt_lengths):
     return out.reshape(B, T, H * D)
 
 
+def _fused_decode_ok(cfg: TransformerConfig, rows: int, mode: str) -> bool:
+    """Whether a decode step takes the whole-layer kernels (see the module
+    docstring)."""
+    return (mode in ("w4", "w4a8") and rows <= MAX_ROWS
+            and cfg.d_model >= 1024 and cfg.d_ff >= 1024)
+
+
+def _fused_decode_layers(qw, cfg, x, caches, pos, cos, sin, mode,
+                         scalar: bool):
+    """The decode layers through the whole-layer kernels: x (B, D) ->
+    (B, D). ``scalar``: one KSOL per layer; else K3 + KFL per layer."""
+    H, KH, eps = cfg.n_heads, cfg.n_kv_heads, cfg.norm_eps
+    layers = qw["layers"]
+    qkv = _proj(_rms_norm(x[:, None], layers[0]["attn_norm"], eps),
+                layers[0]["wqkv"], mode)[:, 0]
+    for i, (layer, c) in enumerate(zip(layers, caches)):
+        nxt = (None if i + 1 == len(layers)
+               else (layers[i + 1]["wqkv"], layers[i + 1]["attn_norm"]))
+        block = (layer["wo"], layer["w_gateup"], layer["w_down"],
+                 layer["mlp_norm"])
+        if scalar:
+            res = sol_decode_layer(
+                qkv, x, c.k, c.v, c.k_scale, c.v_scale, pos, cos, sin,
+                *block, eps=eps, next_qkv=nxt, n_heads=H,
+                n_kv_heads=KH, int8_dots=mode == "w4a8")
+        else:
+            attn, _, _ = fused_decode_attention(
+                qkv, cos, sin, c.k, c.v, c.k_scale, c.v_scale, pos,
+                n_heads=H, n_kv_heads=KH)
+            res = fused_wo_mlp(attn, x, *block, eps=eps, next_qkv=nxt)
+            res = (res,) if nxt is None else res
+        x, qkv = res[0], (res[1] if nxt is not None else None)
+    return x
+
+
+def _per_op_layers(qw, cfg, x, caches, prefill, mask, pos, cos, sin, mode,
+                   prompt_lengths):
+    """The layers one op at a time: x (B, T, D) -> (B, T, D)."""
+    B = x.shape[0]
+    D2 = cfg.head_dim // 2
+    for layer, c in zip(qw["layers"], caches):
+        qkv = _proj(_rms_norm(x, layer["attn_norm"], cfg.norm_eps),
+                    layer["wqkv"], mode)
+        if prefill:
+            attn = _prefill_attention(cfg, qkv, cos, sin, mask, c,
+                                      prompt_lengths)
+        else:
+            attn, _, _ = fused_decode_attention(
+                qkv.reshape(B, -1), cos.reshape(B, D2), sin.reshape(B, D2),
+                c.k, c.v, c.k_scale, c.v_scale, pos,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+            attn = attn.reshape(B, 1, -1)
+        x = x + _proj(attn, layer["wo"], mode)
+        gu = _proj(_rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
+                   layer["w_gateup"], mode)
+        x = x + _proj(F.silu(gu[..., :cfg.d_ff]) * gu[..., cfg.d_ff:],
+                      layer["w_down"], mode)
+    return x
+
+
 @torch.no_grad()
 def quantized_forward(qw, cfg: TransformerConfig, tokens: torch.Tensor,
                       caches: List[QuantizedKVCache], cache_index=0,
-                      prefill: bool = True, mode: str = "w4a8",
+                      prefill: bool = True, mode: str = "w8",
                       prompt_lengths=None):
     """Returns (logits (B, T, vocab) f32, caches).
 
@@ -207,7 +290,8 @@ def quantized_forward(qw, cfg: TransformerConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     dev = tokens.device
     x = qw["embed"][tokens].to(cfg.dtype)
-    D2 = cfg.head_dim // 2
+    fused = scalar = False
+    mask = pos = None
     if prefill:
         positions = torch.arange(T, device=dev)
         S = caches[0].k.shape[1]
@@ -217,29 +301,20 @@ def quantized_forward(qw, cfg: TransformerConfig, tokens: torch.Tensor,
     else:
         if T != 1:
             raise ValueError(f"decode takes one token per row, got T={T}")
+        # the dispatch is decided before the position is expanded per row
+        scalar = torch.as_tensor(cache_index).dim() == 0
+        fused = _fused_decode_ok(cfg, B, mode) and (scalar or mode == "w4")
         pos = torch.as_tensor(cache_index, device=dev).to(
             torch.int32).reshape(-1).expand(B)
         cos, sin = rope_freqs(cfg, pos)                   # (B, D/2)
-    for layer, c in zip(qw["layers"], caches):
-        qkv = _proj(_rms_norm(x, layer["attn_norm"], cfg.norm_eps),
-                    layer["wqkv"])
-        if prefill:
-            attn = _prefill_attention(cfg, qkv, cos, sin, mask, c,
-                                      prompt_lengths)
-        else:
-            attn, _, _ = fused_decode_attention(
-                qkv.reshape(B, -1), cos.reshape(B, D2), sin.reshape(B, D2),
-                c.k, c.v, c.k_scale, c.v_scale, pos,
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
-            attn = attn.reshape(B, 1, -1)
-        x = x + _proj(attn, layer["wo"])
-        gu = _proj(_rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
-                   layer["w_gateup"])
-        x = x + _proj(F.silu(gu[..., :cfg.d_ff]) * gu[..., cfg.d_ff:],
-                      layer["w_down"])
+    if fused:
+        x = _fused_decode_layers(qw, cfg, x[:, 0], caches, pos, cos, sin,
+                                 mode, scalar)[:, None]
+    else:
+        x = _per_op_layers(qw, cfg, x, caches, prefill, mask, pos, cos, sin,
+                           mode, prompt_lengths)
     x = _rms_norm(x, qw["final_norm"], cfg.norm_eps)
-    wq, scale = qw["lm_head"]
-    logits = matmul_w4a8(x.reshape(B * T, -1), wq, scale)
+    logits = _proj(x, qw["lm_head"], mode).reshape(B * T, -1)
     logits = logits[:, :cfg.vocab_size]       # drop the vocab padding
     return logits.reshape(B, T, -1).to(torch.float32), caches
 
@@ -251,7 +326,7 @@ class QuantizedLLM:
     ``device``: ``cuda`` unless the caller passes ``"cpu"``; without CUDA
     and without an explicit CPU device this raises."""
 
-    def __init__(self, params, cfg: TransformerConfig, mode: str = "w4a8",
+    def __init__(self, params, cfg: TransformerConfig, mode: str = "w8",
                  max_len: int = 256, device: DeviceLike = None, _qw=None):
         check_mode(mode)
         self.device = resolve_device(device)
@@ -263,7 +338,7 @@ class QuantizedLLM:
         self.qw = tree_to(qw, self.device)
 
     @classmethod
-    def from_quantized(cls, qw, cfg: TransformerConfig, mode: str = "w4a8",
+    def from_quantized(cls, qw, cfg: TransformerConfig, mode: str = "w8",
                        max_len: int = 256,
                        device: DeviceLike = None) -> "QuantizedLLM":
         """Build directly from a quantized weight tree."""

@@ -4,8 +4,10 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: codes, GEMM outputs and KV-cache bytes bit-exact; decode
-attention output max error relative to its max < 2e-2 (bf16).
+Tolerances: codes, W4A8 GEMM outputs and KV-cache bytes bit-exact; the
+rest as max |kernel - plain| relative to max |plain| (bf16): decode
+attention and the fused layer kernels < 2e-2 (< 6e-2 with int8 dots),
+the weight-only GEMMs < 1e-2, whose repeated calls give the same bits.
 """
 import pytest
 import torch
@@ -13,6 +15,9 @@ import torch
 from aimet_tpu_torch.ops import int_matmul as tim
 from aimet_tpu_torch.ops.decode_attention_fused import (
     fused_decode_attention, fused_decode_attention_torch)
+from aimet_tpu_torch.ops.decode_layer_sol import (sol_decode_layer,
+                                                  sol_decode_layer_torch)
+from aimet_tpu_torch.ops.fused_layer import fused_wo_mlp, fused_wo_mlp_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +77,93 @@ def test_decode_attention_kernel_matches_plain(gen, positions):
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
     err = (out.float() - ref.float()).abs().max() / ref.float().abs().max()
     assert err < 2e-2, err
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (16, 4096, 6144),                       # decode wqkv
+    (37, 144, 1000),                        # ragged M, N and K
+    (300, 2048, 4096),                      # prefill-like
+])
+@pytest.mark.parametrize("w4", [True, False], ids=["w4", "w8"])
+def test_weight_only_kernels_match_plain(gen, m, k, n, w4):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-128, 128, (k // 2 if w4 else k, n), dtype=torch.int8,
+                      generator=gen, device="cuda")
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    fn, plain = ((tim.matmul_w4, tim.matmul_w4_torch) if w4
+                 else (tim.matmul_w8, tim.matmul_w8_torch))
+    got = fn(x, w, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert _rel(got, plain(x, w, scale)) < 1e-2
+    assert torch.equal(fn(x, w, scale), got)          # fixed split order
+
+
+def _int4(gen, k, n):
+    return (torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                          generator=gen, device="cuda"),
+            (torch.rand((n,), generator=gen, device="cuda") + 0.5)
+            * (1.5 / k ** 0.5) / 4)
+
+
+def _block(gen, a, d, f, nq):
+    return dict(
+        wo_pair=_int4(gen, a, d), gateup_pair=_int4(gen, d, 2 * f),
+        down_pair=_int4(gen, f, d),
+        mlp_gamma=(torch.rand(d, generator=gen, device="cuda") + 0.5).to(
+            torch.bfloat16),
+        next_qkv=None if not nq else (_int4(gen, d, nq), (torch.rand(
+            d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)))
+
+
+@pytest.mark.parametrize("next_qkv", [False, True])
+def test_fused_wo_mlp_kernel_matches_plain(gen, next_qkv):
+    m, a, d, f, nq = 16, 2048, 2048, 5632, 3072
+    ao = torch.randn((m, a), generator=gen, device="cuda").to(torch.bfloat16)
+    resid = torch.randn((m, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kw = _block(gen, a, d, f, nq if next_qkv else 0)
+    got = fused_wo_mlp(ao, resid, **kw)
+    want = fused_wo_mlp_torch(ao, resid, **kw)
+    got, want = (got, want) if next_qkv else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g, w) < 2e-2
+
+
+@pytest.mark.parametrize("int8_dots", [False, True])
+@pytest.mark.parametrize("next_qkv", [False, True])
+def test_sol_decode_layer_kernel_matches_plain(gen, int8_dots, next_qkv):
+    b, s, h, kh, d, f, pos = 16, 512, 16, 4, 128, 5632, 300
+    dm = h * d
+    kc = torch.randint(-127, 128, (b, s, kh, d), dtype=torch.int8,
+                       generator=gen, device="cuda")
+    vc = torch.randint(-127, 128, (b, s, kh, d), dtype=torch.int8,
+                       generator=gen, device="cuda")
+    ks = torch.rand((b, kh), generator=gen, device="cuda") * 0.05 + 0.01
+    vs = torch.rand((b, kh), generator=gen, device="cuda") * 0.05 + 0.01
+    qkv = torch.randn((b, (h + 2 * kh) * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    resid = torch.randn((b, dm), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ang = torch.full((b, 1), float(pos), device="cuda") * torch.rand(
+        d // 2, generator=gen, device="cuda")
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    kw = _block(gen, dm, dm, f, (h + 2 * kh) * d if next_qkv else 0)
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = sol_decode_layer(qkv, resid, kc, vc, ks, vs, pos, cos, sin,
+                           n_heads=h, n_kv_heads=kh, int8_dots=int8_dots,
+                           **kw)
+    want = sol_decode_layer_torch(qkv, resid, kc2, vc2, ks, vs, pos, cos,
+                                  sin, n_heads=h, n_kv_heads=kh,
+                                  int8_dots=int8_dots, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    n_out = 2 if next_qkv else 1
+    for g, w in zip(got[:n_out], want[:n_out]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g, w) < (6e-2 if int8_dots else 2e-2)

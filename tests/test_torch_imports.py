@@ -35,6 +35,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_port_leaves_jax_unloaded():
     code = ("import sys, aimet_tpu_torch, aimet_tpu_torch.convert; "
             "import aimet_tpu_torch.ops.decode_attention_fused; "
+            "import aimet_tpu_torch.ops.fused_layer; "
+            "import aimet_tpu_torch.ops.decode_layer_sol; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
