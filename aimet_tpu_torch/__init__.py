@@ -4,17 +4,23 @@ Layout and names follow ``aimet_tpu``: ``ops/`` holds the kernel wrappers
 (hand-written CUDA C++ in ``csrc/``, built at first use by ``_build``),
 each beside its plain PyTorch version; ``models/`` and ``serving/`` hold
 the model and the serving path in the modes ``w8`` (the default), ``w4``
-and ``w4a8``. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+and ``w4a8``; ``quantization/``, ``graph/`` and ``quantsim/`` hold the
+quantization simulation (``QuantizationSimModel``) and its lowering to the
+integer kernels (``lower_to_int``). Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
 from .models.transformer import Transformer, TransformerConfig
+from .quantsim.config import QuantSimConfig
+from .quantsim.lowering import LoweredModel, lower_to_int
+from .quantsim.qsim import QuantizationSimModel
 from .serving.batcher import ContinuousBatcher, Request
 from .serving.quantized_llm import (QuantizedLLM, quantize_transformer_weights,
                                     quantized_forward,
                                     random_quantized_weights)
 
 __all__ = [
-    "ContinuousBatcher", "QuantizedLLM", "Request", "Transformer",
-    "TransformerConfig", "quantize_transformer_weights", "quantized_forward",
-    "random_quantized_weights",
+    "ContinuousBatcher", "LoweredModel", "QuantSimConfig",
+    "QuantizationSimModel", "QuantizedLLM", "Request", "Transformer",
+    "TransformerConfig", "lower_to_int", "quantize_transformer_weights",
+    "quantized_forward", "random_quantized_weights",
 ]

@@ -49,9 +49,16 @@ SIGNATURES = {
     # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out,
     # B, S, H, KH, D, sqrt_d, io_is_bf16, stream
     "aimet_decode_attention": [_VP] * 11 + [_I] * 5 + [_F, _I, _VP],
-    # x, w, sw, out, ws, M, N, K, splits, out_is_bf16, stream
-    "aimet_w4_gemm": [_VP] * 5 + [_I] * 5 + [_VP],
-    "aimet_w8_gemm": [_VP] * 5 + [_I] * 5 + [_VP],
+    # x, w, sw, out, ws, M, N, K, splits, x_is_f32, out_is_bf16, stream
+    "aimet_w4_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
+    "aimet_w8_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
+    # x, w, gs, out, ws, M, N, K, group, splits, x_is_f32, out_is_bf16,
+    # stream
+    "aimet_w4g_gemm": [_VP] * 5 + [_I] * 7 + [_VP],
+    # x, xq, M, K, inv_dx, shift, hi, x_is_bf16, stream
+    "aimet_staticq_quant": [_VP, _VP, _I, _I, _F, _F, _F, _I, _VP],
+    # xq, w, sv, cb, out, ws, M, N, K, splits, out_is_bf16, stream
+    "aimet_staticq_gemm": [_VP] * 6 + [_I] * 5 + [_VP],
     # attn, int8, rep, head_dim, S -> bytes (not an error code)
     "aimet_fused_layer_smem": [_I] * 5,
     # attn, int8, smem, int* blocks

@@ -5,15 +5,24 @@ arrays) onto the float ``Transformer``'s state dict; the module names are
 the flax names, so this is a flatten. ``quantized_from_jax`` takes a JAX
 quantized weight tree (numpy) to the port's tree: packed bytes and scales
 pass through unchanged, since both packages share the storage contract.
+
+Parameter names: the JAX package keys a parameter by its tree path
+(``"['params']['layer_0']['attn']['wq']['kernel']"``), the port by its
+qualified module name (``layer_0.attn.wq.kernel``); ``port_param_name`` and
+``jax_param_key`` map one to the other. ``encodings_from_jax`` carries a
+quantsim's encodings across (numpy fields, any object with the
+``AffineEncoding`` attributes).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .quantization.affine import AffineEncoding
 
 
 def _tensor(a) -> torch.Tensor:
@@ -51,3 +60,49 @@ def quantized_from_jax(qw_np, device: DeviceLike = None) -> Dict[str, Any]:
         return _tensor(t).to(dev)
 
     return conv(qw_np)
+
+
+_KEY_PART = re.compile(r"\['([^']*)'\]")
+_ENC_FIELDS = ("min", "max", "delta", "offset")
+_ENC_STATIC = ("bitwidth", "symmetric", "strict_symmetric",
+               "unsigned_symmetric")
+
+
+def port_param_name(jax_key: str) -> str:
+    """``"['params']['layer_0']['attn']['wq']['kernel']"`` ->
+    ``layer_0.attn.wq.kernel``; any other name is returned unchanged."""
+    parts = _KEY_PART.findall(jax_key)
+    if not parts or "".join(f"['{p}']" for p in parts) != jax_key:
+        return jax_key
+    if parts[0] == "params":
+        parts = parts[1:]
+    return ".".join(parts)
+
+
+def jax_param_key(name: str) -> str:
+    """``layer_0.attn.wq.kernel`` -> ``"['params']['layer_0']['attn']['wq']
+    ['kernel']"`` (the flax ``variables`` tree path)."""
+    return "['params']" + "".join(f"['{p}']" for p in name.split("."))
+
+
+def encodings_from_jax(encodings: Mapping[str, Any],
+                       name_map: Optional[Mapping[str, str]] = None,
+                       device: DeviceLike = None) -> Dict[str, AffineEncoding]:
+    """JAX quantsim encodings (``sim.encodings``, or dicts of numpy fields)
+    -> the port's, on ``device`` (default ``cuda``). Parameter keys become
+    port names; other keys go through ``name_map`` (activation quantizers
+    are named after ops, whose non-linear names differ between the
+    packages) or stay as they are."""
+    dev = resolve_device(device)
+    name_map = name_map or {}
+    out = {}
+    for key, enc in encodings.items():
+        get = enc.get if isinstance(enc, Mapping) else \
+            (lambda f, e=enc: getattr(e, f))
+        fields = {f: torch.from_numpy(np.array(get(f), np.float32)).to(dev)
+                  for f in _ENC_FIELDS}
+        static = {f: type(getattr(AffineEncoding, f))(get(f))
+                  for f in _ENC_STATIC}
+        name = name_map.get(key, port_param_name(key))
+        out[name] = AffineEncoding(**fields, **static)
+    return out

@@ -1,12 +1,22 @@
-// KW4 / KW8: weight-only GEMM — bf16 activations x integer weights, f32
-// accumulators, times the per-column scale:
-//   out[m,n] = (sum_k x[m,k] * W[k,n]) * sw[n], cast to the out dtype.
+// KW4 / KW8 / KW4G: weight-only GEMM — bf16 or f32 activations x integer
+// weights, f32 accumulators, times the per-column scale:
+//   out[m,n] = (sum_k x[m,k] * W[k,n]) * sw[n], cast to the out dtype;
+// or, grouped, one scale per (K-group, n):
+//   out[m,n] = sum_g sw[g,n] * (sum_{k in g} x[m,k] * W[k,n]).
 //
 // Replaces aimet_tpu/ops/int_matmul.py:matmul_w4 / _w4_kernel (with the
-// matmul_w4_decode tile policy) and matmul_w8 / _w8_kernel. One source
-// serves both, templated on the weight format:
+// matmul_w4_decode tile policy), matmul_w8 / _w8_kernel and
+// matmul_w4_grouped / _w4g_kernel, _w4g_acc_kernel. One source serves all
+// three, templated on the weight format:
 //   KW4 (aimet_w4_gemm): W split-half packed INT4, (K/2, N) int8;
-//   KW8 (aimet_w8_gemm): W int8 codes, (K, N).
+//   KW8 (aimet_w8_gemm): W int8 codes, (K, N);
+//   KW4G (aimet_w4g_gemm): W split-half packed INT4 with group scales
+//   (K/group, N); each group's f32 sum is scaled once, as the TPU's
+//   _w4g_acc_kernel does (the weights stay exact in bf16).
+// f32 activations (the f32 lm_head of a lowered Llama) are not rounded to
+// bf16: the tile splits each value into a bf16 high part and a bf16
+// residual and multiplies both against the exact codes (2 MMAs a product;
+// the result is within ~2^-16 of the f32 product).
 // The INT4 nibbles are unpacked in registers to their signed values
 // (lo = (p & 15) - 8, hi = p >> 4), exact in bf16, and the kernel computes
 // x_lo . lo + x_hi . hi directly as the oracle matmul_w4_xla does; the
@@ -34,20 +44,23 @@ using aimet::kTileM;
 using aimet::kTileN;
 using aimet::kTileThreads;
 
-// ws == nullptr: writes out = acc * sw; else writes the block's partial
-// sums into slice blockIdx.z of ws (splits, M, N).
-template <bool kW4, typename OutT>
+// ws == nullptr: writes out = acc * sw (grouped: acc, already scaled);
+// else writes the block's partial sums into slice blockIdx.z of ws
+// (splits, M, N).
+template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
 __global__ void __launch_bounds__(kTileThreads)
-wo_gemm_kernel(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
+wo_gemm_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ sw, OutT* __restrict__ out,
-               float* __restrict__ ws, int M, int N, int K, int split_rows) {
-  __shared__ __align__(16) aimet::BfTile sm;
+               float* __restrict__ ws, int M, int N, int K, int split_rows,
+               int group) {
+  __shared__ __align__(16) aimet::BfTileX<kF32X> sm;
   const int Kw = kW4 ? K / 2 : K;
   const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
   const int r_begin = blockIdx.z * split_rows;
   const int r_end = min(Kw, r_begin + split_rows);
   float acc[2][4][4] = {};
-  aimet::bf_tile<kW4>(x, w, M, N, K, m0, n0, r_begin, r_end, sm, acc);
+  aimet::bf_tile<kW4, kF32X, kGrouped>(x, w, M, N, K, m0, n0, r_begin, r_end,
+                                        sm, acc, sw, group);
   float* slice = ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -61,11 +74,14 @@ wo_gemm_kernel(const uint16_t* __restrict__ x, const int8_t* __restrict__ w,
         const size_t o = (size_t)m * N + n;
         if (slice != nullptr)
           slice[o] = acc[mi][ni][c];
+        else if (kGrouped)
+          out[o] = aimet::from_f32<OutT>(acc[mi][ni][c]);
         else
           out[o] = aimet::from_f32<OutT>(acc[mi][ni][c] * sw[n]);
       }
 }
 
+// sw == nullptr (grouped): the partial sums are already scaled
 template <typename OutT>
 __global__ void wo_reduce_kernel(const float* __restrict__ ws,
                                  const float* __restrict__ sw,
@@ -76,24 +92,28 @@ __global__ void wo_reduce_kernel(const float* __restrict__ ws,
        i += (size_t)gridDim.x * blockDim.x) {
     float v = ws[i];
     for (int s = 1; s < splits; ++s) v += ws[s * total + i];
-    out[i] = aimet::from_f32<OutT>(v * sw[i % N]);
+    out[i] = aimet::from_f32<OutT>(sw == nullptr ? v : v * sw[i % N]);
   }
 }
 
-template <bool kW4, typename OutT>
+template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
 int run(const void* x, const void* w, const void* sw, void* out, void* ws,
-        int M, int N, int K, int splits, cudaStream_t s) {
+        int M, int N, int K, int group, int splits, cudaStream_t s) {
   constexpr int R = aimet::bf_step_rows<kW4>();
   const int Kw = kW4 ? K / 2 : K;
   const int steps = (Kw + R - 1) / R;
-  const int per_split = (steps + splits - 1) / splits;
+  int per_split = (steps + splits - 1) / splits;
+  if (kGrouped) {                       // whole groups a split
+    const int unit = group % R == 0 ? group / R : 1;
+    per_split = (per_split + unit - 1) / unit * unit;
+  }
   const int nsplit = (steps + per_split - 1) / per_split;
   const bool split = nsplit > 1;
   dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, nsplit);
-  wo_gemm_kernel<kW4, OutT><<<grid, kTileThreads, 0, s>>>(
-      static_cast<const uint16_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(sw), static_cast<OutT*>(out),
-      split ? static_cast<float*>(ws) : nullptr, M, N, K, per_split * R);
+  wo_gemm_kernel<kW4, kF32X, kGrouped, OutT><<<grid, kTileThreads, 0, s>>>(
+      x, static_cast<const int8_t*>(w), static_cast<const float*>(sw),
+      static_cast<OutT*>(out), split ? static_cast<float*>(ws) : nullptr, M,
+      N, K, per_split * R, group);
   if (split) {
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -101,40 +121,63 @@ int run(const void* x, const void* w, const void* sw, void* out, void* ws,
     const int blocks =
         (int)std::min<size_t>((total + 255) / 256, (size_t)4 * 132 * 8);
     wo_reduce_kernel<OutT><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(ws), static_cast<const float*>(sw),
+        static_cast<const float*>(ws),
+        kGrouped ? nullptr : static_cast<const float*>(sw),
         static_cast<OutT*>(out), M, N, nsplit);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kW4>
+template <bool kW4, bool kGrouped>
 int dispatch(const void* x, const void* w, const void* sw, void* out,
-             void* ws, int M, int N, int K, int splits, int out_is_bf16,
-             void* stream) {
+             void* ws, int M, int N, int K, int group, int splits,
+             int x_is_f32, int out_is_bf16, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
-  if (splits <= 0 || (kW4 && K % 2 != 0))
+  if (splits <= 0 || (kW4 && K % 2 != 0) ||
+      (kGrouped && (group <= 0 || group % 16 != 0 || (K / 2) % group != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_is_f32) {
+    if (out_is_bf16)
+      return run<kW4, true, kGrouped, __nv_bfloat16>(x, w, sw, out, ws, M, N,
+                                                     K, group, splits, s);
+    return run<kW4, true, kGrouped, float>(x, w, sw, out, ws, M, N, K, group,
+                                           splits, s);
+  }
   if (out_is_bf16)
-    return run<kW4, __nv_bfloat16>(x, w, sw, out, ws, M, N, K, splits, s);
-  return run<kW4, float>(x, w, sw, out, ws, M, N, K, splits, s);
+    return run<kW4, false, kGrouped, __nv_bfloat16>(x, w, sw, out, ws, M, N,
+                                                    K, group, splits, s);
+  return run<kW4, false, kGrouped, float>(x, w, sw, out, ws, M, N, K, group,
+                                          splits, s);
 }
 
 }  // namespace
 
-// x (M, K) bf16; w (K/2, N) split-half INT4; sw (N,) f32; out (M, N) bf16
-// or f32; ws: (splits, M, N) f32, read only when splits > 1.
+// x (M, K) bf16 or f32; w (K/2, N) split-half INT4; sw (N,) f32; out (M, N)
+// bf16 or f32; ws: (splits, M, N) f32, read only when splits > 1.
 extern "C" int aimet_w4_gemm(const void* x, const void* w, const void* sw,
                              void* out, void* ws, int M, int N, int K,
-                             int splits, int out_is_bf16, void* stream) {
-  return dispatch<true>(x, w, sw, out, ws, M, N, K, splits, out_is_bf16,
-                        stream);
+                             int splits, int x_is_f32, int out_is_bf16,
+                             void* stream) {
+  return dispatch<true, false>(x, w, sw, out, ws, M, N, K, 0, splits,
+                               x_is_f32, out_is_bf16, stream);
 }
 
 // As aimet_w4_gemm with w (K, N) int8 codes.
 extern "C" int aimet_w8_gemm(const void* x, const void* w, const void* sw,
                              void* out, void* ws, int M, int N, int K,
-                             int splits, int out_is_bf16, void* stream) {
-  return dispatch<false>(x, w, sw, out, ws, M, N, K, splits, out_is_bf16,
-                         stream);
+                             int splits, int x_is_f32, int out_is_bf16,
+                             void* stream) {
+  return dispatch<false, false>(x, w, sw, out, ws, M, N, K, 0, splits,
+                                x_is_f32, out_is_bf16, stream);
+}
+
+// As aimet_w4_gemm with group scales gs (K/group, N) f32 in place of sw;
+// group a multiple of 16 dividing K/2.
+extern "C" int aimet_w4g_gemm(const void* x, const void* w, const void* gs,
+                              void* out, void* ws, int M, int N, int K,
+                              int group, int splits, int x_is_f32,
+                              int out_is_bf16, void* stream) {
+  return dispatch<true, true>(x, w, gs, out, ws, M, N, K, group, splits,
+                              x_is_f32, out_is_bf16, stream);
 }

@@ -1,0 +1,425 @@
+"""ConnectedGraph: an op/product IR built by tracing a PyTorch module —
+counterpart of ``aimet_tpu/graph/connected_graph.py``.
+
+The JAX package traces ``fn(params, *inputs)`` to a jaxpr; here
+``torch.fx.experimental.proxy_tensor.make_fx`` traces
+``torch.func.functional_call(model, params, inputs)`` to an aten-level
+graph whose placeholders are the parameters (in ``named_parameters``
+order) and then the flattened inputs, with concrete shapes in each node's
+``meta["val"]``. Module-level ops are rebuilt from it by the same rules:
+
+  - every node is classified *param-derived* (computed only from
+    parameters and constants, e.g. ``kernel.to(bf16)`` or the rope tables)
+    or *data-derived*; param-derived nodes are weight preprocessing, not
+    ops;
+  - ``mm`` / ``bmm`` / ``addmm`` with a parameter operand is a ``linear``
+    op (its bias add folds in), otherwise a ``matmul``; ``convolution`` is
+    a ``conv`` / ``depthwise_conv`` / ``conv_transpose``;
+  - a chain of elementwise ops each mixing data with a parameter or a
+    literal becomes one ``scale`` op (``batchnorm`` when two or more carry
+    parameters, ``relu`` / ``clip`` for literal max / min);
+  - shape-only ops (``view``, ``_unsafe_view``, ``transpose``,
+    ``permute``, ``expand``, ``clone``, ``_to_copy``, ``slice``, ...) pass
+    through and never receive quantizers.
+
+Ops are named ``{type}_{n}`` in execution order, so the ``linear`` ops
+come out with the JAX package's names, in its order, on parameters whose
+port names (``layer_0.attn.wq.kernel``) map one for one to the JAX key
+strings (``aimet_tpu_torch.convert``). ``silu`` is traced as
+``x * sigmoid(x)``, the form jax.nn.silu takes in a jaxpr. Control flow
+(``scan`` / ``while`` / ``cond`` sub-graphs) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import operator
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import fx
+from torch.fx.experimental.proxy_tensor import make_fx
+from torch.utils import _pytree as pytree
+
+aten = torch.ops.aten
+
+# Shape-only ops: never quantized, transparent for dataflow.
+PASSTHROUGH = {
+    aten.view, aten._unsafe_view, aten.reshape, aten.transpose,
+    aten.permute, aten.t, aten.expand, aten.clone, aten._to_copy,
+    aten.unsqueeze, aten.squeeze, aten.slice, aten.select, aten.alias,
+    aten.detach, aten.lift_fresh_copy, aten.split, aten.split_with_sizes,
+    aten.unbind, aten.constant_pad_nd,
+}
+# Passthroughs that swap a parameter's axes on its way to a product.
+TRANSPOSING = {aten.t, aten.transpose, aten.permute}
+# Elementwise ops of affine chains, by the JAX primitive they stand for.
+ELEMENTWISE = {
+    aten.add: "add", aten.sub: "sub", aten.rsub: "sub", aten.mul: "mul",
+    aten.div: "div", aten.maximum: "max", aten.clamp_min: "max",
+    aten.minimum: "min", aten.clamp_max: "min",
+}
+# Single-op activations and reductions.
+NAMED = {
+    aten.relu: "relu", aten.sigmoid: "sigmoid", aten.tanh: "tanh",
+    aten.exp: "exp", aten.gelu: "gelu", aten.silu: "silu",
+    aten.hardtanh: "clip", aten._softmax: "softmax", aten.softmax: "softmax",
+    aten.mean: "mean", aten.sum: "reduce_sum", aten.amax: "reduce_max",
+    aten.amin: "reduce_min", aten.cat: "concat", aten.masked_fill: "select_n",
+    aten.where: "select_n", aten.avg_pool2d: "avgpool",
+}
+_LINEAR = {aten.mm, aten.bmm, aten.addmm}
+
+# silu as the jaxpr has it (jax.nn.silu = x * sigmoid(x)), so quantizers
+# sit on the same tensors in both packages
+_DECOMPOSITIONS = {aten.silu.default: lambda x: x * torch.sigmoid(x)}
+
+
+def _packet(target):
+    return getattr(target, "overloadpacket", target)
+
+
+def _tensor_nodes(args) -> List[fx.Node]:
+    out: List[fx.Node] = []
+    fx.node.map_arg(args, lambda n: out.append(n))
+    return out
+
+
+@dataclasses.dataclass(eq=False)
+class Product:
+    """A tensor edge in the graph (an fx node's value)."""
+    node: fx.Node
+    name: str
+    shape: Tuple[int, ...]
+    dtype: Any
+    kind: str                      # 'input' | 'param' | 'activation'
+    param_path: Optional[str] = None
+    producer: Optional["Op"] = None
+    consumers: List["Op"] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass(eq=False)
+class Op:
+    """A module-level operation grouping one or more graph nodes; its value
+    is the last node's."""
+    index: int
+    type: str
+    name: str
+    nodes: List[fx.Node]
+    inputs: List[Product]
+    output: Product
+    param_products: Dict[str, Product] = dataclasses.field(
+        default_factory=dict)
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __repr__(self):
+        return f"Op({self.name}: {self.type})"
+
+
+def _meta(node: fx.Node):
+    v = node.meta.get("val")
+    if isinstance(v, torch.Tensor):
+        return tuple(v.shape), v.dtype
+    return (), None
+
+
+class ConnectedGraph:
+    """Graph IR over ``model(*example_inputs)``. Parameters are named by
+    their qualified module names; ``params`` (default: the model's own,
+    detached) fixes which tensors are parameters and their order."""
+
+    def __init__(self, model: torch.nn.Module, example_inputs,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+        if params is None:
+            params = {k: v.detach() for k, v in model.named_parameters()}
+        self.param_names: List[str] = list(params)
+        flat_inputs, self._in_spec = pytree.tree_flatten(tuple(example_inputs))
+        n_params = len(self.param_names)
+        names = self.param_names
+        spec = {}
+
+        def fn(*flat):
+            p = dict(zip(names, flat[:n_params]))
+            inputs = pytree.tree_unflatten(list(flat[n_params:]),
+                                           self._in_spec)
+            out = torch.func.functional_call(model, p, inputs)
+            leaves, spec["out"] = pytree.tree_flatten(out)
+            return leaves
+
+        with torch.no_grad():
+            self.gm = make_fx(fn, tracing_mode="fake",
+                              decomposition_table=_DECOMPOSITIONS)(
+                *params.values(), *flat_inputs)
+        self.gm.graph.eliminate_dead_code()
+        self.out_spec = spec["out"]
+        self.nodes: List[fx.Node] = list(self.gm.graph.nodes)
+        placeholders = [n for n in self.nodes if n.op == "placeholder"]
+        self.param_nodes: Dict[str, fx.Node] = dict(
+            zip(names, placeholders[:n_params]))
+        self.input_nodes: List[fx.Node] = placeholders[n_params:]
+        self._param_leaf_index = {k: i for i, k in enumerate(names)}
+        out_node = next(n for n in self.nodes if n.op == "output")
+        self.output_nodes: List[fx.Node] = _tensor_nodes(out_node.args[0])
+
+        self.products: Dict[fx.Node, Product] = {}
+        for name, node in self.param_nodes.items():
+            shape, dtype = _meta(node)
+            self.products[node] = Product(node, name, shape, dtype, "param",
+                                          param_path=name)
+        for i, node in enumerate(self.input_nodes):
+            shape, dtype = _meta(node)
+            self.products[node] = Product(node, f"input{i + 1}", shape, dtype,
+                                          "input")
+        self._build()
+
+    # ------------------------------------------------------------------
+    def resolve(self, node):
+        """Follow pass-through aliases to the semantic node."""
+        while node in self.alias:
+            node = self.alias[node]
+        return node
+
+    def _get_product(self, node: fx.Node) -> Product:
+        node = self.resolve(node)
+        if node not in self.products:
+            shape, dtype = _meta(node)
+            self.products[node] = Product(node, f"act_{len(self.products)}",
+                                          shape, dtype, "activation")
+        return self.products[node]
+
+    def _is_param_only(self, v) -> bool:
+        return not isinstance(v, fx.Node) or self._param_only[self.resolve(v)]
+
+    def _direct_param_leaf(self, v) -> Tuple[Optional[Product], bool]:
+        """If v is a chain of pass-through ops on one parameter, return
+        (that parameter's Product, whether the chain swapped its axes)."""
+        transposed = False
+        for _ in range(8):
+            if not isinstance(v, fx.Node):
+                return None, False
+            if v.op == "placeholder":
+                p = self.products.get(v)
+                return (p, transposed) if p is not None and \
+                    p.kind == "param" else (None, False)
+            if v.op != "call_function" or _packet(v.target) not in PASSTHROUGH:
+                return None, False
+            transposed ^= _packet(v.target) in TRANSPOSING
+            v = v.args[0]
+        return None, False
+
+    def _new_op(self, op_type, nodes, data_in, out_node, counters,
+                params=None, attrs=None) -> Op:
+        n = counters.get(op_type, 0)
+        counters[op_type] = n + 1
+        inputs = [self._get_product(v) for v in data_in
+                  if isinstance(v, fx.Node)]
+        out_p = self._get_product(out_node)
+        op = Op(index=len(self.ops), type=op_type, name=f"{op_type}_{n}",
+                nodes=list(nodes), inputs=inputs, output=out_p,
+                param_products=params or {}, attrs=attrs or {})
+        out_p.producer = op
+        out_p.name = f"{op.name}.out"
+        for p in inputs:
+            p.consumers.append(op)
+        self.ops.append(op)
+        return op
+
+    def _single_user(self, node: fx.Node) -> Optional[fx.Node]:
+        users = [u for u in node.users if u not in self._consumed]
+        return users[0] if len(users) == 1 and len(node.users) == 1 else None
+
+    def _fold_bias(self, node: fx.Node, group: List[fx.Node],
+                   params: Dict[str, Product]) -> fx.Node:
+        """Fold a following ``add`` of a parameter (through single-user
+        views) into the op; returns the op's output node."""
+        chain, cur = [], node
+        while True:
+            nxt = self._single_user(cur)
+            if nxt is None or nxt.op != "call_function":
+                return node
+            pk = _packet(nxt.target)
+            if pk in (aten.view, aten._unsafe_view, aten.reshape):
+                chain.append(nxt)
+                cur = nxt
+                continue
+            if pk is not aten.add or len(nxt.args) != 2 or nxt.kwargs:
+                return node
+            other = nxt.args[1] if nxt.args[0] is cur else nxt.args[0]
+            bp, _ = self._direct_param_leaf(other)
+            if bp is None:
+                return node
+            params["bias"] = bp
+            group.extend(chain + [nxt])
+            self._consumed.update(chain + [nxt])
+            return nxt
+
+    # ------------------------------------------------------------------
+    def _build(self):
+        self.alias: Dict[fx.Node, fx.Node] = {}
+        self.ops: List[Op] = []
+        self._consumed: set = set()
+        self._param_only: Dict[fx.Node, bool] = {}
+        self._param_roots: Dict[fx.Node, set] = {}
+        for node in self.nodes:
+            if node.op == "placeholder":
+                name = next((k for k, v in self.param_nodes.items()
+                             if v is node), None)
+                self._param_only[node] = name is not None
+                self._param_roots[node] = {name} if name else set()
+            elif node.op == "get_attr":
+                self._param_only[node] = True
+                self._param_roots[node] = set()
+            elif node.op == "call_function":
+                ins = _tensor_nodes((node.args, node.kwargs))
+                self._param_only[node] = all(self._param_only[i] for i in ins)
+                roots = set()
+                for i in ins:
+                    if self._param_only[i]:
+                        roots |= self._param_roots[i]
+                self._param_roots[node] = roots
+
+        counters: Dict[str, int] = {}
+        for node in self.nodes:
+            if node.op != "call_function" or node in self._consumed \
+                    or self._param_only[node]:
+                continue
+            pk = _packet(node.target)
+            if pk in PASSTHROUGH or node.target is operator.getitem:
+                self.alias[node] = node.args[0]
+                continue
+            if pk in _LINEAR:
+                self._linear(node, pk, counters)
+            elif pk is aten.convolution:
+                self._conv(node, counters)
+            elif pk in ELEMENTWISE:
+                self._elementwise(node, pk, counters)
+            elif pk in (aten.index, aten.embedding):
+                table, idx = ((node.args[0], node.args[1][0])
+                              if pk is aten.index else node.args[:2])
+                kp, _ = self._direct_param_leaf(table)
+                if kp is not None:
+                    self._new_op("embedding", [node], [idx], node, counters,
+                                 {"kernel": kp})
+                else:
+                    self._new_op("gather", [node],
+                                 _tensor_nodes(node.args), node, counters)
+            else:
+                op_type = NAMED.get(pk)
+                if op_type is None:
+                    op_type = pk.__name__.split(".")[-1]
+                    if pk is aten.pow and node.args[1] == 2:
+                        op_type = "square"
+                self._new_op(op_type, [node],
+                             _tensor_nodes((node.args, node.kwargs)), node,
+                             counters)
+
+    def _linear(self, node, pk, counters):
+        if pk is aten.addmm:
+            bias_v, lhs, rhs = node.args[:3]
+        else:
+            bias_v, (lhs, rhs) = None, node.args[:2]
+        kp, transposed = self._direct_param_leaf(rhs)
+        params: Dict[str, Product] = {}
+        group = [node]
+        if kp is not None and not self._is_param_only(lhs):
+            params["kernel"] = kp
+            op_type, data_in = "linear", [lhs]
+            if bias_v is not None:
+                bp, _ = self._direct_param_leaf(bias_v)
+                if bp is not None:
+                    params["bias"] = bp
+            out = self._fold_bias(node, group, params) \
+                if "bias" not in params else node
+        else:
+            op_type, data_in, out = "matmul", [lhs, rhs], node
+        self._new_op(op_type, group, data_in, out, counters, params,
+                     {"kernel_transposed": transposed, "x_node": lhs})
+
+    def _conv(self, node, counters):
+        x, w, b = node.args[:3]
+        transposed, groups = node.args[6], node.args[8]
+        params: Dict[str, Product] = {}
+        kp, _ = self._direct_param_leaf(w)
+        if kp is not None:
+            params["kernel"] = kp
+        group = [node]
+        out = node
+        if isinstance(b, fx.Node):
+            bp, _ = self._direct_param_leaf(b)
+            if bp is not None:
+                params["bias"] = bp
+        else:
+            out = self._fold_bias(node, group, params)
+        op_type = ("conv_transpose" if transposed else
+                   "depthwise_conv" if groups > 1 else "conv")
+        self._new_op(op_type, group, [x], out, counters, params,
+                     {"transposed": transposed, "x_node": x})
+
+    def _elementwise(self, node, pk, counters):
+        a = node.args[0]
+        b = node.args[1] if len(node.args) > 1 else None
+        a_p, b_p = self._is_param_only(a), self._is_param_only(b)
+        prim = ELEMENTWISE[pk]
+        if a_p ^ b_p:
+            # mixed data / (param | literal): an affine chain (BN-like)
+            group, out = [node], node
+            roots = set()
+            for v in _tensor_nodes(node.args):
+                if self._is_param_only(v):
+                    roots |= self._param_roots[self.resolve(v)]
+            while True:
+                nxt = self._single_user(out)
+                if nxt is None or nxt.op != "call_function" or \
+                        _packet(nxt.target) not in ELEMENTWISE or \
+                        len(nxt.args) < 2:
+                    break
+                na_p = self._is_param_only(nxt.args[0])
+                nb_p = self._is_param_only(nxt.args[1])
+                if not (na_p ^ nb_p):
+                    break
+                group.append(nxt)
+                self._consumed.add(nxt)
+                for v in _tensor_nodes(nxt.args):
+                    if self._is_param_only(v):
+                        roots |= self._param_roots[self.resolve(v)]
+                out = nxt
+            lit = a if a_p else b
+            is_lit = not isinstance(lit, fx.Node)
+            if len(group) >= 2 and roots:
+                op_type = "batchnorm"
+            elif prim == "max" and is_lit and lit == 0:
+                op_type = "relu"
+            elif prim in ("min", "max") and is_lit and not roots:
+                op_type = "clip"
+            else:
+                op_type = "scale"
+            params = {f"p{i}": self.products[self.param_nodes[r]]
+                      for i, r in enumerate(sorted(roots))}
+            self._new_op(op_type, group, [b if a_p else a], out, counters,
+                         params, {"param_roots": sorted(roots)})
+            return
+        op_type = prim
+        if prim == "max" and any(not isinstance(v, fx.Node) and v == 0
+                                 for v in (a, b)):
+            op_type = "relu"
+        self._new_op(op_type, [node], _tensor_nodes(node.args), node,
+                     counters)
+
+    # ------------------------------------------------------------------
+    def get_op(self, name: str) -> Op:
+        for op in self.ops:
+            if op.name == name:
+                return op
+        raise KeyError(name)
+
+    def ops_of_type(self, op_type: str) -> List[Op]:
+        return [op for op in self.ops if op.type == op_type]
+
+    def __repr__(self):
+        lines = [f"ConnectedGraph({len(self.ops)} ops)"]
+        for op in self.ops:
+            ins = ", ".join(p.name for p in op.inputs)
+            ps = ", ".join(f"{k}={p.param_path}"
+                           for k, p in op.param_products.items())
+            lines.append(f"  {op.name}({ins}{'; ' + ps if ps else ''}) -> "
+                         f"{op.output.name}")
+        return "\n".join(lines)

@@ -1,0 +1,118 @@
+"""Graph evaluation with hooks and op replacement — counterpart of
+``aimet_tpu/graph/interpreter.py``.
+
+``run_graph`` executes the traced aten graph node by node, frees each
+value after its last use, and lets a caller rewrite a node's operands or
+result (the quantsim's observers and fake-quant) or compute a node's value
+in its place (an op replaced by an integer kernel).
+``evaluate_with_replacements`` runs each replaced op's function on the
+op's data input in place of its nodes, as the JAX package's interpreter
+does with an op's eqns.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+from torch import fx
+from torch.utils import _pytree as pytree
+
+from .connected_graph import ConnectedGraph
+
+# node -> fn(read) computing its value in place of running it; None: skip
+Emit = Dict[fx.Node, Optional[Callable[[Callable], Any]]]
+
+
+def _fetch_attr(gm, target: str):
+    obj = gm
+    for part in target.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _last_uses(nodes: List[fx.Node], extra: Dict[fx.Node, Iterable[fx.Node]]
+               ) -> Dict[fx.Node, List[fx.Node]]:
+    last: Dict[fx.Node, fx.Node] = {}
+    for node in nodes:
+        for inp in node.all_input_nodes:
+            last[inp] = node
+        for inp in extra.get(node, ()):
+            last[inp] = node
+    out: Dict[fx.Node, List[fx.Node]] = {}
+    for value, user in last.items():
+        out.setdefault(user, []).append(value)
+    return out
+
+
+def run_graph(graph: ConnectedGraph, flat_args, *,
+              before: Optional[Callable] = None,
+              after: Optional[Callable] = None,
+              at_output: Optional[Callable] = None,
+              emit: Optional[Emit] = None,
+              emit_reads: Optional[Dict[fx.Node, List[fx.Node]]] = None):
+    """Execute the graph on ``flat_args`` (parameters, then the flattened
+    inputs) and return the model's output structure.
+
+    ``before(node, read)`` may return the (args, kwargs) a call runs with;
+    ``after(node, value)`` may replace a placeholder's or a call's value;
+    ``at_output(node, value)`` may replace a model output; ``emit`` maps a
+    node to ``fn(read)`` computing its value in place of running it (None:
+    skipped), ``emit_reads`` names the nodes such a function reads."""
+    emit = emit or {}
+    dead = _last_uses(graph.nodes, emit_reads or {})
+    env: Dict[fx.Node, Any] = {}
+    read = env.__getitem__
+    args = iter(flat_args)
+    for node in graph.nodes:
+        if node.op == "output":
+            outs = [at_output(n, read(n)) if at_output else read(n)
+                    for n in graph.output_nodes]
+            return pytree.tree_unflatten(outs, graph.out_spec)
+        if node.op == "placeholder":
+            val = next(args)
+        elif node.op == "get_attr":
+            val = _fetch_attr(graph.gm, node.target)
+        elif node in emit:
+            fn = emit[node]
+            if fn is None:
+                continue
+            val = fn(read)
+        else:
+            call = before(node, read) if before is not None else None
+            a, kw = call if call is not None else fx.node.map_arg(
+                (node.args, node.kwargs), read)
+            val = node.target(*a, **kw)
+        if after is not None:
+            val = after(node, val)
+        env[node] = val
+        for v in dead.get(node, ()):
+            env.pop(v, None)
+    raise RuntimeError("graph has no output node")
+
+
+def flat_args(graph: ConnectedGraph, params: Dict[str, Any], args) -> list:
+    """Parameters in the traced order, then the flattened inputs."""
+    return [params[k] for k in graph.param_names] + \
+        pytree.tree_flatten(tuple(args))[0]
+
+
+def evaluate_with_replacements(graph: ConnectedGraph, params, args,
+                               replacements: Optional[Dict[str, Callable]]
+                               = None):
+    """Evaluate the graph; each op in ``replacements`` has its nodes skipped
+    and its value set to ``replacement(x)``, x being the op's data operand
+    as its first node reads it (after any dtype cast and view), reshaped to
+    the op's traced output shape."""
+    emit: Emit = {}
+    reads: Dict[fx.Node, List[fx.Node]] = {}
+    for name, fn in (replacements or {}).items():
+        op = graph.get_op(name)
+        x_node = op.attrs["x_node"]
+        last = op.nodes[-1]
+        for n in op.nodes[:-1]:
+            emit[n] = None
+        shape = tuple(last.meta["val"].shape)
+        emit[last] = (lambda read, fn=fn, x_node=x_node, shape=shape:
+                      fn(read(x_node)).reshape(shape))
+        reads[last] = [x_node]
+    return run_graph(graph, flat_args(graph, params, args), emit=emit,
+                     emit_reads=reads)

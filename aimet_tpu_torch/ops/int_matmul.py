@@ -2,8 +2,13 @@
 
 - W4A8: split-half packed INT4 weights x per-row INT8 activations, kernels
   K1 (``csrc/act_quant.cu``) then K2 (``csrc/w4a8_gemm.cu``);
-- weight-only INT4 (``matmul_w4``, kernel KW4) and INT8 (``matmul_w8``,
-  kernel KW8), both ``csrc/wo_gemm.cu``: bf16 activations, f32 sums.
+- weight-only INT4 (``matmul_w4``, kernel KW4), INT8 (``matmul_w8``,
+  kernel KW8) and group-wise INT4 (``matmul_w4_grouped``, kernel KW4G), all
+  ``csrc/wo_gemm.cu``: bf16 or f32 activations, f32 sums;
+- static-encoding INT8 (``matmul_w8a8_staticq``, kernel KSQ,
+  ``csrc/w8a8_staticq.cu``): activations quantized with a frozen
+  calibration encoding, int8 x int8 GEMM — the ``w8a8`` target of
+  ``quantsim.lowering``.
 
 Host math (weight/activation quantizers, the split-half packing, the
 decode split policy) is plain PyTorch. On a CUDA tensor the wrappers
@@ -23,11 +28,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
 from .._device import on_cuda
-from ._common import div_ieee
+from ._common import div_ieee, fma_f32
 
 _GEMM_DTYPES = (torch.float32, torch.bfloat16)
 _SMS = 132          # H100 SXM streaming multiprocessors
@@ -51,6 +57,22 @@ def quantize_weight_per_channel(w: torch.Tensor
     scale = div_ieee(amax.clamp_min(1e-8), 127.0)
     q = torch.round(w / scale[None, :]).clamp(-127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
+
+
+def quantize_weight_int4_grouped(w: torch.Tensor, group_size: int = 128
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise symmetric INT4, one scale per (K-group, out-channel):
+    w (K, N) -> (packed (K//2, N) split-half int8, scales (K//group_size,
+    N) f32); K % (2 * group_size) == 0, so a group never straddles the two
+    nibble planes."""
+    K, N = w.shape
+    if K % (2 * group_size):
+        raise ValueError(f"K={K} is not a multiple of 2 * {group_size}")
+    g = K // group_size
+    wg = w.reshape(g, group_size, N)
+    scale = div_ieee(wg.abs().amax(dim=1).clamp_min(1e-8), 7.0)   # (g, N)
+    q = torch.round(wg / scale[:, None, :]).clamp(-7, 7)
+    return pack_int4_split_half(q.reshape(K, N)), scale.to(torch.float32)
 
 
 def pack_int4_split_half(q: torch.Tensor) -> torch.Tensor:
@@ -242,6 +264,7 @@ def matmul_w4_torch(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 _BF_STEP_K = 64     # k values a step of the weight-only kernels
+_S8_STEP_K = 128    # k values a step of KSQ's int8 tile
 
 
 def _weight_only(name: str, x, w, w_scale, out_dtype, w4: bool, fn):
@@ -257,9 +280,15 @@ def _weight_only(name: str, x, w, w_scale, out_dtype, w4: bool, fn):
     if not on_cuda(x, w, w_scale):
         plain = matmul_w4_torch if w4 else matmul_w8_torch
         return plain(x, w, w_scale, out_dtype)
-    if x.dtype != torch.bfloat16 or out_dtype not in _GEMM_DTYPES:
-        raise TypeError(f"{name} takes bfloat16 x and a float32 or bfloat16 "
-                        f"output, got {x.dtype} -> {out_dtype}")
+    return _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N)
+
+
+def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
+    """Launch KW4, KW8 (``group`` None) or KW4G on CUDA tensors."""
+    M = x.shape[0]
+    if x.dtype not in _GEMM_DTYPES or out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 x and output, "
+                        f"got {x.dtype} -> {out_dtype}")
     if w.dtype != torch.int8 or w_scale.dtype != torch.float32:
         raise TypeError(f"expected int8 weights and float32 scales, got "
                         f"{w.dtype}, {w_scale.dtype}")
@@ -272,9 +301,11 @@ def _weight_only(name: str, x, w, w_scale, out_dtype, w4: bool, fn):
     splits = _used_splits(steps, decode_splits(M, N, steps))
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else out)
+    sizes = (M, N, K) if group is None else (M, N, K, group)
     fn.launches += 1
     _build.launch(name, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
-                  out.data_ptr(), ws.data_ptr(), M, N, K, splits,
+                  out.data_ptr(), ws.data_ptr(), *sizes, splits,
+                  int(x.dtype == torch.float32),
                   int(out_dtype == torch.bfloat16),
                   _build.stream_ptr(x.device))
     return out
@@ -284,10 +315,12 @@ def matmul_w4(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Weight-only INT4: x (M, K) @ split-half INT4 weights (K//2, N) int8
     with per-column scales (N,) f32 -> (M, N) ``out_dtype`` (default x's
-    dtype). On CUDA tensors (x bf16) it launches kernel KW4
+    dtype). On CUDA tensors (x bf16 or f32) it launches kernel KW4
     (``csrc/wo_gemm.cu``) at every M, splitting K by
     :func:`decode_splits`; on CPU tensors it takes
-    :func:`matmul_w4_torch`."""
+    :func:`matmul_w4_torch`. An f32 x is not rounded to bf16: the kernel
+    takes it as a bf16 high part plus a bf16 residual (within ~2^-16 of
+    the f32 product)."""
     return _weight_only("aimet_w4_gemm", x, w_packed, w_scale, out_dtype,
                         True, matmul_w4)
 
@@ -295,12 +328,178 @@ def matmul_w4(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
 def matmul_w8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Weight-only INT8: x (M, K) @ int8 codes (K, N) with per-column
-    scales (N,) f32. On CUDA tensors (x bf16) it launches kernel KW8
-    (``csrc/wo_gemm.cu``) at every M; on CPU tensors it takes
-    :func:`matmul_w8_torch`."""
+    scales (N,) f32. On CUDA tensors (x bf16 or f32, as for
+    :func:`matmul_w4`) it launches kernel KW8 (``csrc/wo_gemm.cu``) at every
+    M; on CPU tensors it takes :func:`matmul_w8_torch`."""
     return _weight_only("aimet_w8_gemm", x, w_q, w_scale, out_dtype, False,
                         matmul_w8)
 
 
 matmul_w4.launches = 0
 matmul_w8.launches = 0
+
+
+# --------------------------------------------------------------------------
+# group-wise INT4 (KW4G)
+# --------------------------------------------------------------------------
+
+def matmul_w4_grouped_torch(x: torch.Tensor, w_packed: torch.Tensor,
+                            scales: torch.Tensor, group_size: int = 128,
+                            out_dtype: Optional[torch.dtype] = None
+                            ) -> torch.Tensor:
+    """Plain version of :func:`matmul_w4_grouped` (the JAX package's
+    ``matmul_w4_grouped_xla``): the weights dequantized in f32 (codes times
+    their group's scale), cast to x's dtype, then an f32-sum product."""
+    K = x.shape[1]
+    w_q = unpack_int4(w_packed).to(torch.float32)
+    g = K // group_size
+    w_deq = (w_q.reshape(g, group_size, -1)
+             * scales.to(torch.float32)[:, None, :]).reshape(K, -1)
+    acc = x.to(torch.float32) @ w_deq.to(x.dtype).to(torch.float32)
+    return acc.to(out_dtype or x.dtype)
+
+
+def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
+                      scales: torch.Tensor, *, group_size: int = 128,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Group-wise INT4: x (M, K) @ split-half INT4 weights (K//2, N) int8
+    with one scale per (K-group, column), scales (K//group_size, N) f32
+    (row g covers k in [g * group_size, (g + 1) * group_size)); K must be a
+    multiple of 2 * group_size. On CUDA tensors (x bf16 or f32, group_size a
+    multiple of 16) it launches kernel KW4G (``csrc/wo_gemm.cu``): bf16
+    MMAs with f32 sums, each group's sum scaled once; on CPU tensors it
+    takes :func:`matmul_w4_grouped_torch`."""
+    if x.dim() != 2 or w_packed.dim() != 2:
+        raise ValueError("x must be (M, K) and w_packed (K//2, N)")
+    M, K = x.shape
+    K2, N = w_packed.shape
+    if (K != 2 * K2 or K % (2 * group_size)
+            or scales.shape != (K // group_size, N)):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w_packed "
+                         f"{tuple(w_packed.shape)}, scales "
+                         f"{tuple(scales.shape)}, group_size {group_size}")
+    out_dtype = out_dtype or x.dtype
+    if not on_cuda(x, w_packed, scales):
+        return matmul_w4_grouped_torch(x, w_packed, scales, group_size,
+                                       out_dtype)
+    if group_size % 16:
+        raise ValueError(f"the KW4G kernel needs a group size that is a "
+                         f"multiple of 16, got {group_size}")
+    return _launch_bf_gemm("aimet_w4g_gemm", matmul_w4_grouped, x, w_packed,
+                           scales, out_dtype, K, N, group=group_size)
+
+
+matmul_w4_grouped.launches = 0
+
+
+# --------------------------------------------------------------------------
+# static-encoding INT8 (KSQ)
+# --------------------------------------------------------------------------
+
+def _staticq_constants(inv_delta: float, offset: float, num_steps: float):
+    """The kernel's f32 constants: 1/Δ, the shift -offset - 128 and the top
+    code num_steps - 128 (the TPU kernel bakes the same three). Its two
+    multiply-adds, x * inv + shift and acc * scale_vec + col_bias, run as
+    fused multiply-adds where the reference's tests run it (XLA on the CPU
+    contracts them), so the port rounds each once too."""
+    return tuple(float(np.float32(v)) for v in
+                 (inv_delta, -offset - 128.0, num_steps - 128.0))
+
+
+def quantize_static_q8_torch(x: torch.Tensor, inv_delta: float,
+                             offset: float, num_steps: float) -> torch.Tensor:
+    """Plain version of KSQ's codes: x (M, K) -> int8 codes
+    clip(round(fma(x, inv_delta, -offset - 128)), -128, num_steps - 128),
+    f32, round half to even."""
+    inv, shift, hi = (torch.tensor(v, dtype=torch.float32, device=x.device)
+                      for v in _staticq_constants(inv_delta, offset,
+                                                  num_steps))
+    q = torch.round(fma_f32(x.to(torch.float32), inv, shift))
+    return torch.minimum(torch.maximum(q, torch.full_like(q, -128.0)),
+                         hi).to(torch.int8)
+
+
+def matmul_w8a8_staticq_torch(x: torch.Tensor, w_q: torch.Tensor,
+                              scale_vec: torch.Tensor, col_bias: torch.Tensor,
+                              *, inv_delta: float, offset: float,
+                              num_steps: float,
+                              out_dtype: torch.dtype = torch.float32,
+                              return_codes: bool = False):
+    """Plain version of :func:`matmul_w8a8_staticq`: the codes, the exact
+    int32 product, then fma(acc, scale_vec, col_bias) in f32 (by blocks of
+    rows, to bound the f64 temporaries)."""
+    xq = quantize_static_q8_torch(x, inv_delta, offset, num_steps)
+    sv = scale_vec.to(torch.float32)[None, :]
+    cb = col_bias.to(torch.float32)[None, :]
+    # exact int32 sums: int64 on the CPU, f64 on the card (every partial
+    # sum stays below 2**53)
+    wide = torch.int64 if x.device.type == "cpu" else torch.float64
+    w_wide = w_q.to(wide)
+    rows = max(1, (1 << 24) // max(1, w_q.shape[1]))
+    out = torch.cat([
+        fma_f32((xq[i:i + rows].to(wide) @ w_wide).to(torch.int32).to(
+            torch.float32), sv, cb).to(out_dtype)
+        for i in range(0, max(1, xq.shape[0]), rows)])
+    return (out, xq) if return_codes else out
+
+
+def matmul_w8a8_staticq(x: torch.Tensor, w_q: torch.Tensor,
+                        scale_vec: torch.Tensor, col_bias: torch.Tensor, *,
+                        inv_delta: float, offset: float, num_steps: float,
+                        out_dtype: torch.dtype = torch.float32,
+                        return_codes: bool = False):
+    """Static-encoding INT8 matmul: x (M, K) f32/bf16 quantized on the
+    frozen [0, num_steps] grid of (Δ = 1/inv_delta, offset) and shifted to
+    signed int8, times int8 codes w_q (K, N), then acc * scale_vec (N,) +
+    col_bias (N,) -> (M, N) ``out_dtype``. ``inv_delta``, ``offset`` and
+    ``num_steps`` are Python floats (the frozen encoding is a deployment
+    constant). With ``return_codes`` the activation codes come back too.
+
+    On CUDA tensors it launches kernel KSQ (``csrc/w8a8_staticq.cu``: the
+    codes, then the int8 GEMM, splitting K by :func:`decode_splits`); on
+    CPU tensors it takes :func:`matmul_w8a8_staticq_torch`. Both give the
+    same bits."""
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match w_q "
+                         f"{tuple(w_q.shape)}")
+    M, K = x.shape
+    N = w_q.shape[1]
+    if scale_vec.shape != (N,) or col_bias.shape != (N,):
+        raise ValueError(f"scale_vec {tuple(scale_vec.shape)} and col_bias "
+                         f"{tuple(col_bias.shape)} must be ({N},)")
+    if not on_cuda(x, w_q, scale_vec, col_bias):
+        return matmul_w8a8_staticq_torch(
+            x, w_q, scale_vec, col_bias, inv_delta=inv_delta, offset=offset,
+            num_steps=num_steps, out_dtype=out_dtype,
+            return_codes=return_codes)
+    if x.dtype not in _GEMM_DTYPES or out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"matmul_w8a8_staticq takes float32 or bfloat16 x "
+                        f"and output, got {x.dtype} -> {out_dtype}")
+    for t, dt in ((w_q, torch.int8), (scale_vec, torch.float32),
+                  (col_bias, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"expected {dt}, got {t.dtype}")
+    inv, shift, hi = _staticq_constants(inv_delta, offset, num_steps)
+    x = x.contiguous()
+    w_q = w_q.contiguous()
+    w_q = w_q if w_q.data_ptr() % 16 == 0 else w_q.clone()
+    scale_vec, col_bias = scale_vec.contiguous(), col_bias.contiguous()
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    steps = -(-K // _S8_STEP_K)
+    splits = _used_splits(steps, decode_splits(M, N, steps))
+    ws = (torch.zeros((M, N), dtype=torch.int32, device=x.device)
+          if splits > 1 else out)
+    stream = _build.stream_ptr(x.device)
+    matmul_w8a8_staticq.launches += 1
+    _build.launch("aimet_staticq_quant", x.data_ptr(), xq.data_ptr(), M, K,
+                  inv, shift, hi, int(x.dtype == torch.bfloat16), stream)
+    _build.launch("aimet_staticq_gemm", xq.data_ptr(), w_q.data_ptr(),
+                  scale_vec.data_ptr(), col_bias.data_ptr(), out.data_ptr(),
+                  ws.data_ptr(), M, N, K, splits,
+                  int(out_dtype == torch.bfloat16), stream)
+    return (out, xq) if return_codes else out
+
+
+matmul_w8a8_staticq.launches = 0

@@ -1,0 +1,499 @@
+"""QuantizationSimModel — counterpart of ``aimet_tpu/quantsim/qsim.py``
+(the serving subset: placement, calibration, the fake-quant forward and
+blockwise parameters).
+
+The model is traced once into a :class:`ConnectedGraph` (an aten graph
+from ``make_fx``) and re-evaluated with quantizers at the configured
+tensors, as the JAX package re-evaluates its jaxpr:
+
+  - ``compute_encodings(params, data)`` runs the *observe* pass (parameters
+    fake-quantized with their encodings, activation observers updated on
+    the device) over the calibration batches, then computes the encodings
+    on the host;
+  - ``quantized_fn(params, *args)`` runs the *quantized* pass: parameters
+    and activations through fake-quant;
+  - ``fp_fn(params, *args)`` runs the graph without quantizers.
+
+Placement follows the JAX package's rule: every floating op output is
+quantized unless the config says otherwise (never-quantized types,
+supergroup interiors); parameters by role; float model inputs. The port
+copies the rule as it is, including the quantizer on the masked attention
+scores (``select_n``), whose [-1e30, 0] range flattens attention in both
+packages.
+
+Not ported yet (they raise ``NotImplementedError``): float quantizers
+(``set_quantizer_data_type``), quantization-aware training (``qat_fn``,
+``static_grid_qat_fn``), export and load of encodings, and the AMP
+helpers (``recompute_encoding``, ``set_bitwidth``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, Optional
+
+import torch
+from torch import fx
+
+from .._device import DeviceLike, resolve_device
+from ..graph.connected_graph import ConnectedGraph, Op
+from ..graph.interpreter import flat_args, run_graph
+from ..quantization.affine import AffineEncoding
+from ..quantization.blockwise import (_to_blocks, blockwise_encoding,
+                                      grouped_block_quantize_dequantize)
+from ..quantization.encoding_analyzer import EncodingAnalyzer
+from ..quantization.grads import quantize_dequantize
+from .config import QuantSimConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizerSpec:
+    """Static configuration of one quantizer."""
+    name: str
+    kind: str                   # 'act' | 'param' | 'input'
+    bitwidth: int = 8
+    symmetric: bool = False
+    strict_symmetric: bool = False
+    unsigned_symmetric: bool = False
+    scheme: str = "sqnr"
+    channel_axis: Optional[int] = None
+    enabled: bool = True
+    # blockwise (v2 block_size quantizer / GroupedBlockQuantizeDequantize)
+    block_size: Optional[int] = None
+    block_axis: int = 0
+    lpbq: bool = False
+    lpbq_scale_bw: int = 4
+
+
+def _broadcast_encoding(vals: torch.Tensor, x_ndim: int,
+                        channel_axis: Optional[int]) -> torch.Tensor:
+    """Shape per-channel (C,) encoding values for broadcasting against x."""
+    if channel_axis is None or vals.dim() == 0:
+        return vals
+    shape = [1] * x_ndim
+    shape[channel_axis] = -1
+    return vals.reshape(shape)
+
+
+def _is_float(dtype) -> bool:
+    return dtype is not None and dtype.is_floating_point
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"QuantizationSimModel.{what} is not ported to "
+                              f"aimet_tpu_torch yet")
+
+
+class QuantizationSimModel:
+    """Quantization simulation over a PyTorch module.
+
+    Args:
+      model: the float ``nn.Module``; it is moved to ``device``.
+      example_inputs: a tuple of example inputs used for tracing.
+      config: :class:`QuantSimConfig` (defaults mirror the reference's
+        default_config.json).
+      quant_scheme: activation calibration scheme (``sqnr`` or ``minmax``).
+      param_quant_scheme: scheme for parameter encodings (``minmax``).
+      device: where the model, its encodings and the observers live;
+        ``cuda`` by default (raises without CUDA), ``cpu`` on request.
+    """
+
+    def __init__(self, model: torch.nn.Module, example_inputs, *,
+                 config: Optional[QuantSimConfig] = None,
+                 quant_scheme: str = "sqnr",
+                 param_quant_scheme: str = "minmax",
+                 default_output_bw: int = 8, default_param_bw: int = 8,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        example_inputs = tuple(
+            t.to(self.device) if isinstance(t, torch.Tensor) else t
+            for t in example_inputs)
+        self.graph = ConnectedGraph(self.model, example_inputs)
+        self.config = config or QuantSimConfig.default()
+        self.quant_scheme = quant_scheme
+        self.param_quant_scheme = param_quant_scheme
+        self.default_output_bw = default_output_bw
+        self.default_param_bw = default_param_bw
+
+        self.quantizers: Dict[str, QuantizerSpec] = {}
+        self._act_node_q: Dict[fx.Node, str] = {}
+        self._param_node_q: Dict[fx.Node, str] = {}
+        self._input_node_q: Dict[fx.Node, str] = {}
+        self._node_input_q: Dict[fx.Node, list] = {}  # node -> [(arg, name)]
+        self._output_node_q: Dict[fx.Node, str] = {}
+        self._encodings: Dict[str, AffineEncoding] = {}
+        self._parked_encodings: Dict[str, AffineEncoding] = {}
+        self._frozen: set = set()
+        self._build_quantizers()
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters by qualified name (detached)."""
+        return {k: v.detach() for k, v in self.model.named_parameters()}
+
+    # ------------------------------------------------------------------
+    # Quantizer placement (QuantSimConfigurator equivalent)
+    # ------------------------------------------------------------------
+    def _supergroup_disabled_ops(self) -> set:
+        """Ops whose output quantizer is disabled because they are interior
+        to a supergroup (quantsim_config.py:74-110)."""
+        disabled, claimed = set(), set()
+        for pattern in self.config.supergroups:
+            for op in self.graph.ops:
+                if op.type != pattern[0] or op.name in claimed:
+                    continue
+                seq, cur, ok = [op], op, True
+                for t in pattern[1:]:
+                    cons = cur.output.consumers
+                    if len(cons) != 1 or cons[0].type != t \
+                            or cons[0].name in claimed:
+                        ok = False
+                        break
+                    cur = cons[0]
+                    seq.append(cur)
+                if ok and len(seq) == len(pattern):
+                    disabled.update(o.name for o in seq[:-1])
+                    claimed.update(o.name for o in seq)
+        return disabled
+
+    def _kernel_channel_axis(self, op: Op) -> Optional[int]:
+        """The output-channel axis of the op's kernel: (K, N) linear
+        kernels 1, transposed (N, K) ones 0; conv weights (O, I, kh, kw) 0,
+        transposed conv weights (I, O/g, kh, kw) 1."""
+        if op.type in ("conv", "depthwise_conv", "conv_transpose"):
+            return 1 if op.attrs.get("transposed") else 0
+        if op.type == "linear" and "kernel" in op.param_products:
+            return 0 if op.attrs.get("kernel_transposed") else \
+                len(op.param_products["kernel"].shape) - 1
+        return None
+
+    def _act_spec(self, name, kind="act", symmetric=None) -> QuantizerSpec:
+        cfg = self.config
+        return QuantizerSpec(
+            name=name, kind=kind, bitwidth=self.default_output_bw,
+            symmetric=cfg.act_symmetric if symmetric is None else symmetric,
+            strict_symmetric=cfg.strict_symmetric,
+            unsigned_symmetric=cfg.unsigned_symmetric,
+            scheme=self.quant_scheme)
+
+    def _build_quantizers(self):
+        cfg = self.config
+        disabled = self._supergroup_disabled_ops()
+        for op in self.graph.ops:
+            ot_cfg = cfg.op_type.get(op.type)
+            # output activation quantizer
+            out_q = cfg.output_quantized
+            if ot_cfg is not None and ot_cfg.is_output_quantized is not None:
+                out_q = ot_cfg.is_output_quantized
+            if op.type in cfg.never_quantized_types or op.name in disabled \
+                    or not _is_float(op.output.dtype):
+                out_q = False
+            if out_q:
+                sym = cfg.act_symmetric
+                if ot_cfg is not None and ot_cfg.is_symmetric is not None:
+                    sym = ot_cfg.is_symmetric
+                self.quantizers[op.name] = self._act_spec(op.name,
+                                                          symmetric=sym)
+                self._act_node_q[op.output.node] = op.name
+            # parameter quantizers
+            for role, prod in op.param_products.items():
+                if prod.param_path in self.quantizers:
+                    continue
+                is_q = cfg.param_quantized
+                if role in cfg.param_overrides:
+                    is_q = cfg.param_overrides[role]
+                if ot_cfg is not None and role in ot_cfg.params_quantized:
+                    is_q = ot_cfg.params_quantized[role]
+                if role not in ("kernel", "bias") and op.type == "batchnorm":
+                    is_q = False
+                if not is_q:
+                    continue
+                ch_axis = self._kernel_channel_axis(op) if (
+                    cfg.per_channel and role == "kernel") else None
+                self.quantizers[prod.param_path] = QuantizerSpec(
+                    name=prod.param_path, kind="param",
+                    bitwidth=self.default_param_bw,
+                    symmetric=cfg.param_symmetric,
+                    strict_symmetric=cfg.strict_symmetric,
+                    unsigned_symmetric=cfg.unsigned_symmetric,
+                    scheme=self.param_quant_scheme, channel_axis=ch_axis)
+                self._param_node_q[prod.node] = prod.param_path
+
+        # per-op input quantizers ("op_type" is_input_quantized)
+        for op in self.graph.ops:
+            ot_cfg = cfg.op_type.get(op.type)
+            in_q = cfg.input_quantized
+            if ot_cfg is not None and ot_cfg.is_input_quantized is not None:
+                in_q = ot_cfg.is_input_quantized
+            if not in_q or not op.inputs or not _is_float(op.inputs[0].dtype):
+                continue
+            name = f"{op.name}_input"
+            self.quantizers[name] = self._act_spec(name)
+            target = op.inputs[0].node
+            for n in op.nodes:
+                for a in n.all_input_nodes:
+                    if self.graph.resolve(a) is target:
+                        self._node_input_q.setdefault(n, []).append((a, name))
+
+        # model output quantizers
+        if cfg.model_output_quantized:
+            for i, node in enumerate(self.graph.output_nodes):
+                rnode = self.graph.resolve(node)
+                if rnode in self._act_node_q or \
+                        not _is_float(self.graph._get_product(rnode).dtype):
+                    continue
+                name = f"model_output_{i}"
+                self.quantizers[name] = self._act_spec(name)
+                self._output_node_q[rnode] = name
+
+        # model input quantizers
+        if cfg.model_input_quantized:
+            for i, node in enumerate(self.graph.input_nodes):
+                if not _is_float(self.graph.products[node].dtype):
+                    continue
+                name = f"model_input_{i}"
+                self.quantizers[name] = self._act_spec(name, kind="input")
+                self._input_node_q[node] = name
+
+    # ------------------------------------------------------------------
+    # Interpreter
+    # ------------------------------------------------------------------
+    def _qdq(self, x: torch.Tensor, name: str, encodings) -> torch.Tensor:
+        spec = self.quantizers[name]
+        enc = encodings[name]
+        emin, emax = enc.min, enc.max
+        if spec.block_size is not None:
+            # blockwise: encodings in the blocked keepdims shape broadcast
+            # against the blocked view
+            xb = _to_blocks(x, spec.block_size, spec.block_axis)
+            return quantize_dequantize(
+                xb, emin, emax, bitwidth=spec.bitwidth,
+                symmetric=spec.symmetric,
+                strict_symmetric=spec.strict_symmetric,
+                unsigned_symmetric=spec.unsigned_symmetric).reshape(x.shape)
+        emin = _broadcast_encoding(emin, x.dim(), spec.channel_axis)
+        emax = _broadcast_encoding(emax, x.dim(), spec.channel_axis)
+        return quantize_dequantize(
+            x, emin, emax, bitwidth=spec.bitwidth, symmetric=spec.symmetric,
+            strict_symmetric=spec.strict_symmetric,
+            unsigned_symmetric=spec.unsigned_symmetric)
+
+    def _run(self, params, args, mode: str, obs_states=None, analyzers=None,
+             encodings=None):
+        """Evaluate the graph with quantization interception.
+
+        mode: 'fp' (no quantizers), 'observe' (parameters fake-quantized
+        with their encodings, activation observers updated), 'quantized'
+        (the full fake-quant forward). Returns (outputs, obs_states)."""
+        params = self.params if params is None else params
+        observing = mode == "observe" and analyzers is not None
+        quantizing = mode == "quantized" and encodings is not None
+
+        def hook(qname, val):
+            if observing and qname in analyzers:
+                obs_states[qname] = analyzers[qname].update(
+                    obs_states[qname], val)
+            elif quantizing and qname in encodings:
+                val = self._qdq(val, qname, encodings)
+            return val
+
+        def after(node, val):
+            if node.op == "placeholder":
+                qname = self._param_node_q.get(node)
+                if qname is not None:
+                    if mode in ("observe", "quantized") \
+                            and encodings is not None and qname in encodings:
+                        val = self._qdq(val, qname, encodings)
+                    return val
+                qname = self._input_node_q.get(node)
+            else:
+                qname = self._act_node_q.get(node)
+            return val if qname is None else hook(qname, val)
+
+        def before(node, read):
+            hooks = self._node_input_q.get(node)
+            if not hooks or mode == "fp":
+                return None
+            targets = dict(hooks)
+            return fx.node.map_arg(
+                (node.args, node.kwargs),
+                lambda a: hook(targets[a], read(a)) if a in targets
+                else read(a))
+
+        def at_output(node, val):
+            qname = self._output_node_q.get(self.graph.resolve(node))
+            return val if qname is None else hook(qname, val)
+
+        out = run_graph(self.graph, flat_args(self.graph, params, args),
+                        before=before if self._node_input_q else None,
+                        after=after, at_output=at_output)
+        return out, obs_states
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+    def fp_fn(self, params, *args):
+        """Floating-point forward through the interpreter."""
+        with torch.no_grad():
+            return self._run(params, args, "fp")[0]
+
+    def compute_param_encodings(self, params=None, only=None):
+        """Parameter encodings straight from the weights; ``only`` limits
+        the (re)computation to some parameter names."""
+        params = self.params if params is None else params
+        only = set(only) if only is not None else None
+        for name, spec in self.quantizers.items():
+            if spec.kind != "param" or name in self._frozen \
+                    or not spec.enabled:
+                continue
+            if only is not None and name not in only:
+                continue
+            w = params[name]
+            if spec.block_size is not None:
+                self._encodings[name] = self._blockwise_encoding(w, spec)
+                continue
+            analyzer = EncodingAnalyzer(spec.scheme,
+                                        channel_axis=spec.channel_axis)
+            st = analyzer.update(analyzer.init_state(w.shape, w.device), w)
+            self._encodings[name] = analyzer.compute(
+                st, bitwidth=spec.bitwidth, symmetric=spec.symmetric,
+                strict_symmetric=spec.strict_symmetric,
+                unsigned_symmetric=spec.unsigned_symmetric)
+
+    @staticmethod
+    def _blockwise_encoding(w, spec: QuantizerSpec) -> AffineEncoding:
+        if spec.lpbq:
+            return grouped_block_quantize_dequantize(
+                w, spec.block_size, spec.block_axis, spec.bitwidth,
+                spec.lpbq_scale_bw)[1]
+        return blockwise_encoding(w, spec.block_size, spec.block_axis,
+                                  bitwidth=spec.bitwidth,
+                                  symmetric=spec.symmetric)
+
+    def compute_encodings(self, params, data_iter: Iterable,
+                          num_batches: Optional[int] = None):
+        """Calibrate: observe activations over ``data_iter`` (each item a
+        tuple of model inputs or one tensor), then compute every encoding
+        (v1/quantsim.py:425-448 flow). ``params`` None: the model's own."""
+        params = self.params if params is None else params
+        self.compute_param_encodings(params)
+        analyzers, obs = {}, {}
+        for name, spec in self.quantizers.items():
+            if spec.kind == "param" or not spec.enabled:
+                continue      # disabled quantizers pay no observe cost
+            analyzers[name] = EncodingAnalyzer(spec.scheme)
+            obs[name] = analyzers[name].init_state(device=self.device)
+        count = 0
+        with torch.no_grad():
+            for batch in data_iter:
+                if not isinstance(batch, (tuple, list)):
+                    batch = (batch,)
+                _, obs = self._run(params, batch, "observe", obs_states=obs,
+                                   analyzers=analyzers,
+                                   encodings=self._encodings)
+                count += 1
+                if num_batches is not None and count >= num_batches:
+                    break
+        if count == 0:
+            raise RuntimeError("compute_encodings: data_iter yielded no "
+                               "batches")
+        self._analyzers, self._obs_states = analyzers, obs
+        for name, analyzer in analyzers.items():
+            if name in self._frozen:
+                continue
+            spec = self.quantizers[name]
+            self._encodings[name] = analyzer.compute(
+                obs[name], bitwidth=spec.bitwidth, symmetric=spec.symmetric,
+                strict_symmetric=spec.strict_symmetric,
+                unsigned_symmetric=spec.unsigned_symmetric)
+        return self._encodings
+
+    def set_param_blockwise(self, params, name: str, block_size: int,
+                            axis: int = 0, bitwidth: int = 4,
+                            symmetric: bool = True, lpbq: bool = False,
+                            scale_bitwidth: int = 4):
+        """Switch a parameter quantizer to blockwise (one (min, max) per
+        ``block_size`` slice along ``axis``) or LPBQ (block scales on a
+        per-group integer grid)."""
+        params = self.params if params is None else params
+        spec = self.quantizers[name]
+        if spec.kind != "param":
+            raise ValueError(f"{name} is not a parameter quantizer")
+        self.quantizers[name] = spec = dataclasses.replace(
+            spec, block_size=block_size, block_axis=axis, bitwidth=bitwidth,
+            symmetric=symmetric, channel_axis=None, lpbq=lpbq,
+            lpbq_scale_bw=scale_bitwidth)
+        self._encodings[name] = self._blockwise_encoding(params[name], spec)
+
+    @property
+    def encodings(self) -> Dict[str, AffineEncoding]:
+        return self._encodings
+
+    def set_encoding(self, name: str, encoding: AffineEncoding,
+                     freeze: bool = False):
+        """Override one quantizer's encoding (set_and_freeze_param_encodings,
+        v1/quantsim.py:1839)."""
+        self._encodings[name] = encoding
+        if freeze:
+            self._frozen.add(name)
+
+    def quantized_fn(self, params, *args):
+        """The fake-quantized forward."""
+        if not self._encodings:
+            raise RuntimeError("call compute_encodings first")
+        with torch.no_grad():
+            return self._run(params, args, "quantized",
+                             encodings=self._encodings)[0]
+
+    def set_quantizer_enabled(self, name: str, enabled: bool):
+        """Toggle a quantizer: a disabled one skips the observe pass and the
+        fake-quant; its encoding is parked and restored on re-enable."""
+        spec = self.quantizers[name]
+        if spec.enabled == enabled:
+            return
+        self.quantizers[name] = dataclasses.replace(spec, enabled=enabled)
+        if not enabled and name in self._encodings:
+            self._parked_encodings[name] = self._encodings.pop(name)
+        elif enabled and name in self._parked_encodings:
+            self._encodings[name] = self._parked_encodings.pop(name)
+
+    def disable_quantizer(self, name: str):
+        """Remove a quantizer (exclude_layers_from_quantization,
+        v1/quantsim.py:731)."""
+        if self.quantizers.pop(name, None) is None:
+            return
+        self._encodings.pop(name, None)
+        for d in (self._act_node_q, self._param_node_q, self._input_node_q,
+                  self._output_node_q):
+            for k in [k for k, v in d.items() if v == name]:
+                del d[k]
+        for node in list(self._node_input_q):
+            self._node_input_q[node] = [
+                (a, n) for a, n in self._node_input_q[node] if n != name]
+            if not self._node_input_q[node]:
+                del self._node_input_q[node]
+
+    # -- not ported yet -------------------------------------------------
+    def set_quantizer_data_type(self, *a, **k):
+        _not_ported("set_quantizer_data_type")
+
+    def qat_fn(self, *a, **k):
+        _not_ported("qat_fn")
+
+    def static_grid_qat_fn(self, *a, **k):
+        _not_ported("static_grid_qat_fn")
+
+    def recompute_encoding(self, *a, **k):
+        _not_ported("recompute_encoding")
+
+    def set_bitwidth(self, *a, **k):
+        _not_ported("set_bitwidth")
+
+    def export(self, *a, **k):
+        _not_ported("export")
+
+    def export_encodings(self, *a, **k):
+        _not_ported("export_encodings")
+
+    def load_encodings(self, *a, **k):
+        _not_ported("load_encodings")

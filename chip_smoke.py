@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of aimet_tpu_torch on one NVIDIA H100: Llama-3-8B served in
-``w4``, ``w8`` and ``w4a8``.
+``w4``, ``w8`` and ``w4a8``, and calibrated in quantsim and lowered to the
+integer kernels in every lowering mode.
 
     python3 chip_smoke.py
 
-1. builds the seven hand-written kernels from ``aimet_tpu_torch/csrc``:
+1. builds the nine hand-written kernels from ``aimet_tpu_torch/csrc``:
    K1 ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
-   ``w4_gemm`` and KW8 ``w8_gemm`` (``wo_gemm.cu``), KFL ``fused_wo_mlp``
-   and KSOL ``sol_decode_layer`` (``fused_layer.cu``);
+   ``w4_gemm``, KW8 ``w8_gemm`` and KW4G ``w4_grouped_gemm``
+   (``wo_gemm.cu``), KSQ ``w8a8_staticq`` (``w8a8_staticq.cu``), KFL
+   ``fused_wo_mlp`` and KSOL ``sol_decode_layer`` (``fused_layer.cu``);
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 codes, K2 outputs and every KV-cache byte
-   bit-exact; the rest within a stated share of the plain output's max),
-   and times kernel, plain version and the bound the card's peaks set;
+   main path's shapes (K1 codes, K2 and KSQ codes and outputs and every
+   KV-cache byte bit-exact; the rest within a stated share of the plain
+   output's max; KW4 and KW8 on f32 x as well, the f32 ``lm_head`` of a
+   lowered model), and times kernel, plain version and the bound the
+   card's peaks set;
 3. draws ``TransformerConfig.llama3_8b()`` weights at full width and depth
    (32 layers) with ``random_quantized_weights`` on the card and drives
    each mode's main path with the launch counts set to 0 just before it
@@ -27,7 +31,18 @@
    (``w8``: its first 4 layers, see ``main``) through the kernels with the
    same through the plain versions (logits within 5e-2 of their max; top-1
    agreement reported);
-5. prints the measurements, the card's name and power limit, a ``kernels``
+5. draws a float Llama-3-8B at full width and depth (32 layers, f32
+   parameters from a seeded generator on the card), calibrates it once in
+   ``QuantizationSimModel`` (sqnr, 4 batches of 2 x 512 tokens), reports
+   ``quantized_fn`` against the float model, and lowers it with
+   ``lower_to_int`` in ``w8``, ``w8a8``, ``w4``, ``w4a8`` and ``w4g``
+   (blockwise INT4, block 128, on every layer linear; ``lm_head`` in
+   ``w8a8``): one forward of 8 x 512 tokens a mode with the launch counts
+   set to 0 just before and read just after (each kernel of the mode must
+   launch exactly once a linear), the same forward through the plain
+   versions (logits within 5e-2 of their max), the relative MSE against the
+   float model, device ms by kernel and host ms;
+6. prints the measurements, the card's name and power limit, a ``kernels``
    JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without CUDA, or outside a checkout of the
@@ -72,6 +87,10 @@ SOURCES = {
                      "aimet_tpu/ops/fused_layer.py:264"),
     "sol_decode_layer": ("aimet_tpu_torch/csrc/fused_layer.cu",
                          "aimet_tpu/ops/decode_layer_sol.py:289"),
+    "w8a8_staticq": ("aimet_tpu_torch/csrc/w8a8_staticq.cu",
+                     "aimet_tpu/ops/int_matmul.py:593"),
+    "w4_grouped_gemm": ("aimet_tpu_torch/csrc/wo_gemm.cu",
+                        "aimet_tpu/ops/int_matmul.py:960"),
 }
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
@@ -80,6 +99,16 @@ PATH_KERNELS = {
     "w4a8": ("act_quant", "w4a8_gemm", "sol_decode_layer",
              "decode_attention"),
     "w8": ("w8_gemm", "decode_attention"),
+}
+# the lowered models: mode -> (lower_to_int mode, param bitwidth, the
+# launches of one forward by kernel, n = linears a forward)
+LOWER_MODES = {
+    "w8": ("w8", 8, lambda n: {"w8_gemm": n}),
+    "w8a8": ("w8a8", 8, lambda n: {"w8a8_staticq": n}),
+    "w4": ("w4", 4, lambda n: {"w4_gemm": n}),
+    "w4a8": ("w4a8", 4, lambda n: {"act_quant": n, "w4a8_gemm": n}),
+    "w4g": ("w8a8", 8, lambda n: {"w4_grouped_gemm": n - 1,
+                                  "w8a8_staticq": 1}),
 }
 
 
@@ -99,23 +128,37 @@ def _kernel_events(prof, match=None):
 def timed(fn, iters, match=None, warmup=3):
     """Run fn(i) ``iters`` times under torch.profiler. Returns (device ms
     per call of the CUDA kernels named by ``match``, or of all kernels when
-    ``match`` is None; host-clock ms per call, synchronised)."""
+    ``match`` is None; host-clock ms per call, synchronised). If the
+    profiler records no such kernel twice, the device time comes from CUDA
+    events around the calls (all of their kernels) and is said so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = _kernel_events(prof, match)
-    assert ev, f"profiler recorded no CUDA kernel matching {match}"
-    dev_us = sum(e.time_range.elapsed_us() for e in ev)
-    return dev_us / 1e3 / iters, wall * 1e3 / iters
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = _kernel_events(prof, match)
+        if ev:
+            dev_us = sum(e.time_range.elapsed_us() for e in ev)
+            return dev_us / 1e3 / iters, wall * 1e3 / iters
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"  (the profiler recorded no CUDA kernel matching {match}: timed "
+        "with CUDA events)")
+    return start.elapsed_time(end) / iters, wall * 1e3 / iters
 
 
 def bound_ms(nbytes, *ops_at_peak):
@@ -220,11 +263,16 @@ def check_kernels(torch, ops):
             f"{err:.2e}; repeated decode calls give the same bits")
 
     def gemm_row(label, kernel, m, k, n, launch, plain, match, in_bytes,
-                 peak):
-        """in_bytes: the activations' and the weight codes' bytes."""
+                 peak, out_bytes=None, vec_bytes=None):
+        """in_bytes: the activations' and the weight codes' bytes; the
+        output is bf16 and one f32 scale a column is read unless
+        ``out_bytes`` / ``vec_bytes`` say otherwise."""
         ms, call = timed(launch, 20, match)
         pms, _ = timed(plain, 3, warmup=1)
-        b, how = bound_ms(in_bytes + n * 4 + m * n * 2, (2 * m * n * k, peak))
+        out_bytes = m * n * 2 if out_bytes is None else out_bytes
+        vec_bytes = n * 4 if vec_bytes is None else vec_bytes
+        b, how = bound_ms(in_bytes + vec_bytes + out_bytes,
+                          (2 * m * n * k, peak))
         rows[label] = dict(kernel=kernel, shape=f"M={m} K={k} N={n}", ms=ms,
                            call_ms=call, plain_ms=pms, bound_ms=b,
                            bound_by=how)
@@ -404,10 +452,133 @@ def check_kernels(torch, ops):
             f"Nq={Nq}, int8_dots={int8_dots}", ms=ms, call_ms=call,
             plain_ms=pms, bound_ms=b, bound_by=how)
     del sets, lw
+    check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
+                           gemm_row)
     for r in rows.values():
         r["max_abs_err"] = errs[r["kernel"]]
-        r["library_ms"] = None
+        r.setdefault("library_ms", None)
     return rows
+
+
+def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
+                           gemm_row):
+    """KSQ, KW4G and KW4 / KW8 on f32 x against their plain versions at the
+    lowered Llama-3-8B's shapes (M = 4096 and 16), and their timings."""
+    dev = "cuda"
+    lin_kn = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+    ksq_kn = lin_kn + [(4096, 128256)]
+    enc = dict(inv_delta=1 / 0.0213, offset=-119.0, num_steps=255.0)
+
+    def ksq_inputs(m, k, n, x_dtype):
+        x = (torch.randn((m, k), generator=g, device=dev) * 1.5).to(x_dtype)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                          device=dev)
+        sv = (torch.rand((n,), generator=g, device=dev) + 0.5) * 1e-4
+        cb = torch.randn((n,), generator=g, device=dev)
+        return x, w, sv, cb
+
+    for m in (4096, 16):
+        for k, n in ksq_kn:
+            x_dtype = torch.float32 if n == 128256 else torch.bfloat16
+            out_dtype = x_dtype
+            x, w, sv, cb = ksq_inputs(m, k, n, x_dtype)
+            kw = dict(enc, out_dtype=out_dtype, return_codes=True)
+            got, q = tim.matmul_w8a8_staticq(x, w, sv, cb, **kw)
+            want, pq = tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw)
+            note("w8a8_staticq", got, want)
+            assert torch.equal(q, pq), ("KSQ codes", m, k, n)
+            assert torch.equal(got, want), ("KSQ", m, k, n)
+            del x, w, got, want, q, pq
+    log("KSQ w8a8_staticq: codes and outputs bit-exact at M in {4096, 16} x "
+        f"(K, N) in {ksq_kn} (lm_head f32, the rest bf16)")
+
+    worst = 0.0
+    for m in (4096, 16):
+        for k, n in lin_kn:
+            for x_dtype in ((torch.bfloat16, torch.float32) if n == 14336
+                            else (torch.bfloat16,)):
+                x = torch.randn((m, k), generator=g, device=dev).to(x_dtype)
+                w = torch.randn((k, n), generator=g, device=dev) * 0.02
+                packed, sc = tim.quantize_weight_int4_grouped(w, 128)
+                got = tim.matmul_w4_grouped(x, packed, sc, group_size=128)
+                want = tim.matmul_w4_grouped_torch(x, packed, sc, 128)
+                note("w4_grouped_gemm", got, want)
+                err = rel_err(got, want)
+                worst = max(worst, err)
+                assert err < TOL_WO, ("KW4G", m, k, n, x_dtype, err)
+                del x, w, packed, got, want
+    log(f"KW4G w4_grouped_gemm: within {worst:.2e} of max (< {TOL_WO}) at M "
+        f"in {{4096, 16}} x (K, N) in {lin_kn}, group 128 (bf16 x; f32 x "
+        "too at N=14336)")
+
+    wo = {"w4_gemm": (True, tim.matmul_w4, tim.matmul_w4_torch),
+          "w8_gemm": (False, tim.matmul_w8, tim.matmul_w8_torch)}
+    for name, (w4, fn, plain) in wo.items():
+        worst = 0.0
+        for m in (4096, 16):
+            for k, n in ((4096, 128256), (4096, 4096)):
+                x = torch.randn((m, k), generator=g, device=dev)
+                w = codes(k // 2 if w4 else k, n)
+                sw = (torch.rand((n,), generator=g, device=dev) + 0.5) \
+                    * 0.02 / k ** 0.5
+                got, want = fn(x, w, sw), plain(x, w, sw)
+                note(name, got, want)
+                err = rel_err(got, want)
+                worst = max(worst, err)
+                assert got.dtype == torch.float32 and err < TOL_WO, \
+                    (name, "f32", m, k, n, err)
+                del x, w, got, want
+        log(f"{name} on f32 x: within {worst:.2e} of max (< {TOL_WO}) at M "
+            "in {4096, 16} x (K, N) in [(4096, 128256), (4096, 4096)]")
+
+    # timings at the lowered model's shapes
+    for label, m, k, n, x_dtype in (
+            ("w8a8_staticq[lm_head]", 4096, 4096, 128256, torch.float32),
+            ("w8a8_staticq[w_down]", 4096, 14336, 4096, torch.bfloat16),
+            ("w8a8_staticq[decode]", 16, 4096, 14336, torch.bfloat16)):
+        x, w, sv, cb = ksq_inputs(m, k, n, x_dtype)
+        kw = dict(enc, out_dtype=x_dtype)
+        esz = x.element_size()
+        gemm_row(label, "w8a8_staticq", m, k, n,
+                 lambda i: tim.matmul_w8a8_staticq(x, w, sv, cb, **kw),
+                 lambda i: tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw),
+                 ["staticq_"], m * k * esz + k * n, INT8_OPS,
+                 out_bytes=m * n * esz, vec_bytes=2 * n * 4)
+        # the library's int8 GEMM alone (no quantizer, no epilogue): not the
+        # same function, so it stays out of library_ms
+        if m > 16:
+            xq = tim.quantize_static_q8_torch(x, enc["inv_delta"],
+                                              enc["offset"],
+                                              enc["num_steps"])
+            ims, _ = timed(lambda i: torch._int_mm(xq, w), 10)
+            rows[label]["int_mm_ms"] = ims
+            del xq
+        del x, w
+    for tag, m in (("prefill", 4096), ("decode", 16)):
+        k, n = 4096, 14336
+        x = randn(m, k)
+        ws = [tim.quantize_weight_int4_grouped(
+            torch.randn((k, n), generator=g, device=dev) * 0.02, 128)
+            for _ in range(3)]
+        gemm_row(f"w4_grouped_gemm[{tag}]", "w4_grouped_gemm", m, k, n,
+                 lambda i: tim.matmul_w4_grouped(x, *ws[i % 3],
+                                                 group_size=128),
+                 lambda i: tim.matmul_w4_grouped_torch(x, *ws[i % 3], 128),
+                 ["wo_gemm_kernel", "wo_reduce_kernel"],
+                 m * k * 2 + k // 2 * n, BF16_FLOPS,
+                 vec_bytes=(k // 128) * n * 4)
+        del x, ws
+    for name, (w4, fn, plain) in wo.items():
+        m, k, n = 4096, 4096, 128256
+        x = torch.randn((m, k), generator=g, device=dev)
+        w = codes(k // 2 if w4 else k, n)
+        sw = torch.rand((n,), generator=g, device=dev) * 1e-3
+        # f32 x is two bf16 operands: twice the bf16 tensor-core work
+        gemm_row(f"{name}[f32 lm_head]", name, m, k, n,
+                 lambda i: fn(x, w, sw), lambda i: plain(x, w, sw),
+                 ["wo_gemm_kernel", "wo_reduce_kernel"], m * k * 4 + w.numel(),
+                 BF16_FLOPS / 2, out_bytes=m * n * 4)
+        del x, w
 
 
 @contextlib.contextmanager
@@ -589,6 +760,175 @@ def compare_whole_model(torch, qllm, ops, qw, cfg, mode, g, n_layers):
     return out
 
 
+def float_llama(torch, cfg, seed):
+    """The float Transformer at ``cfg``, f32 parameters drawn on the card
+    from a seeded generator: N(0, 1) embeddings, N(0, 1/fan_in) kernels,
+    unit RMSNorm scales."""
+    from aimet_tpu_torch.models.transformer import Transformer
+    with torch.device("cuda"):
+        model = Transformer(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            else:
+                std = 1.0 if name.endswith("embedding") else p.shape[0] ** -.5
+                p.normal_(0.0, std, generator=g)
+    return model.eval()
+
+
+@contextlib.contextmanager
+def plain_lowering(lw, tim):
+    """Route the lowered models through the plain versions (comparison
+    only: on the card the package always launches the kernels)."""
+    names = {"matmul_w8": tim.matmul_w8_torch,
+             "matmul_w4": tim.matmul_w4_torch,
+             "matmul_w4a8": tim.matmul_w4a8_torch,
+             "matmul_w8a8_staticq": tim.matmul_w8a8_staticq_torch,
+             "matmul_w4_grouped": tim.matmul_w4_grouped_torch}
+    saved = {k: getattr(lw, k) for k in names}
+    for k, v in names.items():
+        setattr(lw, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(lw, k, v)
+
+
+def lowering(torch, tim, counters, g):
+    """Phase 5: quantsim calibration and true-INT lowering of a float
+    Llama-3-8B at full width and depth (f32: 32.1 GB). Returns (metrics,
+    launches summed over the lowered forwards)."""
+    from aimet_tpu_torch import QuantizationSimModel, lower_to_int
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.quantsim import lowering as lw
+    cfg = TransformerConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    model = float_llama(torch, cfg, seed=3)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lower] float Llama-3-8B, {cfg.n_layers} layers: {n_params / 1e9:.3f}"
+        f" G f32 parameters drawn in {time.time() - t:.1f} s")
+    metrics = {}
+    toks = lambda b: torch.randint(0, cfg.vocab_size, (b, 512), generator=g,
+                                   device="cuda")
+    calib = [toks(2) for _ in range(4)]
+
+    t = time.time()
+    sim = QuantizationSimModel(model, (calib[0],))
+    t_trace = time.time() - t
+    sim.compute_encodings(None, calib)
+    torch.cuda.synchronize()
+    metrics["calibrate_s"] = time.time() - t - t_trace
+    n_q = len(sim.quantizers)
+    log(f"[lower] QuantizationSimModel: traced in {t_trace:.1f} s, "
+        f"{len(sim.graph.ops)} ops, {n_q} quantizers; compute_encodings "
+        f"(sqnr, 4 x 2 x 512 tokens) {metrics['calibrate_s']:.1f} s")
+
+    # the fake-quant forward against the float model
+    with torch.no_grad():
+        ref = model(calib[0])
+    masked = [op.name for op in sim.graph.ops_of_type("select_n")
+              if any(c.type == "softmax" for c in op.output.consumers)]
+    for tag, off in (("", []), ("_masked_off", masked)):
+        for name in off:
+            sim.set_quantizer_enabled(name, False)
+        q = sim.quantized_fn(None, calib[0])
+        for name in off:
+            sim.set_quantizer_enabled(name, True)
+        assert torch.isfinite(q).all() and q.shape == ref.shape
+        metrics[f"quantized_fn{tag}_rel_err"] = rel_err(q, ref)
+        metrics[f"quantized_fn{tag}_rel_mse"] = (
+            ((q - ref) ** 2).mean() / (ref ** 2).mean()).item()
+        del q
+    log("[lower] quantized_fn vs the float model (2 x 512): max rel err "
+        f"{metrics['quantized_fn_rel_err']:.3e}, rel MSE "
+        f"{metrics['quantized_fn_rel_mse']:.3e}; with the {len(masked)} "
+        "masked-score quantizers off: "
+        f"{metrics['quantized_fn_masked_off_rel_err']:.3e}, "
+        f"{metrics['quantized_fn_masked_off_rel_mse']:.3e}")
+    del ref
+
+    # INT4 grids: a sim whose parameter quantizers are 4-bit (the
+    # activation encodings are not read by w4 / w4a8)
+    sim4 = QuantizationSimModel(model, (calib[0],), default_param_bw=4)
+    sim4.compute_param_encodings()
+    x = toks(8)
+    with torch.no_grad():
+        float_logits = model(x)
+    params = sim.params
+    n_lin = 7 * cfg.n_layers + 1
+    launches = {k: 0 for k in counters}
+    for mode, (lmode, bw, expect) in LOWER_MODES.items():
+        s_ = sim4 if bw == 4 else sim
+        if mode == "w4g":      # blockwise 4-bit layer linears, block 128
+            for op in sim.graph.ops_of_type("linear")[:-1]:
+                sim.set_param_blockwise(
+                    None, op.param_products["kernel"].param_path, 128)
+        t = time.time()
+        low = lower_to_int(s_, None, mode=lmode)
+        torch.cuda.synchronize()
+        t_lower = time.time() - t
+        assert len(low.lowered_ops) == n_lin and not low.downgraded_ops, \
+            (mode, low.skipped_ops, low.downgraded_ops)
+        low(params, x)                    # retrace for 8 x 512, warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = low(params, x)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        assert counts == expect(n_lin), (mode, counts)
+        assert torch.isfinite(out).all() and out.shape == float_logits.shape
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            low(params, x)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in _kernel_events(prof):
+            key = e.name.replace("(anonymous namespace)::", "")
+            key = key.removeprefix("void ").split("<")[0].split("(")[0]
+            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() \
+                / 1e3
+        dev_ms = sum(by_name.values()) or timed(lambda i: low(params, x), 1,
+                                                warmup=0)[0]
+        with plain_lowering(lw, tim):
+            plain = low(params, x)
+        m = {"lower_s": t_lower, "host_ms": host_ms, "device_ms": dev_ms,
+             "logits_vs_plain_rel_err": rel_err(out, plain),
+             "top1_vs_plain": (out.argmax(-1) == plain.argmax(-1)).float()
+             .mean().item(),
+             "rel_mse_vs_float": (((out - float_logits) ** 2).mean()
+                                  / (float_logits ** 2).mean()).item(),
+             "top1_vs_float": (out.argmax(-1) == float_logits.argmax(-1))
+             .float().mean().item(),
+             "launches": counts}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        log(f"[lower {mode}] lower_to_int {t_lower:.1f} s; forward 8 x 512: "
+            f"{host_ms:.1f} ms host, {dev_ms:.2f} ms device ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in top) + "); launches "
+            f"{counts}; kernels vs plain {m['logits_vs_plain_rel_err']:.3e} "
+            f"(top-1 {m['top1_vs_plain']:.3f}); vs float: rel MSE "
+            f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
+        assert m["logits_vs_plain_rel_err"] < TOL_LOGITS, (mode, m)
+        metrics.update({f"lower_{mode}_{k}": v for k, v in m.items()})
+        del low, out, plain
+        torch.cuda.empty_cache()
+    metrics["lower_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lower] peak device memory {metrics['lower_peak_gb']:.1f} GB")
+    del sim, sim4, model, float_logits, params
+    torch.cuda.empty_cache()
+    return metrics, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -608,7 +948,9 @@ def main() -> int:
                 "decode_attention": dattn.fused_decode_attention,
                 "w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
                 "fused_wo_mlp": flay.fused_wo_mlp,
-                "sol_decode_layer": dsol.sol_decode_layer}
+                "sol_decode_layer": dsol.sol_decode_layer,
+                "w8a8_staticq": tim.matmul_w8a8_staticq,
+                "w4_grouped_gemm": tim.matmul_w4_grouped}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -658,6 +1000,15 @@ def main() -> int:
                                      4 if mode == "w8" else cfg.n_layers))
         metrics.update({f"{mode}_{k}": v for k, v in m.items()})
         torch.cuda.empty_cache()
+    del qw
+
+    # --- 5. quantsim calibration and true-INT lowering
+    t = time.time()
+    m, counts = lowering(torch, tim, counters, g)
+    metrics.update(m)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"[lower] phase took {time.time() - t:.1f} s")
 
     kernels = []
     for label, r in rows.items():
@@ -667,7 +1018,8 @@ def main() -> int:
             launches=launches[r["kernel"]], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"]))
+            shape=r["shape"],
+            **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {})))
     log(json.dumps({"metrics": metrics, "launches": launches, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -4,10 +4,11 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: codes, W4A8 GEMM outputs and KV-cache bytes bit-exact; the
-rest as max |kernel - plain| relative to max |plain| (bf16): decode
-attention and the fused layer kernels < 2e-2 (< 6e-2 with int8 dots),
-the weight-only GEMMs < 1e-2, whose repeated calls give the same bits.
+Tolerances: codes, W4A8 and static-INT8 (KSQ) GEMM outputs and KV-cache
+bytes bit-exact; the rest as max |kernel - plain| relative to max |plain|:
+decode attention and the fused layer kernels < 2e-2 (< 6e-2 with int8
+dots), the weight-only GEMMs (KW4, KW8, group-wise KW4G; bf16 or f32 x)
+< 1e-2, and their repeated calls give the same bits.
 """
 import pytest
 import torch
@@ -101,6 +102,64 @@ def test_weight_only_kernels_match_plain(gen, m, k, n, w4):
     assert got.dtype == torch.bfloat16 and got.shape == (m, n)
     assert _rel(got, plain(x, w, scale)) < 1e-2
     assert torch.equal(fn(x, w, scale), got)          # fixed split order
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (16, 4096, 6144),                       # decode
+    (37, 144, 1000),                        # ragged M, N and K
+    (300, 4096, 4096),                      # prefill-like (lm_head runs f32)
+])
+@pytest.mark.parametrize("w4", [True, False], ids=["w4", "w8"])
+def test_weight_only_kernels_take_f32_x(gen, m, k, n, w4):
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randint(-128, 128, (k // 2 if w4 else k, n), dtype=torch.int8,
+                      generator=gen, device="cuda")
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    fn, plain = ((tim.matmul_w4, tim.matmul_w4_torch) if w4
+                 else (tim.matmul_w8, tim.matmul_w8_torch))
+    got = fn(x, w, scale)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _rel(got, plain(x, w, scale)) < 1e-2
+    assert torch.equal(fn(x, w, scale), got)
+
+
+@pytest.mark.parametrize("m,k,n,group,dtype", [
+    (16, 4096, 4096, 128, torch.bfloat16),  # decode
+    (37, 512, 1000, 16, torch.bfloat16),    # ragged M and N, smallest group
+    (300, 4096, 1000, 128, torch.float32),  # f32 x
+    (64, 14336, 4096, 128, torch.bfloat16),  # w_down
+])
+def test_w4_grouped_kernel_matches_plain(gen, m, k, n, group, dtype):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    packed, scales = tim.quantize_weight_int4_grouped(w, group)
+    got = tim.matmul_w4_grouped(x, packed, scales, group_size=group)
+    want = tim.matmul_w4_grouped_torch(x, packed, scales, group)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _rel(got, want) < 1e-2
+    assert torch.equal(tim.matmul_w4_grouped(x, packed, scales,
+                                             group_size=group), got)
+
+
+@pytest.mark.parametrize("m,k,n,x_dtype,out_dtype", [
+    (16, 4096, 4096, torch.bfloat16, torch.float32),   # decode, split K
+    (37, 144, 1000, torch.float32, torch.float32),     # ragged M, N and K
+    (300, 14336, 4096, torch.bfloat16, torch.bfloat16),  # w_down
+    (2048, 4096, 1024, torch.bfloat16, torch.bfloat16),  # prefill wk
+])
+def test_staticq_kernel_matches_plain_bit_for_bit(gen, m, k, n, x_dtype,
+                                                  out_dtype):
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(x_dtype)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sv = torch.rand((n,), generator=gen, device="cuda") * 1e-4
+    cb = torch.randn((n,), generator=gen, device="cuda")
+    kw = dict(inv_delta=1 / 0.0317, offset=-131.0, num_steps=255.0,
+              out_dtype=out_dtype, return_codes=True)
+    got, codes = tim.matmul_w8a8_staticq(x, w, sv, cb, **kw)
+    want, pcodes = tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw)
+    assert torch.equal(codes, pcodes)
+    assert got.dtype == out_dtype and torch.equal(got, want)
 
 
 def _int4(gen, k, n):
