@@ -59,6 +59,8 @@ SIGNATURES = {
     "aimet_staticq_quant": [_VP, _VP, _I, _I, _F, _F, _F, _I, _VP],
     # xq, w, sv, cb, out, ws, M, N, K, splits, out_is_bf16, stream
     "aimet_staticq_gemm": [_VP] * 6 + [_I] * 5 + [_VP],
+    # xq, sx, w, sw, cb, out, ws, M, N, K, splits, out_kind, stream
+    "aimet_q8_gemm": [_VP] * 7 + [_I] * 5 + [_VP],
     # attn, int8, rep, head_dim, S -> bytes (not an error code)
     "aimet_fused_layer_smem": [_I] * 5,
     # attn, int8, smem, int* blocks

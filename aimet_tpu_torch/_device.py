@@ -6,6 +6,7 @@ carries on quietly on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -32,3 +33,19 @@ def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Run f32 convolutions in f32. PyTorch lets cuDNN take TF32 for them by
+    default (``torch.backends.cudnn.allow_tf32``, about three decimal
+    digits); the JAX package's f32 models convolve in f32, so the port's
+    conv paths (the CNN models' forward, the graph interpreter, the
+    weight-only int conv) turn it off while they run. Float matmuls stay
+    f32 by PyTorch's own default."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

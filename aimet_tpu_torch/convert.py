@@ -2,7 +2,11 @@
 
 ``params_from_flax`` maps a flax ``variables["params"]`` tree (numpy
 arrays) onto the float ``Transformer``'s state dict; the module names are
-the flax names, so this is a flatten. ``quantized_from_jax`` takes a JAX
+the flax names, so this is a flatten. ``cnn_params_from_flax`` does the
+same for the CNNs (``models/resnet.py``, ``models/mobilenet_v2.py``) from
+``{params, batch_stats}``: conv kernels go from flax's HWIO to PyTorch's
+OIHW, the running statistics become the BatchNorm's ``mean`` and
+``var``. ``quantized_from_jax`` takes a JAX
 quantized weight tree (numpy) to the port's tree: packed bytes and scales
 pass through unchanged, since both packages share the storage contract.
 
@@ -45,6 +49,15 @@ def params_from_flax(params_np, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def cnn_params_from_flax(variables_np) -> Dict[str, torch.Tensor]:
+    """flax CNN ``{params, batch_stats}`` (numpy leaves) -> the port CNN's
+    state dict: conv kernels (kh, kw, in/g, out) -> (out, in/g, kh, kw)."""
+    out = {k: v.permute(3, 2, 0, 1).contiguous() if v.dim() == 4 else v
+           for k, v in params_from_flax(variables_np["params"]).items()}
+    out.update(params_from_flax(variables_np.get("batch_stats", {})))
+    return out
+
+
 def quantized_from_jax(qw_np, device: DeviceLike = None) -> Dict[str, Any]:
     """JAX quantized weight tree (numpy leaves) -> the port's tree on
     ``device`` (default ``cuda``); bytes unchanged."""
@@ -70,11 +83,13 @@ _ENC_STATIC = ("bitwidth", "symmetric", "strict_symmetric",
 
 def port_param_name(jax_key: str) -> str:
     """``"['params']['layer_0']['attn']['wq']['kernel']"`` ->
-    ``layer_0.attn.wq.kernel``; any other name is returned unchanged."""
+    ``layer_0.attn.wq.kernel`` (and ``"['batch_stats']['BatchNorm_0']
+    ['mean']"`` -> ``BatchNorm_0.mean``); any other name is returned
+    unchanged."""
     parts = _KEY_PART.findall(jax_key)
     if not parts or "".join(f"['{p}']" for p in parts) != jax_key:
         return jax_key
-    if parts[0] == "params":
+    if parts[0] in ("params", "batch_stats"):
         parts = parts[1:]
     return ".".join(parts)
 

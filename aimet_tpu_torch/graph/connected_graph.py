@@ -19,8 +19,10 @@ order) and then the flattened inputs, with concrete shapes in each node's
     literal becomes one ``scale`` op (``batchnorm`` when two or more carry
     parameters, ``relu`` / ``clip`` for literal max / min);
   - shape-only ops (``view``, ``_unsafe_view``, ``transpose``,
-    ``permute``, ``expand``, ``clone``, ``_to_copy``, ``slice``, ...) pass
-    through and never receive quantizers.
+    ``permute``, ``expand``, ``clone``, ``_to_copy``, ``slice``,
+    ``constant_pad_nd``, ...) pass through and never receive quantizers;
+  - ``max_pool2d_with_indices`` with its values item is one ``maxpool``
+    op (the CNNs' pooling), ``mean`` over the spatial axes a ``mean``.
 
 Ops are named ``{type}_{n}`` in execution order, so the ``linear`` ops
 come out with the JAX package's names, in its order, on parameters whose
@@ -290,6 +292,14 @@ class ConnectedGraph:
                 self._linear(node, pk, counters)
             elif pk is aten.convolution:
                 self._conv(node, counters)
+            elif pk is aten.max_pool2d_with_indices:
+                # (values, indices): the op's value is item 0
+                values = [u for u in node.users
+                          if u.target is operator.getitem and u.args[1] == 0]
+                group = [node] + values[:1]
+                self._consumed.update(values[:1])
+                self._new_op("maxpool", group, [node.args[0]], group[-1],
+                             counters)
             elif pk in ELEMENTWISE:
                 self._elementwise(node, pk, counters)
             elif pk in (aten.index, aten.embedding):

@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 from torch import fx
 from torch.utils import _pytree as pytree
 
+from .._device import no_tf32
 from .connected_graph import ConnectedGraph
 
 # node -> fn(read) computing its value in place of running it; None: skip
@@ -56,9 +57,15 @@ def run_graph(graph: ConnectedGraph, flat_args, *,
     ``after(node, value)`` may replace a placeholder's or a call's value;
     ``at_output(node, value)`` may replace a model output; ``emit`` maps a
     node to ``fn(read)`` computing its value in place of running it (None:
-    skipped), ``emit_reads`` names the nodes such a function reads."""
-    emit = emit or {}
-    dead = _last_uses(graph.nodes, emit_reads or {})
+    skipped), ``emit_reads`` names the nodes such a function reads. f32
+    convolutions run in f32 (TF32 off, ``_device.no_tf32``)."""
+    with no_tf32():
+        return _run(graph, flat_args, before, after, at_output, emit or {},
+                    emit_reads or {})
+
+
+def _run(graph, flat_args, before, after, at_output, emit, emit_reads):
+    dead = _last_uses(graph.nodes, emit_reads)
     env: Dict[fx.Node, Any] = {}
     read = env.__getitem__
     args = iter(flat_args)

@@ -8,7 +8,11 @@
 - static-encoding INT8 (``matmul_w8a8_staticq``, kernel KSQ,
   ``csrc/w8a8_staticq.cu``): activations quantized with a frozen
   calibration encoding, int8 x int8 GEMM — the ``w8a8`` target of
-  ``quantsim.lowering``.
+  ``quantsim.lowering``;
+- dynamic full INT8 (``matmul_w8a8`` = ``matmul_w8a8_fusedq``): per-row
+  INT8 activations x int8 weights, K1 then kernel KQ8 (``matmul_q8``,
+  ``csrc/w8a8_gemm.cu``) at every K; KQ8's int32 entry
+  (``int8_matmul_int32``) carries the integer convs of ``ops.int_conv``.
 
 Host math (weight/activation quantizers, the split-half packing, the
 decode split policy) is plain PyTorch. On a CUDA tensor the wrappers
@@ -128,12 +132,18 @@ def quantize_activation_per_row(x: torch.Tensor
 quantize_activation_per_row.launches = 0
 
 
-def _exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of int8 matrices: int64 on the CPU, float64 on
-    the card (every partial sum stays below 2**53, so both are exact)."""
-    if a.device.type == "cpu":
-        return (a.to(torch.int64) @ b.to(torch.int64)).to(torch.int32)
-    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+def _exact_rows(xq: torch.Tensor, w_q: torch.Tensor, epilogue,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """``epilogue(rows, acc)`` of the exact int32 sums xq @ w_q (int8), by
+    blocks of rows to bound the wide temporaries: int64 on the CPU, f64 on
+    the card (every partial sum stays below 2**53)."""
+    wide = torch.int64 if xq.device.type == "cpu" else torch.float64
+    w_wide = w_q.to(wide)
+    rows = max(1, (1 << 24) // max(1, w_q.shape[1]))
+    return torch.cat([
+        epilogue(slice(i, i + rows), (xq[i:i + rows].to(wide) @ w_wide).to(
+            torch.int32)).to(out_dtype)
+        for i in range(0, max(1, xq.shape[0]), rows)])
 
 
 def w4a8_gemm_torch(x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -141,7 +151,7 @@ def w4a8_gemm_torch(x_q: torch.Tensor, x_scale: torch.Tensor,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of the GEMM on quantized activations:
     (sum_k xq[m,k] W[k,n]) * sx[m] * sw[n], cast to ``out_dtype``."""
-    acc = _exact_int_matmul(x_q, unpack_int4(w_packed))
+    acc = int8_matmul_int32_torch(x_q, unpack_int4(w_packed))
     return (acc.to(torch.float32) * x_scale[:, None]
             * w_scale.to(torch.float32)[None, :]).to(out_dtype)
 
@@ -432,15 +442,8 @@ def matmul_w8a8_staticq_torch(x: torch.Tensor, w_q: torch.Tensor,
     xq = quantize_static_q8_torch(x, inv_delta, offset, num_steps)
     sv = scale_vec.to(torch.float32)[None, :]
     cb = col_bias.to(torch.float32)[None, :]
-    # exact int32 sums: int64 on the CPU, f64 on the card (every partial
-    # sum stays below 2**53)
-    wide = torch.int64 if x.device.type == "cpu" else torch.float64
-    w_wide = w_q.to(wide)
-    rows = max(1, (1 << 24) // max(1, w_q.shape[1]))
-    out = torch.cat([
-        fma_f32((xq[i:i + rows].to(wide) @ w_wide).to(torch.int32).to(
-            torch.float32), sv, cb).to(out_dtype)
-        for i in range(0, max(1, xq.shape[0]), rows)])
+    out = _exact_rows(xq, w_q, lambda _, acc: fma_f32(
+        acc.to(torch.float32), sv, cb), out_dtype)
     return (out, xq) if return_codes else out
 
 
@@ -503,3 +506,163 @@ def matmul_w8a8_staticq(x: torch.Tensor, w_q: torch.Tensor,
 
 
 matmul_w8a8_staticq.launches = 0
+
+
+# --------------------------------------------------------------------------
+# dynamic full INT8 (KW8A8, KQ8)
+# --------------------------------------------------------------------------
+
+def int8_matmul_int32_torch(x_q: torch.Tensor, w_q: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version of :func:`int8_matmul_int32`: the exact int32 sums."""
+    return _exact_rows(x_q, w_q, lambda _, acc: acc, torch.int32)
+
+
+def matmul_q8_torch(x_q: torch.Tensor, x_scale: torch.Tensor,
+                    w_q: torch.Tensor, w_scale: torch.Tensor,
+                    col_bias: Optional[torch.Tensor] = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of :func:`matmul_q8`: the exact int32 sums, then
+    (f32(acc) * sx) * sw, or fma(f32(acc) * sx, sw, col_bias) with a
+    column bias (XLA contracts the JAX kernel's ``acc * sx * sw + bias``
+    into that FMA on the CPU)."""
+    sx = x_scale.to(torch.float32)[:, None]
+    sw = w_scale.to(torch.float32)[None, :]
+    cb = None if col_bias is None else col_bias.to(torch.float32)[None, :]
+
+    def epilogue(rows, acc):
+        a = acc.to(torch.float32) * sx[rows]
+        return a * sw if cb is None else fma_f32(a, sw, cb)
+
+    return _exact_rows(x_q, w_q, epilogue, out_dtype)
+
+
+def matmul_w8a8_torch(x: torch.Tensor, w_q: torch.Tensor,
+                      w_scale: torch.Tensor,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Plain version of :func:`matmul_w8a8` (the JAX package's
+    ``matmul_w8a8_xla``, quantizing in f32 as its TPU kernel does)."""
+    x_q, x_scale = _quantize_activation_plain(x)
+    return matmul_q8_torch(x_q, x_scale, w_q, w_scale,
+                           out_dtype=out_dtype or x.dtype)
+
+
+def _check_q8(x, w_q, w_scale, col_bias=None):
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not match w_q "
+                         f"{tuple(w_q.shape)}")
+    N = w_q.shape[1]
+    for t in (w_scale, col_bias):
+        if t is not None and t.shape != (N,):
+            raise ValueError(f"per-column vectors must be ({N},), got "
+                             f"{tuple(t.shape)}")
+
+
+def _q8_buffers(x, w_q, dtype):
+    """(w_q contiguous and aligned, out, ws, splits) for a KQ8 launch; an
+    int32 output is its own zeroed split-K buffer."""
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"w_q must be int8, got {w_q.dtype}")
+    w_q = w_q.contiguous()
+    w_q = w_q if w_q.data_ptr() % 16 == 0 else w_q.clone()
+    (M, K), N = x.shape, w_q.shape[1]
+    steps = -(-K // _S8_STEP_K)
+    splits = _used_splits(steps, decode_splits(M, N, steps))
+    split_int = splits > 1 and dtype == torch.int32
+    out = (torch.zeros if split_int else torch.empty)(
+        (M, N), dtype=dtype, device=x.device)
+    ws = (torch.zeros((M, N), dtype=torch.int32, device=x.device)
+          if splits > 1 and not split_int else out)
+    return w_q, out, ws, splits
+
+
+_OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+def _launch_q8(x_q, x_scale, w_q, w_scale, col_bias, dtype):
+    if x_q.dtype != torch.int8:
+        raise TypeError(f"x_q must be int8, got {x_q.dtype}")
+    x_q = x_q.contiguous()
+    x_q = x_q if x_q.data_ptr() % 16 == 0 else x_q.clone()
+    w_q, out, ws, splits = _q8_buffers(x_q, w_q, dtype)
+    ptrs = [0 if t is None else t.to(torch.float32).contiguous()
+            for t in (x_scale, w_scale, col_bias)]
+    sx, sw, cb = (p if isinstance(p, int) else p.data_ptr() for p in ptrs)
+    (M, K), N = x_q.shape, w_q.shape[1]
+    matmul_q8.launches += 1
+    _build.launch("aimet_q8_gemm", x_q.data_ptr(), sx, w_q.data_ptr(), sw,
+                  cb, out.data_ptr(), ws.data_ptr(), M, N, K, splits,
+                  _OUT_KIND[dtype], _build.stream_ptr(x_q.device))
+    return out
+
+
+def matmul_q8(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+              w_scale: torch.Tensor, col_bias: Optional[torch.Tensor] = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 x int8 -> int32 matmul with a per-row x per-column scale
+    epilogue: x_q (M, K) int8, x_scale (M,) f32, w_q (K, N) int8, w_scale
+    (N,) f32, optional col_bias (N,) f32 -> (M, N) ``out_dtype`` (f32 or
+    bf16). On CUDA tensors it launches kernel KQ8 (``csrc/w8a8_gemm.cu``,
+    splitting K by :func:`decode_splits`); on CPU tensors it takes
+    :func:`matmul_q8_torch`. Both give the same bits."""
+    _check_q8(x_q, w_q, w_scale, col_bias)
+    if x_scale.shape != (x_q.shape[0],):
+        raise ValueError(f"x_scale must be ({x_q.shape[0]},), got "
+                         f"{tuple(x_scale.shape)}")
+    if not on_cuda(x_q, x_scale, w_q, w_scale, col_bias):
+        return matmul_q8_torch(x_q, x_scale, w_q, w_scale, col_bias,
+                               out_dtype)
+    if out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    return _launch_q8(x_q, x_scale, w_q, w_scale, col_bias, out_dtype)
+
+
+matmul_q8.launches = 0
+
+
+def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums x_q (M, K) int8 @ w_q (K, N) int8. On CUDA
+    tensors it launches KQ8's int32 entry (counted in
+    ``matmul_q8.launches``); on CPU tensors it takes
+    :func:`int8_matmul_int32_torch`."""
+    _check_q8(x_q, w_q, None)
+    if not on_cuda(x_q, w_q):
+        return int8_matmul_int32_torch(x_q, w_q)
+    return _launch_q8(x_q, None, w_q, None, None, torch.int32)
+
+
+def matmul_w8a8_fusedq(x: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """Full INT8 with the per-row dynamic activation quantization in f32:
+    x (M, K) f32/bf16, w_q (K, N) int8, w_scale (N,) f32 -> (M, N)
+    ``out_dtype`` (default x's dtype). On CUDA tensors it launches K1
+    (:func:`quantize_activation_per_row`) then KQ8 (:func:`matmul_q8`),
+    counted once here as KW8A8 and once in each of theirs; on CPU tensors
+    it takes :func:`matmul_w8a8_torch`. Both give the same bits. (The TPU
+    kernel quantizes each row into VMEM so the codes never reach HBM; here
+    they take one extra write and read of M x K bytes, ROADMAP queue D.)"""
+    _check_q8(x, w_q, w_scale)
+    out_dtype = out_dtype or x.dtype
+    if not on_cuda(x, w_q, w_scale):
+        return matmul_w8a8_torch(x, w_q, w_scale, out_dtype)
+    x_q, x_scale = quantize_activation_per_row(x)
+    matmul_w8a8_fusedq.launches += 1
+    return matmul_q8(x_q, x_scale, w_q, w_scale, out_dtype=out_dtype)
+
+
+matmul_w8a8_fusedq.launches = 0
+
+
+def matmul_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                *, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Full INT8: per-row dynamic INT8 activations (in f32) x int8 weights
+    w_q (K, N) with per-column scales -> (M, N) ``out_dtype`` (default x's
+    dtype), :func:`matmul_w8a8_fusedq` at every K. (The JAX package routes
+    K > 8192 or a given ``block_k`` to a K-split kernel that quantizes a
+    bf16 x in bf16; the port quantizes in f32 at every K, and its kernels
+    take no block sizes.)"""
+    return matmul_w8a8_fusedq(x, w_q, w_scale, out_dtype)

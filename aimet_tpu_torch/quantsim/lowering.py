@@ -24,10 +24,28 @@ quantsim simulated:
   - blockwise / LPBQ 4-bit kernels, whatever the mode: group-wise INT4
     (KW4G, ``matmul_w4_grouped``).
 
+Every ``conv`` / ``depthwise_conv`` / ``conv_transpose`` op lowers to the
+direct integer conv of ``ops/int_conv`` (no im2col of the activations in
+the weight-only modes), with the JAX package's mode table:
+
+  - ``w8a8`` with a static input encoding: ``conv2d_int8_static`` (a
+    zero-point-filled int8 im2col and KQ8's int32 entry; grouped convs an
+    exact f64 conv), zero-point corrected;
+  - ``w8a8`` without one, and ``w4a8``: ``conv2d_w8a8_dynamic`` (per-tensor
+    dynamic INT8 activations); a ``w8a8`` conv is then listed in
+    ``downgraded_ops``;
+  - ``w4``: INT4 codes packed along the output channels
+    (``pack_int4_conv_co``), or held as int8 when co is odd, dequantized
+    into a float conv (``conv2d_weight_only``); ``w8``: int8 codes, the
+    same way.
+
+A transposed conv becomes the equivalent lhs-dilated conv (flipped,
+transposed kernel); a conv whose equivalent padding would be negative,
+or whose weight is not 4-D, stays on the float path (``skipped_ops``).
+
 On CUDA parameters the replacements always launch the kernels; on CPU
 parameters the kernels' plain versions run. Activations between the ops
-stay float. A ``conv`` op raises ``NotImplementedError``: its lowering
-needs ``ops/int_conv``, which is not ported yet.
+stay float.
 
 The traced graph has the example inputs' shapes. Called with inputs of
 other shapes, a ``LoweredModel`` traces the model once more for them and
@@ -38,6 +56,7 @@ replaced op is checked).
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Callable, Dict, List, Optional
 
@@ -46,6 +65,8 @@ from torch.utils import _pytree as pytree
 
 from ..graph.connected_graph import ConnectedGraph, Op
 from ..graph.interpreter import evaluate_with_replacements
+from ..ops.int_conv import (conv2d_int8_static, conv2d_w8a8_dynamic,
+                            conv2d_weight_only, pack_int4_conv_co)
 from ..ops.int_matmul import (matmul_w4, matmul_w4_grouped, matmul_w4a8,
                               matmul_w8, matmul_w8a8_staticq,
                               pack_int4_split_half)
@@ -241,14 +262,106 @@ def _lower_linear(op: Op, w, bias, enc, ch_axis, mode, act_enc=None,
     return _replacement(mm, N, bias)
 
 
+def _conv_geometry(op: Op, q):
+    """(codes as a plain conv's (co, ci/g, kh, kw) weight, int_conv keyword
+    arguments) of a traced ``aten.convolution``, or None where the
+    integer conv cannot take it. A transposed conv (weight (ci, co/g, kh,
+    kw)) is the conv of the lhs-dilated input with the flipped kernel,
+    transposed per group, padded by dilation * (k - 1) - padding (plus the
+    output padding on the high side)."""
+    args = op.nodes[0].args
+    stride, padding, dilation = (tuple(int(v) for v in a)
+                                 for a in args[3:6])
+    transposed, out_pad, groups = args[6], args[7], args[8]
+    kh, kw = q.shape[2:]
+    if not transposed:
+        pads = tuple((p, p) for p in padding)
+        kw_args = dict(strides=stride, lhs_dilation=None)
+    else:
+        ci, cog = q.shape[:2]
+        q = q.flip(2, 3).reshape(groups, ci // groups, cog, kh, kw) \
+            .transpose(1, 2).reshape(groups * cog, ci // groups, kh, kw)
+        pads = tuple((d * (k - 1) - p, d * (k - 1) - p + int(o))
+                     for d, k, p, o in zip(dilation, (kh, kw), padding,
+                                           out_pad))
+        kw_args = dict(strides=(1, 1), lhs_dilation=stride)
+    if any(v < 0 for pair in pads for v in pair):
+        return None
+    return q.contiguous(), dict(kw_args, padding=pads,
+                                feature_group_count=groups,
+                                rhs_dilation=dilation)
+
+
+def _lower_conv(op: Op, w, bias, enc, ch_axis, mode, act_enc=None):
+    """A conv / depthwise_conv / conv_transpose -> the direct integer conv
+    (``ops/int_conv``): the mode table of the module docstring."""
+    if w.dim() != 4:
+        return None
+    transposed = op.attrs["transposed"]
+    co_axis = 1 if transposed else 0
+    if ch_axis not in (co_axis, None):
+        return None               # per-in-channel scales don't fold
+    bits = 4 if mode in ("w4", "w4a8") else 8
+    if enc.bitwidth > bits:
+        return None
+    groups = op.nodes[0].args[8]
+    co = w.shape[1] * groups if transposed else w.shape[0]
+    q, scale = _weight_int_and_scale(w, enc, ch_axis, bits, co)
+    if scale.shape[0] != co:
+        # a grouped transposed conv's axis-1 channels are the output
+        # channels within a group: each group repeats their scales
+        scale = scale.repeat(groups)
+    geo = _conv_geometry(op, q)
+    if geo is None:
+        return None
+    q, conv_kw = geo
+    f32 = torch.float32
+    if mode == "w8a8" and act_enc is not None:
+        wq = q.to(torch.int8)
+        dx = act_enc.delta.to(f32).reshape(())
+        off = act_enc.offset.to(f32).reshape(())
+        steps = float(act_enc.num_steps)
+
+        def conv(x):
+            return conv2d_int8_static(x, wq, scale, dx, off, steps,
+                                      out_dtype=f32, **conv_kw)
+    elif mode in ("w8a8", "w4a8"):
+        # no static input encoding: dynamic per-tensor activations
+        wq = q.to(torch.int8)
+
+        def conv(x):
+            return conv2d_w8a8_dynamic(x, wq, scale, out_dtype=f32,
+                                       **conv_kw)
+    else:
+        # w4 packs INT4 codes along co when co is even; odd co (and w8)
+        # keep int8 codes
+        packed = mode == "w4" and co % 2 == 0
+        wq = pack_int4_conv_co(q) if packed else q.to(torch.int8)
+        wbits = 4 if packed else 8
+
+        def conv(x):
+            return conv2d_weight_only(x, wq, scale, bits=wbits,
+                                      out_dtype=f32, **conv_kw)
+
+    def replacement(x):
+        out = conv(x).to(x.dtype)
+        if bias is not None:
+            out = out + bias[:, None, None]
+        return out
+
+    return replacement
+
+
 def op_flops(op: Op) -> int:
     """MAC-based FLOPs (2 * MACs) of a conv / linear op from traced shapes."""
     node = op.nodes[0]
     out = node.meta["val"]
     if op.type in _CONV_TYPES:
         w = node.args[1].meta["val"]
-        k = w.shape[2] * w.shape[3] * (w.shape[0] if op.attrs["transposed"]
-                                       else w.shape[1])
+        # kernel positions x input channels a group (any spatial rank)
+        cig = w.shape[0] // node.args[8] if op.attrs["transposed"] \
+            else w.shape[1]
+        k = math.prod(w.shape[2:]) * cig
         return 2 * out.numel() * k
     if op.type == "linear":
         return 2 * out.numel() * op.attrs["x_node"].meta["val"].shape[-1]
@@ -284,15 +397,12 @@ def lower_to_int(sim, params=None, mode: str = "w8",
         if not spec.symmetric:
             skipped.append(op.name)
             continue
-        if op.type in _CONV_TYPES:
-            raise NotImplementedError(
-                f"lower_to_int: {op.name} is a {op.type}; conv lowering needs "
-                f"ops/int_conv, which is not ported to aimet_tpu_torch yet")
         w = params[kp.param_path]
         bp = op.param_products.get("bias")
         bias = params[bp.param_path] if bp is not None else None
         if spec.block_size is not None:
-            fn = _lower_linear_grouped_int4(op, w, bias, enc, spec)
+            fn = (_lower_linear_grouped_int4(op, w, bias, enc, spec)
+                  if op.type == "linear" else None)
             if fn is None:
                 skipped.append(op.name)
             else:
@@ -315,11 +425,16 @@ def lower_to_int(sim, params=None, mode: str = "w8",
                 warnings.warn(
                     f"lower_to_int(mode='w8a8'): op {op.name!r} has no "
                     f"per-tensor 8-bit input-activation encoding — lowering "
-                    f"with weight-only INT8; recorded in "
+                    f"with dynamic activation quantization (convs) or "
+                    f"weight-only INT8 (matmuls); recorded in "
                     f"LoweredModel.downgraded_ops", stacklevel=2)
-        fn = _lower_linear(op, w, bias, enc, spec.channel_axis, op_mode,
-                           act_enc=act_enc,
-                           decode_weight_only=decode_weight_only)
+        if op.type == "linear":
+            fn = _lower_linear(op, w, bias, enc, spec.channel_axis, op_mode,
+                               act_enc=act_enc,
+                               decode_weight_only=decode_weight_only)
+        else:
+            fn = _lower_conv(op, w, bias, enc, spec.channel_axis, op_mode,
+                             act_enc=act_enc)
         if fn is None:
             skipped.append(op.name)
             if op.name in downgraded:

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of aimet_tpu_torch on one NVIDIA H100: Llama-3-8B served in
 ``w4``, ``w8`` and ``w4a8``, and calibrated in quantsim and lowered to the
-integer kernels in every lowering mode.
+integer kernels in every lowering mode; ResNet-50 and MobileNetV2 lowered
+the same way.
 
     python3 chip_smoke.py
 
-1. builds the nine hand-written kernels from ``aimet_tpu_torch/csrc``:
-   K1 ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
+1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
+   ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
    ``w4_gemm``, KW8 ``w8_gemm`` and KW4G ``w4_grouped_gemm``
-   (``wo_gemm.cu``), KSQ ``w8a8_staticq`` (``w8a8_staticq.cu``), KFL
-   ``fused_wo_mlp`` and KSOL ``sol_decode_layer`` (``fused_layer.cu``);
+   (``wo_gemm.cu``), KSQ ``w8a8_staticq`` (``w8a8_staticq.cu``), KQ8
+   ``q8_gemm`` (``w8a8_gemm.cu``), KFL ``fused_wo_mlp`` and KSOL
+   ``sol_decode_layer`` (``fused_layer.cu``); KW8A8 ``w8a8_fusedq`` is K1
+   then KQ8, counted on its own as the eleventh;
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 codes, K2 and KSQ codes and outputs and every
-   KV-cache byte bit-exact; the rest within a stated share of the plain
-   output's max; KW4 and KW8 on f32 x as well, the f32 ``lm_head`` of a
-   lowered model), and times kernel, plain version and the bound the
-   card's peaks set;
+   main path's shapes (K1 codes, K2, KSQ, KW8A8 and KQ8 codes and outputs
+   and every KV-cache byte bit-exact; the rest within a stated share of
+   the plain output's max; KW4 and KW8 on f32 x as well, the f32
+   ``lm_head`` of a lowered model), and times kernel, plain version, the
+   bound the card's peaks set and, beside the int8 GEMMs,
+   ``torch._int_mm``; it holds the im2col convs ``conv2d_w8`` (KW8) and
+   ``conv2d_w4`` (KW4) at ResNet-50 conv shapes within KW8's and KW4's
+   share; it probes ``torch._weight_int8pack_mm`` and
+   ``torch._weight_int4pack_mm`` for KW8's and KW4G's library column;
 3. draws ``TransformerConfig.llama3_8b()`` weights at full width and depth
    (32 layers) with ``random_quantized_weights`` on the card and drives
    each mode's main path with the launch counts set to 0 just before it
@@ -42,7 +49,21 @@ integer kernels in every lowering mode.
    launch exactly once a linear), the same forward through the plain
    versions (logits within 5e-2 of their max), the relative MSE against the
    float model, device ms by kernel and host ms;
-6. prints the measurements, the card's name and power limit, a ``kernels``
+6. draws a float ResNet-50 (1000 classes) on the card from a seeded
+   generator, fits its BatchNorm statistics to a seeded batch, checks its
+   f32 forward against f64 (TF32 off), calibrates it in
+   ``QuantizationSimModel`` (sqnr, 4 batches of 32 images at 224 x 224)
+   and lowers it in ``w8``, ``w8a8``, ``w4`` and ``w4a8``: per mode the
+   lowered / skipped / downgraded ops, ``int_flops_fraction``, one forward
+   of 32 images with the launch counts set to 0 just before and read just
+   after (each mode's kernels, exactly), device and host ms, the same
+   forward through the plain versions, and top-1 agreement and relative
+   MSE against the float model; then the float ResNet-50 with every conv
+   through ``conv2d_w8a8`` and the dense layer through ``matmul_w8a8``
+   (the dynamic full-INT8 ops API: K1 + KQ8, equal to its plain
+   version);
+   then a MobileNetV2 lowered in ``w8a8`` (its depthwise convs);
+7. prints the measurements, the card's name and power limit, a ``kernels``
    JSON line and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero. Without CUDA, or outside a checkout of the
@@ -69,6 +90,10 @@ TOL_ATTN = 2e-2          # K3, KFL, KSOL vs plain: max |diff| / max |plain|
 TOL_INT8_DOTS = 6e-2     # KSOL with int8 dots, same measure
 TOL_WO = 1e-2            # KW4 / KW8, same measure
 TOL_LOGITS = 5e-2        # whole-model logits, same measure
+# lowered CNN logits, kernels vs plain, same measure: the integer convs'
+# sums and epilogues are bit-exact, so only the dense layer's KW8 / KW4
+# (weight-only, float sums in another order) differs (measured <= 3.1e-6)
+TOL_CNN_LOGITS = 1e-4
 
 SOURCES = {
     "act_quant": ("aimet_tpu_torch/csrc/act_quant.cu",
@@ -91,6 +116,20 @@ SOURCES = {
                      "aimet_tpu/ops/int_matmul.py:593"),
     "w4_grouped_gemm": ("aimet_tpu_torch/csrc/wo_gemm.cu",
                         "aimet_tpu/ops/int_matmul.py:960"),
+    # K1 then KQ8 (act_quant.cu, w8a8_gemm.cu): no kernel of its own
+    "w8a8_fusedq": ("aimet_tpu_torch/csrc/w8a8_gemm.cu",
+                    "aimet_tpu/ops/int_matmul.py:456"),
+    "q8_gemm": ("aimet_tpu_torch/csrc/w8a8_gemm.cu",
+                "aimet_tpu/ops/int_matmul.py:378"),
+}
+# the CNN phase: ResNet-50 lowered per mode -> (lower_to_int mode, param
+# bitwidth, the launches of one forward by kernel, c = ungrouped convs)
+CNN_MODES = {
+    "w8": ("w8", 8, lambda c: {"w8_gemm": 1}),
+    "w8a8": ("w8a8", 8, lambda c: {"q8_gemm": c, "w8_gemm": 1}),
+    "w4": ("w4", 4, lambda c: {"w4_gemm": 1}),
+    "w4a8": ("w4a8", 4, lambda c: {"q8_gemm": c, "act_quant": 1,
+                                   "w4a8_gemm": 1}),
 }
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
@@ -454,6 +493,8 @@ def check_kernels(torch, ops):
     del sets, lw
     check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                            gemm_row)
+    check_w8a8_kernels(torch, tim, g, rows, note, gemm_row)
+    library_probes(torch, tim, g, rows)
     for r in rows.values():
         r["max_abs_err"] = errs[r["kernel"]]
         r.setdefault("library_ms", None)
@@ -579,6 +620,196 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                  ["wo_gemm_kernel", "wo_reduce_kernel"], m * k * 4 + w.numel(),
                  BF16_FLOPS / 2, out_bytes=m * n * 4)
         del x, w
+
+
+def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
+    """KW8A8 and KQ8 (with and without a column bias, and its int32 entry)
+    against their plain versions, bit for bit, at Llama-3-8B prefill shapes
+    (M = 4096: K x N of 4096 x 6144 and 4096 x 28672 through KW8A8, 14336 x
+    4096 through matmul_w8a8 -> K1 + KQ8) and a ResNet-50 3x3 conv through
+    conv2d_w8a8 (batch 32, 28 x 28 x 128 -> 128); then their timings, with
+    torch._int_mm (the int8 GEMM alone) beside them."""
+    from aimet_tpu_torch.ops import int_conv as tic
+    dev = "cuda"
+
+    def operands(m, k, n, dtype=torch.bfloat16):
+        x = (torch.randn((m, k), generator=g, device=dev) * 2).to(dtype)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                          device=dev)
+        sw = (torch.rand((n,), generator=g, device=dev) + 0.5) * 2e-3
+        return x, w, sw
+
+    shapes = ((4096, 4096, 6144), (4096, 4096, 28672), (4096, 14336, 4096))
+    for m, k, n in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, sw = operands(m, k, n, dtype)
+            got = tim.matmul_w8a8(x, w, sw)
+            want = tim.matmul_w8a8_torch(x, w, sw)
+            note("w8a8_fusedq", got, want)
+            assert got.dtype == dtype and torch.equal(got, want), \
+                ("matmul_w8a8", m, k, n, dtype)
+            del x, w, got, want
+    log("KW8A8 w8a8_fusedq (K1 + KQ8): matmul_w8a8 bit-exact at M=4096 x "
+        f"(K, N) in {[s_[1:] for s_ in shapes]}, bf16 and f32 x")
+    m, k, n = 4096, 14336, 4096
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g,
+                       device=dev)
+    _, w, sw = operands(1, k, n)
+    sx = torch.rand((m,), generator=g, device=dev) * 1e-2
+    cb = torch.randn((n,), generator=g, device=dev)
+    for bias in (None, cb):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = tim.matmul_q8(xq, sx, w, sw, bias, out_dtype)
+            want = tim.matmul_q8_torch(xq, sx, w, sw, bias, out_dtype)
+            note("q8_gemm", got, want)
+            assert torch.equal(got, want), ("KQ8", bias is None, out_dtype)
+    got = tim.int8_matmul_int32(xq, w)
+    assert torch.equal(got, tim.int8_matmul_int32_torch(xq, w)), "KQ8 int32"
+    log(f"KQ8 q8_gemm: bit-exact at M={m} K={k} N={n} with and without "
+        "col_bias, f32 and bf16 out, and its int32 entry")
+    del xq, got
+    # a ResNet-50 3x3 conv (layer2's) through conv2d_w8a8: im2col + K1 + KQ8
+    x = torch.randn((32, 128, 28, 28), generator=g, device=dev)
+    wq, s_ = tic.quantize_conv_weight_per_channel(
+        torch.randn((128, 128, 3, 3), generator=g, device=dev) * 0.03)
+    got = tic.conv2d_w8a8(x, wq, s_, (3, 3))
+    want = tic._im2col_conv(tim.matmul_w8a8_torch, x, wq, s_, (3, 3),
+                            (1, 1), "SAME", None, None)
+    note("w8a8_fusedq", got, want)
+    assert torch.equal(got, want), "conv2d_w8a8"
+    p, _ = tic._patches(x, (3, 3), (1, 1), "SAME")
+    pq, _ = tim.quantize_activation_per_row(p)
+    assert torch.equal(tim.int8_matmul_int32(pq, wq),
+                       tim.int8_matmul_int32_torch(pq, wq)), "KQ8 int32 conv"
+    log("conv2d_w8a8 (32 x 128 x 28 x 28, 3x3 -> 128): im2col + K1 + KQ8 "
+        "bit-exact with the plain version; KQ8's int32 entry on its codes "
+        "too")
+
+    # the weight-only im2col convs at ResNet-50 conv shapes: KW8 and KW4 at
+    # M up to 401,408 and K of 64 to 4608 (not multiples of 4096)
+    convs = {"stem 7x7/2": ((32, 3, 224, 224), 64, 7, 2),
+             "layer1 1x1": ((32, 64, 56, 56), 256, 1, 1),
+             "layer2 3x3": ((32, 128, 28, 28), 128, 3, 1),
+             "layer4 3x3": ((32, 512, 7, 7), 512, 3, 1)}
+    for name, (quant, conv, mm) in {
+            "w8_gemm": (tic.quantize_conv_weight_per_channel, tic.conv2d_w8,
+                        tim.matmul_w8_torch),
+            "w4_gemm": (tic.quantize_conv_weight_int4, tic.conv2d_w4,
+                        tim.matmul_w4_torch)}.items():
+        worst = {}
+        for tag, (shape, co, k, st) in convs.items():
+            if name == "w4_gemm" and shape[1] * k * k % 2:
+                continue                    # INT4 packs an even K
+            xc = torch.randn(shape, generator=g, device=dev)
+            wq_, sc = quant(torch.randn((co, shape[1], k, k), generator=g,
+                                        device=dev) * 0.03)
+            got_ = conv(xc, wq_, sc, (k, k), strides=(st, st))
+            want_ = tic._im2col_conv(mm, xc, wq_, sc, (k, k), (st, st),
+                                     "SAME", None, None)
+            note(name, got_, want_)
+            worst[tag] = rel_err(got_, want_)
+            assert got_.shape == want_.shape and worst[tag] < TOL_WO, \
+                (name, tag, worst[tag])
+            del xc, got_, want_
+        log(f"{name} through conv2d_{name[:2]} at ResNet-50 convs (batch "
+            f"32): within " + ", ".join(f"{t} {e:.2e}" for t, e in
+                                        worst.items())
+            + f" of max (< {TOL_WO})")
+
+    def int_mm(label, a, b):
+        rows[label]["int_mm_ms"], _ = timed(lambda i: torch._int_mm(a, b), 10)
+
+    for (m, k, n), tag in zip(shapes[:2], ("wqkv", "gate_up")):
+        x, w, sw = operands(m, k, n)
+        label = f"w8a8_fusedq[{tag}]"
+        gemm_row(label, "w8a8_fusedq", m, k, n,
+                 lambda i: tim.matmul_w8a8_fusedq(x, w, sw),
+                 lambda i: tim.matmul_w8a8_torch(x, w, sw),
+                 ["act_quant_kernel", "q8_"], m * k * 2 + k * n, INT8_OPS)
+        int_mm(label, tim.quantize_activation_per_row(x)[0], w)
+        del x, w
+    m, k, n = 4096, 14336, 4096
+    xq, sx = tim.quantize_activation_per_row(operands(m, k, 1)[0])
+    _, w, sw = operands(1, k, n)
+    gemm_row("q8_gemm[w_down]", "q8_gemm", m, k, n,
+             lambda i: tim.matmul_q8(xq, sx, w, sw, out_dtype=torch.bfloat16),
+             lambda i: tim.matmul_q8_torch(xq, sx, w, sw,
+                                           out_dtype=torch.bfloat16),
+             ["q8_"], m * k + k * n, INT8_OPS, vec_bytes=(m + n) * 4)
+    int_mm("q8_gemm[w_down]", xq, w)
+    del xq, w
+    # the conv through conv2d_w8a8: K1 + KQ8 on its f32 patch matrix
+    M, K = p.shape
+    gemm_row("w8a8_fusedq[conv 3x3]", "w8a8_fusedq", M, K, wq.shape[1],
+             lambda i: tim.matmul_w8a8_fusedq(p, wq, s_),
+             lambda i: tim.matmul_w8a8_torch(p, wq, s_),
+             ["act_quant_kernel", "q8_"], M * K * 4 + wq.numel(), INT8_OPS,
+             out_bytes=M * wq.shape[1] * 4)
+    int_mm("w8a8_fusedq[conv 3x3]", pq, wq)
+    # the int32 entry at the conv's patch matrix: torch._int_mm computes
+    # the same function, so it is this row's library call
+    gemm_row("q8_gemm[int32, conv 3x3]", "q8_gemm", pq.shape[0], pq.shape[1],
+             wq.shape[1], lambda i: tim.int8_matmul_int32(pq, wq),
+             lambda i: tim.int8_matmul_int32_torch(pq, wq), ["q8_"],
+             pq.numel() + wq.numel(), INT8_OPS,
+             out_bytes=pq.shape[0] * wq.shape[1] * 4, vec_bytes=0)
+    rows["q8_gemm[int32, conv 3x3]"]["library_ms"], _ = timed(
+        lambda i: torch._int_mm(pq, wq), 10)
+    del p, pq, got, want
+
+
+def library_probes(torch, tim, g, rows):
+    """The library column of KW8 and KW4G: whether PyTorch's weight-only
+    int8 and int4 matmuls (torch._weight_int8pack_mm,
+    torch._weight_int4pack_mm) run on this card, and their time at the
+    rows' shapes where one computes the row's function."""
+    dev = "cuda"
+    for tag, m in (("decode", 16), ("prefill", 4096)):
+        k, n = 4096, 28672
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                          device=dev)
+        sw = torch.rand((n,), generator=g, device=dev) * 1e-3
+        row = rows[f"w8_gemm[{tag}]"]
+        try:
+            wt = w.t().contiguous()
+            got = torch._weight_int8pack_mm(x, wt, sw.to(torch.bfloat16))
+            row["library_err"] = rel_err(got, tim.matmul_w8(x, w, sw))
+            row["library_ms"], _ = timed(
+                lambda i: torch._weight_int8pack_mm(x, wt, sw.to(
+                    torch.bfloat16)), 10)
+        except Exception as e:          # recorded: the row's library note
+            row["library_note"] = f"torch._weight_int8pack_mm: {e}"[:200]
+        del x, w
+    for tag, m in (("decode", 16), ("prefill", 4096)):
+        k, n, grp = 4096, 14336, 128
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        packed, sc = tim.quantize_weight_int4_grouped(
+            torch.randn((k, n), generator=g, device=dev) * 0.02, grp)
+        row = rows[f"w4_grouped_gemm[{tag}]"]
+        try:
+            # tinygemm's layout: (N, K/2) uint8 of (q + 8), even k high,
+            # and (K/grp, N, 2) bf16 of (scale, zero): w = (u - 8) * s + z
+            u = (tim.unpack_int4(packed).to(torch.int32) + 8).t()
+            u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            wt = torch._convert_weight_to_int4pack(u8.contiguous(), 8)
+            sz = torch.stack([sc, torch.zeros_like(sc)], -1).to(
+                torch.bfloat16).contiguous()
+            got = torch._weight_int4pack_mm(x, wt, grp, sz)
+            row["library_err"] = rel_err(
+                got, tim.matmul_w4_grouped(x, packed, sc, group_size=grp))
+            row["library_ms"], _ = timed(
+                lambda i: torch._weight_int4pack_mm(x, wt, grp, sz), 10)
+        except Exception as e:
+            row["library_note"] = f"torch._weight_int4pack_mm: {e}"[:200]
+        del x, packed
+    for label in ("w8_gemm[decode]", "w8_gemm[prefill]",
+                  "w4_grouped_gemm[decode]", "w4_grouped_gemm[prefill]"):
+        r = rows[label]
+        log(f"  library for {label}: "
+            + (f"{r['library_ms']:.4f} ms (within {r['library_err']:.2e} of "
+               "the kernel's max)" if "library_ms" in r
+               else r.get("library_note", "")))
 
 
 @contextlib.contextmanager
@@ -929,6 +1160,309 @@ def lowering(torch, tim, counters, g):
     return metrics, launches
 
 
+def resnet_inputs(torch, g, n, batch=32):
+    """``n`` seeded ImageNet-shaped batches (batch, 3, 224, 224), N(0, 1)."""
+    return [torch.randn((batch, 3, 224, 224), generator=g, device="cuda")
+            for _ in range(n)]
+
+
+def float_cnn(torch, make, x_fit, seed):
+    """A CNN of the port's layers on the card: seeded random weights
+    (He-normal conv kernels, LeCun-normal dense kernels, BatchNorm scale in
+    [0.5, 1.5) and bias N(0, 0.1^2)), then running statistics fitted layer
+    by layer to ``x_fit``: each BatchNorm takes its input's batch mean and
+    variance in one forward, as a trained network's statistics describe
+    its own activations."""
+    from aimet_tpu_torch.models.layers import BatchNorm, Conv, Dense
+    with torch.device("cuda"):
+        model = make().eval()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fit(mod, args):
+        (inp,) = args
+        mod.mean.copy_(inp.mean(dim=(0, 2, 3)))
+        mod.var.copy_(inp.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = []
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Conv):
+                mod.kernel.normal_(0.0, (2.0 / mod.kernel[0].numel()) ** 0.5,
+                                   generator=g)
+            elif isinstance(mod, Dense):
+                mod.kernel.normal_(0.0, mod.kernel.shape[0] ** -0.5,
+                                   generator=g)
+                mod.bias.zero_()
+            elif isinstance(mod, BatchNorm):
+                mod.scale.uniform_(0.5, 1.5, generator=g)
+                mod.bias.normal_(0.0, 0.1, generator=g)
+                hooks.append(mod.register_forward_pre_hook(fit))
+        model(x_fit)
+    for h in hooks:
+        h.remove()
+    return model
+
+
+@contextlib.contextmanager
+def ops_api_convs(torch, tim, model):
+    """The CNN's forward with every conv through ``conv2d_w8a8`` (im2col,
+    per-pixel dynamic INT8: K1 + KQ8) and its dense layer through
+    ``matmul_w8a8``, weights quantized per channel once: the JAX package's
+    dynamic full-INT8 ops API as a user calls it."""
+    from aimet_tpu_torch.models.layers import Conv, Dense
+    from aimet_tpu_torch.ops import int_conv as tic
+    saved = []
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            wq, s_ = tic.quantize_conv_weight_per_channel(mod.kernel.detach())
+
+            def fwd(x, mod=mod, wq=wq, s_=s_):
+                return tic.conv2d_w8a8(x, wq, s_, tuple(mod.kernel.shape[2:]),
+                                       strides=mod.strides,
+                                       padding=mod.pads(*x.shape[2:]))
+        elif isinstance(mod, Dense):
+            wq, s_ = tim.quantize_weight_per_channel(mod.kernel.detach())
+
+            def fwd(x, mod=mod, wq=wq, s_=s_):
+                return tim.matmul_w8a8(x, wq, s_) + mod.bias
+        else:
+            continue
+        saved.append(mod)
+        mod.forward = fwd
+    try:
+        yield
+    finally:
+        for mod in saved:
+            del mod.forward
+
+
+@contextlib.contextmanager
+def plain_ops(tim, tic):
+    """Route matmul_w8a8 and the int32 conv sums through the plain
+    versions (comparison only)."""
+    saved = (tim.matmul_w8a8, tic.matmul_w8a8, tic.int8_matmul_int32)
+    tim.matmul_w8a8 = tic.matmul_w8a8 = tim.matmul_w8a8_torch
+    tic.int8_matmul_int32 = tim.int8_matmul_int32_torch
+    try:
+        yield
+    finally:
+        tim.matmul_w8a8, tic.matmul_w8a8, tic.int8_matmul_int32 = saved
+
+
+def forward_stats(torch, fn, counters):
+    """One forward with the launch counts set to 0 just before and read
+    just after; then its device ms (profiler, by kernel) and host ms.
+    Returns (out, counts, host_ms, device_ms, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                   # warm-up (and retrace)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    counts = {k: c.launches for k, c in counters.items() if c.launches}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in _kernel_events(prof):
+        key = e.name.replace("(anonymous namespace)::", "")
+        key = key.removeprefix("void ").split("<")[0].split("(")[0]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values()) or timed(lambda i: fn(), 1, warmup=0)[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return out, counts, host_ms, dev_ms, top
+
+
+def vs_float(out, ref):
+    """Relative MSE and top-1 agreement of logits against the float
+    model's."""
+    return {"rel_mse_vs_float": (((out - ref) ** 2).mean()
+                                 / (ref ** 2).mean()).item(),
+            "top1_vs_float": (out.argmax(-1) == ref.argmax(-1)).float()
+            .mean().item()}
+
+
+def lower_cnn(torch, tim, counters, model, x, calib, ref, params, grids,
+              config):
+    """ResNet-50 through QuantizationSimModel (sqnr on ``calib``) and
+    lower_to_int in each of CNN_MODES, with the parameter grids of
+    ``config`` (None: the default, per tensor). Returns (metrics, launches
+    of the measured forwards)."""
+    from aimet_tpu_torch import QuantizationSimModel, lower_to_int
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    metrics, launches = {}, {k: 0 for k in counters}
+    t = time.time()
+    sim = QuantizationSimModel(model, (x,), config=config)
+    t_trace = time.time() - t
+    sim.compute_encodings(None, calib)
+    torch.cuda.synchronize()
+    metrics[f"resnet50_{grids}_calibrate_s"] = time.time() - t - t_trace
+    sim4 = QuantizationSimModel(model, (x,), config=config,
+                                default_param_bw=4)
+    sim4.compute_param_encodings()
+    convs = [op for op in sim.graph.ops
+             if op.type in ("conv", "depthwise_conv", "conv_transpose")]
+    n_conv = sum(op.type == "conv" for op in convs)
+    log(f"[cnn {grids}] QuantizationSimModel: traced in {t_trace:.1f} s, "
+        f"{len(sim.graph.ops)} ops ({len(convs)} convs, "
+        f"{len(sim.graph.ops_of_type('linear'))} dense), "
+        f"{len(sim.quantizers)} quantizers; compute_encodings (sqnr, 4 x 32 "
+        f"images) {metrics[f'resnet50_{grids}_calibrate_s']:.1f} s")
+    q = sim.quantized_fn(None, x)
+    metrics.update({f"resnet50_{grids}_quantized_fn_{k}": v
+                    for k, v in vs_float(q, ref).items()})
+    del q
+    for mode, (lmode, bw, expect) in CNN_MODES.items():
+        t = time.time()
+        low = lower_to_int(sim4 if bw == 4 else sim, None, mode=lmode)
+        t_lower = time.time() - t
+        assert not low.skipped_ops and len(low.lowered_ops) == len(convs) + 1
+        out, counts, host_ms, dev_ms, top = forward_stats(
+            torch, lambda: low(params, x), counters)
+        for k, v in counts.items():
+            launches[k] += v
+        assert counts == expect(n_conv), (mode, counts)
+        assert torch.isfinite(out).all() and out.shape == ref.shape
+        with plain_lowering(lw, tim), plain_ops(tim, tic):
+            plain = low(params, x)
+        m = {"lowered": len(low.lowered_ops),
+             "skipped": len(low.skipped_ops),
+             "downgraded": len(low.downgraded_ops),
+             "int_flops_fraction": low.int_flops_fraction,
+             "lower_s": t_lower, "host_ms": host_ms, "device_ms": dev_ms,
+             "logits_vs_plain_rel_err": rel_err(out, plain),
+             "top1_vs_plain": (out.argmax(-1) == plain.argmax(-1)).float()
+             .mean().item(), **vs_float(out, ref), "launches": counts}
+        log(f"[cnn {mode}, {grids}] lowered {m['lowered']}, skipped "
+            f"{m['skipped']}, "
+            f"downgraded {low.downgraded_ops}; int_flops_fraction "
+            f"{m['int_flops_fraction']:.6f}; forward 32 x 224 x 224: "
+            f"{host_ms:.1f} ms host, {dev_ms:.2f} ms device ("
+            + ", ".join(f"{k} {v:.2f}" for k, v in top) + f"); launches "
+            f"{counts}; kernels vs plain {m['logits_vs_plain_rel_err']:.3e} "
+            f"(top-1 {m['top1_vs_plain']:.3f}); vs float: rel MSE "
+            f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
+        assert m["logits_vs_plain_rel_err"] < TOL_CNN_LOGITS, (mode, m)
+        metrics.update({f"resnet50_{grids}_{mode}_{k}": v
+                        for k, v in m.items()})
+        del low, out, plain
+    del sim, sim4
+    torch.cuda.empty_cache()
+    return metrics, launches
+
+
+def cnn(torch, tim, counters, g):
+    """Phase 6: ResNet-50 (1000 classes, 224 x 224, batch 32, f32) through
+    QuantizationSimModel and lower_to_int in w8, w8a8, w4 and w4a8, and
+    through the dynamic full-INT8 ops API (conv2d_w8a8 / matmul_w8a8);
+    MobileNetV2 lowered in w8a8 (its depthwise convs). Returns (metrics,
+    launches summed over the measured forwards)."""
+    from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig,
+                                 lower_to_int)
+    from aimet_tpu_torch.models.layers import Conv
+    from aimet_tpu_torch.models.mobilenet_v2 import MobileNetV2
+    from aimet_tpu_torch.models.resnet import ResNet50
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    metrics, launches = {}, {k: 0 for k in counters}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    xs = resnet_inputs(torch, g, 6)
+    x, calib = xs[0], xs[1:5]
+    t = time.time()
+    model = float_cnn(torch, ResNet50, xs[5], seed=4)
+    with torch.no_grad():
+        ref = model(x)
+        # the f32 convs run in f32: against the model in f64 on 4 images
+        r64 = model.double()(x[:4].double())
+        model.float()
+    metrics["resnet50_f32_vs_f64_rel_err"] = rel_err(ref[:4], r64)
+    assert metrics["resnet50_f32_vs_f64_rel_err"] < 1e-4, \
+        ("f32 convs not in f32 (TF32?)", metrics)
+    del r64
+    n_par = sum(p.numel() for p in model.parameters())
+    e64 = metrics["resnet50_f32_vs_f64_rel_err"]
+    log(f"[cnn] ResNet-50: {n_par / 1e6:.2f} M parameters, float forward of "
+        f"32 x 3 x 224 x 224 within {e64:.2e} of f64 (TF32 off); built in "
+        f"{time.time() - t:.1f} s")
+
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    for grids, config in (("per_tensor", None),
+                          ("per_channel",
+                           QuantSimConfig.per_channel_default())):
+        m, counts = lower_cnn(torch, tim, counters, model, x, calib, ref,
+                              params, grids, config)
+        metrics.update(m)
+        add(counts)
+    n_conv = sum(isinstance(mod, Conv) for mod in model.modules())
+
+    # the dynamic full-INT8 ops API: every conv through conv2d_w8a8
+    with torch.no_grad(), ops_api_convs(torch, tim, model):
+        out, counts, host_ms, dev_ms, top = forward_stats(
+            torch, lambda: model(x), counters)
+        add(counts)
+        assert counts == {"w8a8_fusedq": n_conv + 1, "act_quant": n_conv + 1,
+                          "q8_gemm": n_conv + 1}, counts
+        with plain_ops(tim, tic):
+            plain = model(x)
+    m = {"host_ms": host_ms, "device_ms": dev_ms,
+         "logits_vs_plain_rel_err": rel_err(out, plain), **vs_float(out, ref),
+         "launches": counts}
+    assert torch.equal(out, plain), "ops API: kernels vs plain"
+    log(f"[cnn ops API] ResNet-50 with conv2d_w8a8 / matmul_w8a8: "
+        f"{host_ms:.1f} ms host, {dev_ms:.2f} ms device ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in top) + f"); launches {counts};"
+        " logits equal to the plain versions'; vs float: rel MSE "
+        f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
+    metrics.update({f"resnet50_ops_api_{k}": v for k, v in m.items()})
+    del model, out, plain, ref
+    torch.cuda.empty_cache()
+
+    # MobileNetV2 in w8a8: depthwise convs on the exact f64 route
+    model = float_cnn(torch, MobileNetV2, xs[5], seed=5)
+    with torch.no_grad():
+        ref = model(x)
+    sim = QuantizationSimModel(model, (x,))
+    sim.compute_encodings(None, calib)
+    low = lower_to_int(sim, None, mode="w8a8")
+    dw = sum(op.type == "depthwise_conv" for op in sim.graph.ops)
+    regular = sum(op.type == "conv" for op in sim.graph.ops)
+    assert not low.skipped_ops
+    params = sim.params
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, x), counters)
+    add(counts)
+    assert counts == {"q8_gemm": regular, "w8_gemm": 1}, counts
+    with plain_lowering(lw, tim), plain_ops(tim, tic):
+        plain = low(params, x)
+    m = {"lowered": len(low.lowered_ops), "depthwise": dw,
+         "downgraded": len(low.downgraded_ops),
+         "int_flops_fraction": low.int_flops_fraction, "host_ms": host_ms,
+         "device_ms": dev_ms, "logits_vs_plain_rel_err": rel_err(out, plain),
+         **vs_float(out, ref), "launches": counts}
+    assert m["logits_vs_plain_rel_err"] < TOL_CNN_LOGITS, m
+    log(f"[cnn mobilenet_v2 w8a8] lowered {m['lowered']} ({dw} depthwise), "
+        f"downgraded {low.downgraded_ops}; int_flops_fraction "
+        f"{m['int_flops_fraction']:.6f}; {host_ms:.1f} ms host, "
+        f"{dev_ms:.2f} ms device (" + ", ".join(f"{k} {v:.2f}"
+                                                for k, v in top)
+        + f"); launches {counts}; kernels vs plain "
+        f"{m['logits_vs_plain_rel_err']:.3e}; vs float: rel MSE "
+        f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
+    metrics.update({f"mobilenet_v2_w8a8_{k}": v for k, v in m.items()})
+    del sim, low, model, out, plain, ref, xs
+    torch.cuda.empty_cache()
+    return metrics, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -950,7 +1484,9 @@ def main() -> int:
                 "fused_wo_mlp": flay.fused_wo_mlp,
                 "sol_decode_layer": dsol.sol_decode_layer,
                 "w8a8_staticq": tim.matmul_w8a8_staticq,
-                "w4_grouped_gemm": tim.matmul_w4_grouped}
+                "w4_grouped_gemm": tim.matmul_w4_grouped,
+                "w8a8_fusedq": tim.matmul_w8a8_fusedq,
+                "q8_gemm": tim.matmul_q8}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1010,6 +1546,17 @@ def main() -> int:
         launches[k] += v
     log(f"[lower] phase took {time.time() - t:.1f} s")
 
+    # --- 6. CNNs: ResNet-50 lowered per mode and through the ops API,
+    # MobileNetV2 in w8a8
+    t = time.time()
+    m, counts = cnn(torch, tim, counters, g)
+    metrics.update(m)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"[cnn] phase took {time.time() - t:.1f} s")
+    for name in SOURCES:
+        assert launches[name] > 0, f"kernel {name} never launched"
+
     kernels = []
     for label, r in rows.items():
         src, replaces = SOURCES[r["kernel"]]
@@ -1019,7 +1566,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
-            **({"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {})))
+            **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err")
+               if k in r}))
     log(json.dumps({"metrics": metrics, "launches": launches, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -4,15 +4,19 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: codes, W4A8 and static-INT8 (KSQ) GEMM outputs and KV-cache
-bytes bit-exact; the rest as max |kernel - plain| relative to max |plain|:
-decode attention and the fused layer kernels < 2e-2 (< 6e-2 with int8
-dots), the weight-only GEMMs (KW4, KW8, group-wise KW4G; bf16 or f32 x)
-< 1e-2, and their repeated calls give the same bits.
+Tolerances: codes, W4A8, static-INT8 (KSQ) and dynamic full-INT8 (K1 +
+KQ8, KQ8 with its int32 entry) GEMM outputs, the integer convs on the card
+against the same functions on the CPU, and KV-cache bytes bit-exact; the
+rest as max |kernel - plain| relative to max |plain|: decode attention and
+the fused layer kernels < 2e-2 (< 6e-2 with int8 dots), the weight-only
+GEMMs (KW4, KW8, group-wise KW4G; bf16 or f32 x) and their im2col convs
+(``conv2d_w8``, ``conv2d_w4`` at ResNet-50 conv shapes) < 1e-2, and their
+repeated calls give the same bits.
 """
 import pytest
 import torch
 
+from aimet_tpu_torch.ops import int_conv as tic
 from aimet_tpu_torch.ops import int_matmul as tim
 from aimet_tpu_torch.ops.decode_attention_fused import (
     fused_decode_attention, fused_decode_attention_torch)
@@ -226,3 +230,90 @@ def test_sol_decode_layer_kernel_matches_plain(gen, int8_dots, next_qkv):
     for g, w in zip(got[:n_out], want[:n_out]):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert _rel(g, w) < (6e-2 if int8_dots else 2e-2)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (16, 4096, 6144, torch.bfloat16),           # decode M: split K
+    (37, 300, 1000, torch.float32),             # ragged M, N and K
+    (2048, 4096, 1024, torch.bfloat16),         # prefill
+    (300, 14336, 4096, torch.bfloat16),         # w_down's K
+    (64, 1152, 128, torch.float32),             # a ResNet-50 conv's K
+])
+def test_w8a8_kernels_match_plain_bit_for_bit(gen, m, k, n, dtype):
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(dtype)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+    got = tim.matmul_w8a8(x, w, sw)
+    assert got.dtype == dtype
+    assert torch.equal(got, tim.matmul_w8a8_torch(x, w, sw))
+
+
+@pytest.mark.parametrize("m,k,n,bias,out_dtype", [
+    (16, 4096, 4096, True, torch.float32),      # decode, split K
+    (37, 144, 1000, False, torch.bfloat16),     # ragged M, N and K
+    (1024, 14336, 4096, True, torch.bfloat16),  # w_down
+    (4096, 1152, 128, False, torch.float32),    # a ResNet-50 conv
+])
+def test_q8_kernel_matches_plain_bit_for_bit(gen, m, k, n, bias,
+                                             out_dtype):
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen,
+                       device="cuda")
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sx = torch.rand((m,), generator=gen, device="cuda") * 1e-2
+    sw = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    cb = torch.randn((n,), generator=gen, device="cuda") if bias else None
+    got = tim.matmul_q8(xq, sx, w, sw, cb, out_dtype=out_dtype)
+    assert torch.equal(got, tim.matmul_q8_torch(xq, sx, w, sw, cb,
+                                                out_dtype))
+    assert torch.equal(tim.int8_matmul_int32(xq, w),
+                       tim.int8_matmul_int32_torch(xq, w))
+
+
+@pytest.mark.parametrize("groups,strides,lhs", [
+    (1, (1, 1), None), (1, (2, 2), None), (1, (1, 1), (2, 2)),
+    (96, (2, 2), None)])
+def test_int_convs_on_card_match_cpu(gen, groups, strides, lhs):
+    x = torch.rand((4, 96, 28, 28), generator=gen, device="cuda") * 4 - 1
+    w = torch.randint(-127, 128, (64 if groups == 1 else 96, 96 // groups,
+                                  3, 3), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    ws = torch.rand((w.shape[0],), generator=gen, device="cuda") * 1e-2
+    kw = dict(strides=strides, padding=((1, 1), (0, 2)),
+              feature_group_count=groups, lhs_dilation=lhs)
+    enc = (5.0 / 255, -51.0, 255.0)
+    for fn, args in ((tic.conv2d_int8_static, enc), (tic.conv2d_w8a8_dynamic,
+                                                     ())):
+        got = fn(x, w, ws, *args, **kw)
+        want = fn(x.cpu(), w.cpu(), ws.cpu(), *args, **kw)
+        assert torch.equal(got.cpu(), want)
+    if groups == 1 and lhs is None:
+        wq, s = tic.quantize_conv_weight_per_channel(
+            torch.randn((64, 96, 3, 3), generator=gen, device="cuda"))
+        got = tic.conv2d_w8a8(x, wq, s, (3, 3), strides=strides)
+        want = tic.conv2d_w8a8(x.cpu(), wq.cpu(), s.cpu(), (3, 3),
+                               strides=strides)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bits,shape,co,k,stride", [
+    (8, (8, 3, 224, 224), 64, 7, 2),        # ResNet-50 stem: K = 147
+    (8, (8, 512, 7, 7), 512, 3, 1),         # layer4 3x3: K = 4608
+    (4, (8, 64, 56, 56), 256, 1, 1),        # layer1 1x1: K = 64
+    (4, (8, 128, 28, 28), 128, 3, 1),       # layer2 3x3: K = 1152
+])
+def test_weight_only_im2col_convs_match_plain(gen, bits, shape, co, k,
+                                              stride):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    w = torch.randn((co, shape[1], k, k), generator=gen, device="cuda") * 0.03
+    quant, conv, mm = (
+        (tic.quantize_conv_weight_per_channel, tic.conv2d_w8,
+         tim.matmul_w8_torch) if bits == 8 else
+        (tic.quantize_conv_weight_int4, tic.conv2d_w4, tim.matmul_w4_torch))
+    wq, s = quant(w)
+    got = conv(x, wq, s, (k, k), strides=(stride, stride))
+    want = tic._im2col_conv(mm, x, wq, s, (k, k), (stride, stride), "SAME",
+                            None, None)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel(got, want) < 1e-2

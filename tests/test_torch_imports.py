@@ -40,6 +40,9 @@ def test_importing_port_leaves_jax_unloaded():
             "import aimet_tpu_torch.quantsim.lowering; "
             "import aimet_tpu_torch.quantsim.qsim; "
             "import aimet_tpu_torch.quantization.encoding_analyzer; "
+            "import aimet_tpu_torch.ops.int_conv, aimet_tpu_torch.ops.requant; "
+            "import aimet_tpu_torch.models.resnet; "
+            "import aimet_tpu_torch.models.mobilenet_v2; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

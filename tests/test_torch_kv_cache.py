@@ -57,3 +57,36 @@ def test_append_bit_exact(index):
     jc = jkv.append_kv(jc, jnp.asarray(k1), jnp.asarray(v1), jidx)
     tkv.append_kv(tc, torch.from_numpy(k1), torch.from_numpy(v1), tidx)
     _assert_same(jc, tc)
+
+
+def test_append_at_rounding_ties_bit_exact():
+    """Values whose x * (1 / scale) is exactly k + 0.5 in f32, or an ulp
+    either side: the codes must be the formula's (IEEE reciprocal, product
+    rounded once, round half to even), as in the JAX package. Random data
+    almost never comes this close to a boundary, so a reciprocal an ulp
+    off or another rounding rule would pass the other tests."""
+    rs = np.random.RandomState(5)
+    scale = (rs.rand(B, KH).astype(np.float32) + np.float32(0.5)) / 64
+    r = (np.float32(1) / scale)[:, None, :, None]
+    k = (np.arange(-60, 60, 120 / D, dtype=np.float32)[None, None, None, :]
+         + np.float32(0.5)).repeat(B, 0).repeat(KH, 2) / r
+    for _ in range(4):                      # walk x onto the exact tie
+        t = k * r
+        k = np.where(t == np.floor(t) + np.float32(0.5), k,
+                     np.nextafter(k, np.where(t < np.floor(t) + 0.5,
+                                              np.inf, -np.inf)
+                                  .astype(np.float32)))
+    t = k * r
+    assert (t == np.floor(t) + np.float32(0.5)).mean() > 0.5
+    k = np.concatenate([k, np.nextafter(k, np.float32(np.inf)),
+                        np.nextafter(k, np.float32(-np.inf))], axis=1)
+    want = np.clip(np.rint(k * r), -127, 127)
+    jc, tc = _caches()
+    jc = jkv.QuantizedKVCache(jc.k, jc.v, jnp.asarray(scale),
+                              jnp.asarray(scale))
+    tc = tkv.QuantizedKVCache(tc.k, tc.v, torch.from_numpy(scale),
+                              torch.from_numpy(scale.copy()))
+    jc = jkv.append_kv(jc, jnp.asarray(k), jnp.asarray(k), 2)
+    tkv.append_kv(tc, torch.from_numpy(k), torch.from_numpy(k), 2)
+    np.testing.assert_array_equal(tc.k.numpy()[:, 2:5], want)
+    _assert_same(jc, tc)

@@ -221,8 +221,15 @@ def test_conv_lowering_is_not_ported_yet():
     with pytest.raises(RuntimeError):
         lower_to_int(ts)                      # no encodings yet
     ts.compute_encodings(None, [x])
-    with pytest.raises(NotImplementedError, match="int_conv"):
-        lower_to_int(ts)
+    # conv lowering is ported now (ops/int_conv; the name is kept): a
+    # torch.nn.Conv2d with its bias lowers in every mode, within the
+    # weight (and activation) quantization error of the float model
+    want = model(x)
+    for mode, tol in (("w8", 1e-3), ("w8a8", 1e-2)):
+        tl = lower_to_int(ts, mode=mode)
+        assert tl.lowered_ops == ["conv_0"] and tl.int_flops_fraction == 1
+        got = tl(ts.params, x)
+        assert ((got - want) ** 2).mean() / (want ** 2).mean() < tol, mode
 
 
 def test_lowered_model_retraces_for_other_shapes(tiny):
