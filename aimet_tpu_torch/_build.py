@@ -49,6 +49,9 @@ SIGNATURES = {
     # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out,
     # B, S, H, KH, D, sqrt_d, io_is_bf16, stream
     "aimet_decode_attention": [_VP] * 11 + [_I] * 5 + [_F, _I, _VP],
+    # q, kc, vc, ks, vs, pos, out, B, S, KH, rep, D, sqrt_d, q_is_bf16,
+    # stream
+    "aimet_gqa_attention": [_VP] * 5 + [_I, _VP] + [_I] * 5 + [_F, _I, _VP],
     # x, w, sw, out, ws, M, N, K, splits, x_is_f32, out_is_bf16, stream
     "aimet_w4_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
     "aimet_w8_gemm": [_VP] * 5 + [_I] * 6 + [_VP],

@@ -1,7 +1,9 @@
 // The one-token GQA decode attention of K3 (decode_attention.cu) as a
 // block-level device function, shared by K3 and by phase 0 of the
-// whole-layer decode kernel KSOL (fused_layer.cu). See decode_attention.cu
-// for what it computes and why it is laid out this way.
+// whole-layer decode kernels KSOL / KDL (fused_layer.cu); its scores,
+// softmax and context (attend) are also KGQA's (gqa_attention.cu). See
+// decode_attention.cu for what it computes and why it is laid out this
+// way.
 #pragma once
 #include "common.cuh"
 
@@ -34,60 +36,39 @@ __device__ __forceinline__ float rope_at(const T* x, const float* c,
   return __fadd_rn(__fmul_rn(x2, c[e]), __fmul_rn(x1, s[e]));
 }
 
-// Attention of batch row b, kv head j, by a block of kThreads threads;
-// `smem` holds attention_smem_floats(H / KH, D, S, kThreads / 32) floats.
-// Ends with a block barrier, so the block may reuse `smem` at once.
-template <typename T, int kThreads>
-__device__ __forceinline__ void attention_body(
-    const T* __restrict__ qkv, const float* __restrict__ cosb,
-    const float* __restrict__ sinb, int8_t* kc, int8_t* vc,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    const float* __restrict__ iks, const float* __restrict__ ivs,
-    const int* __restrict__ positions, T* __restrict__ out, int b, int j,
-    int S, int H, int KH, int D, float sqrt_d, float* smem) {
+// How a softmax row is normalised: K3 multiplies by the reciprocal of the
+// sum; KGQA divides and rounds each prob to its query dtype T (the
+// reference's probs.astype(q.dtype)).
+struct ProbsByReciprocal {
+  __device__ static float norm(float e, float, float inv) { return e * inv; }
+};
+template <typename T>
+struct ProbsRounded {
+  __device__ static float norm(float e, float sum, float) {
+    return to_f32(from_f32<T>(__fdiv_rn(e, sum)));
+  }
+};
+
+// Steps 4-5 for the rep query rows of one kv head: smem starts with them
+// ([rep][D] f32, scaled, written before a block barrier), then holds the
+// score rows and the warps' partial contexts (attention_smem_floats);
+// kcb / vcb are the head's cache rows, stride_s bytes apart. Rows s < n
+// are live, all n masked to -1e30 when `masked`. Writes
+// out[r * D + d] = from_f32<OutT>(context * vscale); the caller puts a
+// block barrier before reusing smem.
+template <int kThreads, typename Probs, typename OutT>
+__device__ __forceinline__ void attend(float* smem, const int8_t* kcb,
+                                       const int8_t* vcb, size_t stride_s,
+                                       int S, int n, bool masked, int rep,
+                                       int D, float vscale,
+                                       OutT* __restrict__ out) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kMaxRep = kAttnMaxRep;
   constexpr int kUnroll = kAttnUnroll;
-  const int rep = H / KH, D2 = D / 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* q = smem;                            // [rep][D], scaled
-  float* sc = q + rep * D;                    // [rep][S] scores -> probs
+  const float* q = smem;                               // [rep][D]
+  float* sc = smem + rep * D;                          // [rep][S]
   float* part = sc + attention_scores_floats(rep, S);  // [warps][rep][D]
-
-  const T* row = qkv + (size_t)b * (H + 2 * KH) * D;
-  const float* c = cosb + (size_t)b * D2;
-  const float* s = sinb + (size_t)b * D2;
-  const int pos = positions[b];
-  const size_t bj = (size_t)b * KH + j;
-  const float kscale = ks[bj], vscale = vs[bj];
-  const float qscale = __fdiv_rn(kscale, sqrt_d);
-
-  // 1-3: rope q (scaled as the reference folds k_scale/sqrt(D) into q),
-  // quantize and append the new k/v row
-  for (int i = tid; i < rep * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    q[i] = __fmul_rn(rope_at(row + (size_t)(j * rep + r) * D, c, s, d, D2),
-                     qscale);
-  }
-  const bool write = pos >= 0 && pos < S;
-  const size_t stride_s = (size_t)KH * D;     // bytes between cache rows
-  int8_t* kcb = kc + (size_t)b * S * stride_s + (size_t)j * D;
-  int8_t* vcb = vc + (size_t)b * S * stride_s + (size_t)j * D;
-  if (write) {
-    const float ik = iks[bj], iv = ivs[bj];
-    const T* krow = row + (size_t)(H + j) * D;
-    const T* vrow = row + (size_t)(H + KH + j) * D;
-    for (int d = tid; d < D; d += kThreads) {
-      kcb[(size_t)pos * stride_s + d] =
-          quant_i8(__fmul_rn(rope_at(krow, c, s, d, D2), ik));
-      vcb[(size_t)pos * stride_s + d] =
-          quant_i8(__fmul_rn(to_f32(vrow[d]), iv));
-    }
-  }
-  __syncthreads();   // q in shared; the appended row visible to the block
-
-  const bool masked = pos < 0;
-  const int n = masked ? S : min(pos + 1, S);
 
   // 4: scores. A warp takes cache rows in turn, each lane 4 dims (one
   // 4-byte load, so a warp reads a 128-byte row in one transaction);
@@ -144,7 +125,7 @@ __device__ __forceinline__ void attention_body(
     }
     sum = warp_sum(sum);
     const float inv = 1.0f / sum;
-    for (int i = lane; i < n; i += 32) p[i] *= inv;
+    for (int i = lane; i < n; i += 32) p[i] = Probs::norm(p[i], sum, inv);
   }
   __syncthreads();
 
@@ -189,10 +170,62 @@ __device__ __forceinline__ void attention_body(
   for (int i = tid; i < rep * D; i += kThreads) {
     float v = 0.0f;
     for (int w = 0; w < kWarps; ++w) v += part[(size_t)w * rep * D + i];
-    const int r = i / D, d = i % D;
-    out[(size_t)b * H * D + (size_t)(j * rep + r) * D + d] =
-        from_f32<T>(v * vscale);
+    out[i] = from_f32<OutT>(v * vscale);
   }
+}
+
+// Attention of batch row b, kv head j, by a block of kThreads threads;
+// `smem` holds attention_smem_floats(H / KH, D, S, kThreads / 32) floats.
+// Ends with a block barrier, so the block may reuse `smem` at once.
+template <typename T, int kThreads>
+__device__ __forceinline__ void attention_body(
+    const T* __restrict__ qkv, const float* __restrict__ cosb,
+    const float* __restrict__ sinb, int8_t* kc, int8_t* vc,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const float* __restrict__ iks, const float* __restrict__ ivs,
+    const int* __restrict__ positions, T* __restrict__ out, int b, int j,
+    int S, int H, int KH, int D, float sqrt_d, float* smem) {
+  const int rep = H / KH, D2 = D / 2;
+  const int tid = threadIdx.x;
+  float* q = smem;                            // [rep][D], scaled
+
+  const T* row = qkv + (size_t)b * (H + 2 * KH) * D;
+  const float* c = cosb + (size_t)b * D2;
+  const float* s = sinb + (size_t)b * D2;
+  const int pos = positions[b];
+  const size_t bj = (size_t)b * KH + j;
+  const float kscale = ks[bj], vscale = vs[bj];
+  const float qscale = __fdiv_rn(kscale, sqrt_d);
+
+  // 1-3: rope q (scaled as the reference folds k_scale/sqrt(D) into q),
+  // quantize and append the new k/v row
+  for (int i = tid; i < rep * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    q[i] = __fmul_rn(rope_at(row + (size_t)(j * rep + r) * D, c, s, d, D2),
+                     qscale);
+  }
+  const bool write = pos >= 0 && pos < S;
+  const size_t stride_s = (size_t)KH * D;     // bytes between cache rows
+  int8_t* kcb = kc + (size_t)b * S * stride_s + (size_t)j * D;
+  int8_t* vcb = vc + (size_t)b * S * stride_s + (size_t)j * D;
+  if (write) {
+    const float ik = iks[bj], iv = ivs[bj];
+    const T* krow = row + (size_t)(H + j) * D;
+    const T* vrow = row + (size_t)(H + KH + j) * D;
+    for (int d = tid; d < D; d += kThreads) {
+      kcb[(size_t)pos * stride_s + d] =
+          quant_i8(__fmul_rn(rope_at(krow, c, s, d, D2), ik));
+      vcb[(size_t)pos * stride_s + d] =
+          quant_i8(__fmul_rn(to_f32(vrow[d]), iv));
+    }
+  }
+  __syncthreads();   // q in shared; the appended row visible to the block
+
+  const bool masked = pos < 0;
+  const int n = masked ? S : min(pos + 1, S);
+  attend<kThreads, ProbsByReciprocal>(
+      smem, kcb, vcb, stride_s, S, n, masked, rep, D, vscale,
+      out + (size_t)b * H * D + (size_t)j * rep * D);
   __syncthreads();
 }
 

@@ -5,14 +5,21 @@
 //   aimet_tpu/ops/fused_layer.py:fused_wo_mlp / _fused_kernel and
 //   _fused_kernel_qkv (the phase-D variant);
 // KSOL (attn = 1) replaces
-//   aimet_tpu/ops/decode_layer_sol.py:sol_decode_layer / _sol_kernel.
+//   aimet_tpu/ops/decode_layer_sol.py:sol_decode_layer / _sol_kernel,
+// and, launched through ops/fused_layer.py:fused_decode_layer (KDL),
+//   aimet_tpu/ops/fused_layer.py:fused_decode_layer /
+//   _fused_kernel_layer_last and _fused_kernel_layer.
+// The two TPU whole-layer kernels differ in how Mosaic moves the weights
+// (a pipelined grid against manual DMA); here one persistent kernel with
+// grid-wide barriers covers both, so KSOL and KDL run the same code.
 //
 // For M <= 64 rows (one token per decode slot), all weights split-half
 // INT4 with per-column f32 scales and bf16 activations:
 //   0 (KSOL)  ao = decode attention of K3 (decode_attention.cuh): rope,
 //             INT8-KV quantize and in-place append, GQA over the cache
 //   A         y   = bf16(ao @ W_o) + resid
-//   B         h   = bf16(silu(g) * u),  (g, u) = rmsnorm(y, mlp_gamma) @ W_gu
+//   B         h   = bf16(silu(g) * u),  g = rmsnorm(y, mlp_gamma) @ W_gate,
+//                                       u = rmsnorm(y, mlp_gamma) @ W_up
 //   C         out = bf16(h @ W_down) + y
 //   D (opt.)  qkv = bf16(rmsnorm(out, attn_gamma) @ W_qkv)   (next layer)
 // with rmsnorm(v, gamma) = bf16(bf16(v * rsqrt(mean(v^2) + eps)) * gamma)
@@ -70,8 +77,10 @@ struct FusedLayerArgs {
   void* qkv_next;          // (M, Nq), or null: no phase D
   const void* wo;          // (A/2, D) split-half INT4
   const void* so;          // (D,) f32
-  const void* wgu;         // (D/2, 2F): gate | up columns
-  const void* sgu;         // (2F,) f32
+  const void* wg;          // (D/2, F) gate, rows ld_gu bytes apart
+  const void* sg;          // (F,) f32
+  const void* wu;          // (D/2, F) up, rows ld_gu bytes apart: its own
+  const void* su;          // array, or columns F..2F of the gate's
   const void* wd;          // (F/2, D)
   const void* sd;          // (D,) f32
   const void* wq;          // (D/2, Nq), or null
@@ -93,6 +102,7 @@ struct FusedLayerArgs {
   const void* ivs;
   const void* pos;         // (M,) int32
   int M, A, D, F, Nq;
+  int ld_gu;               // row stride of W_gate and W_up (F or 2F)
   int split_a, split_b, split_c, split_d;
   int S, H, KH, HD;
   float eps, sqrt_d;
@@ -145,11 +155,12 @@ __device__ __forceinline__ float phase_value(const void* part, int splits,
   }
 }
 
-// This thread's accumulators of the tile at column n0 into slice (M, N).
+// This thread's accumulators of the tile at column n0 into slice (M, N),
+// whose rows lie ld elements apart.
 template <typename Acc>
 __device__ __forceinline__ void store_partials(Acc* slice,
                                                const Acc (&acc)[2][4][4],
-                                               int M, int N, int n0) {
+                                               int M, int N, int ld, int n0) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -158,35 +169,42 @@ __device__ __forceinline__ void store_partials(Acc* slice,
       for (int c = 0; c < 4; ++c) {
         const int m = aimet::acc_row(mi, c);
         const int n = n0 + aimet::acc_col(ni, c);
-        if (m < M && n < N) slice[(size_t)m * N + n] = acc[mi][ni][c];
+        if (m < M && n < N) slice[(size_t)m * ld + n] = acc[mi][ni][c];
       }
 }
 
-// (M, K) @ (K/2, N) split-half INT4 -> partial sums (splits, M, N).
+// (M, K) @ (K/2, N) split-half INT4 -> partial sums (splits, M, N). With
+// a second weight w2 (phase B: gate, then up) the phase makes 2N columns,
+// w2's at N.. of each partial row; both weights' rows lie ldw bytes apart.
 template <bool kInt8>
 __device__ void gemm_phase(const bf16* x, const int8_t* xq, const void* w,
-                           int M, int N, int K, int splits, void* part,
-                           unsigned char* smem) {
+                           const void* w2, int ldw, int M, int N, int K,
+                           int splits, void* part, unsigned char* smem) {
   constexpr int R = kInt8 ? aimet::kS8Step : aimet::bf_step_rows<true>();
   const int K2 = K / 2;
   const int per = ((K2 + R - 1) / R + splits - 1) / splits * R;
   const int tiles = (N + kTileN - 1) / kTileN;
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
-    const int n0 = (item % tiles) * kTileN, s = item / tiles;
+  const int halves = w2 ? 2 : 1;
+  const int NP = halves * N;                 // partial row width
+  for (int item = blockIdx.x; item < halves * tiles * splits;
+       item += gridDim.x) {
+    const int t = item % (halves * tiles), s = item / (halves * tiles);
+    const int h = t / tiles, n0 = (t % tiles) * kTileN;
+    const int8_t* wp = static_cast<const int8_t*>(h ? w2 : w);
     const int r_begin = s * per, r_end = min(K2, r_begin + per);
-    const size_t slice = (size_t)s * M * N;
+    const size_t slice = (size_t)s * M * NP + (size_t)h * N;
     if constexpr (kInt8) {
       int acc[2][4][4] = {};
       aimet::s8_tile(xq, wp, M, N, K2, 0, n0, r_begin, r_end,
-                     *reinterpret_cast<aimet::S8Tile*>(smem), acc);
-      store_partials(static_cast<int*>(part) + slice, acc, M, N, n0);
+                     *reinterpret_cast<aimet::S8Tile*>(smem), acc, ldw);
+      store_partials(static_cast<int*>(part) + slice, acc, M, N, NP, n0);
     } else {
       float acc[2][4][4] = {};
       aimet::bf_tile<true>(reinterpret_cast<const uint16_t*>(x), wp, M, N, K,
                            0, n0, r_begin, r_end,
-                           *reinterpret_cast<aimet::BfTile*>(smem), acc);
-      store_partials(static_cast<float*>(part) + slice, acc, M, N, n0);
+                           *reinterpret_cast<aimet::BfTile*>(smem), acc,
+                           nullptr, 0, ldw);
+      store_partials(static_cast<float*>(part) + slice, acc, M, N, NP, n0);
     }
   }
 }
@@ -220,7 +238,8 @@ fused_layer_kernel(const FusedLayerArgs a) {
   int8_t* xq = static_cast<int8_t*>(a.xq);
   float* sx = static_cast<float*>(a.sx);   // [phase A..D][M]
   const float* so = static_cast<const float*>(a.so);
-  const float* sgu = static_cast<const float*>(a.sgu);
+  const float* sg = static_cast<const float*>(a.sg);
+  const float* su = static_cast<const float*>(a.su);
   const float* sd = static_cast<const float*>(a.sd);
 
   // --- phase 0 (KSOL): attention, one (row, kv head) at a time
@@ -251,7 +270,8 @@ fused_layer_kernel(const FusedLayerArgs a) {
   }
 
   // --- phase A: y = bf16(ao @ W_o) + resid; then rmsnorm(y) -> xbuf
-  gemm_phase<kInt8>(x_a, xq, a.wo, M, D, A, a.split_a, a.part, smem);
+  gemm_phase<kInt8>(x_a, xq, a.wo, nullptr, D, M, D, A, a.split_a, a.part,
+                    smem);
   grid.sync();
   for (int m = blockIdx.x; m < M; m += gridDim.x) {
     const size_t row = (size_t)m * D;
@@ -272,7 +292,8 @@ fused_layer_kernel(const FusedLayerArgs a) {
   grid.sync();
 
   // --- phase B: h = bf16(silu(g) * u) -> xbuf
-  gemm_phase<kInt8>(xbuf, xq, a.wgu, M, 2 * F, D, a.split_b, a.part, smem);
+  gemm_phase<kInt8>(xbuf, xq, a.wg, a.wu, a.ld_gu, M, F, D, a.split_b,
+                    a.part, smem);
   grid.sync();
   for (int m = blockIdx.x; m < M; m += gridDim.x) {
     const size_t row = (size_t)m * 2 * F;
@@ -281,9 +302,9 @@ fused_layer_kernel(const FusedLayerArgs a) {
     float amax = 0.0f;
     for (int n = threadIdx.x; n < F; n += kThreads) {
       const float g = phase_value<kInt8>(a.part, a.split_b, (size_t)M * 2 * F,
-                                         row + n, sxm, sgu[n]);
+                                         row + n, sxm, sg[n]);
       const float u = phase_value<kInt8>(a.part, a.split_b, (size_t)M * 2 * F,
-                                         row + F + n, sxm, sgu[F + n]);
+                                         row + F + n, sxm, su[n]);
       const float sig = 1.0f / (1.0f + expf(-g));
       const float h = round_bf(__fmul_rn(__fmul_rn(g, sig), u));
       hr[n] = __float2bfloat16_rn(h);
@@ -295,7 +316,8 @@ fused_layer_kernel(const FusedLayerArgs a) {
   grid.sync();
 
   // --- phase C: out = bf16(h @ W_down) + y; then rmsnorm(out) -> xbuf
-  gemm_phase<kInt8>(xbuf, xq, a.wd, M, D, F, a.split_c, a.part, smem);
+  gemm_phase<kInt8>(xbuf, xq, a.wd, nullptr, D, M, D, F, a.split_c, a.part,
+                    smem);
   grid.sync();
   const bool has_next = a.qkv_next != nullptr;
   for (int m = blockIdx.x; m < M; m += gridDim.x) {
@@ -320,7 +342,8 @@ fused_layer_kernel(const FusedLayerArgs a) {
   grid.sync();
 
   // --- phase D: the next layer's qkv = bf16(rmsnorm(out) @ W_qkv)
-  gemm_phase<kInt8>(xbuf, xq, a.wq, M, Nq, D, a.split_d, a.part, smem);
+  gemm_phase<kInt8>(xbuf, xq, a.wq, nullptr, Nq, M, Nq, D, a.split_d,
+                    a.part, smem);
   grid.sync();
   const float* sq = static_cast<const float*>(a.sq);
   bf16* qn = static_cast<bf16*>(a.qkv_next);
@@ -379,12 +402,12 @@ extern "C" int aimet_fused_layer_grid(int attn, int int8, int smem,
 }
 
 // args: a FusedLayerArgs; grid from aimet_fused_layer_grid with the same
-// attn, int8 and smem. Requires 1 <= M <= 64; A, D, F even.
+// attn, int8 and smem. Requires 1 <= M <= 64; A, D, F even; ld_gu >= F.
 extern "C" int aimet_fused_layer(const void* args, int attn, int int8,
                                  int grid, int smem, void* stream) {
   FusedLayerArgs a = *static_cast<const FusedLayerArgs*>(args);
   if (a.M <= 0 || a.M > kMaxRows || a.A % 2 || a.D % 2 || a.F % 2 ||
-      grid <= 0 || (int8 && !attn))
+      a.ld_gu < a.F || grid <= 0 || (int8 && !attn))
     return static_cast<int>(cudaErrorInvalidValue);
   Kernel k = pick(attn, int8);
   cudaError_t e = prepare(k, smem);

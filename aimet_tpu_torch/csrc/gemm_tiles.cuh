@@ -38,6 +38,10 @@ __device__ __forceinline__ uint32_t ld_u32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // 16 bytes from src; bytes at index >= n_valid are `fill`.
 __device__ __forceinline__ void load16(uint4& r, const int8_t* src,
                                        int n_valid, bool vec_ok, int fill) {
@@ -101,20 +105,23 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 // acc += xq[m0.., k] . W[k, n0..] over weight rows [p_begin, p_end).
 // kW4: xq (M, 2 Kw) int8, wp (Kw, N) split-half INT4, packed row p holding
 // k = p and k = p + Kw; else xq (M, Kw) int8, wp (Kw, N) int8 codes.
+// W's rows lie ldw bytes apart (0: N), so W may be a column range of a
+// wider array.
 template <bool kW4 = true>
 __device__ __forceinline__ void s8_tile(const int8_t* __restrict__ xq,
                                         const int8_t* __restrict__ wp, int M,
                                         int N, int Kw, int m0, int n0,
                                         int p_begin, int p_end, S8Tile& sm,
-                                        int (&acc)[2][4][4]) {
+                                        int (&acc)[2][4][4], int ldw = 0) {
   constexpr int R = s8_step_rows<kW4>();
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const size_t K = kW4 ? 2 * (size_t)Kw : (size_t)Kw;
+  const int ld = ldw ? ldw : N;
   const bool a_vec = (Kw % 16) == 0;
-  const bool b_vec = (N % 16) == 0;
+  const bool b_vec = (ld % 16) == 0 && aligned16(wp);
   // this thread's share of each step: 32 bytes of A; 32 bytes of B a
   // k half (INT4: one packed row feeds both halves)
   const int a_half = tid >> 7;              // k half (0 or 1)
@@ -140,7 +147,8 @@ __device__ __forceinline__ void s8_tile(const int8_t* __restrict__ xq,
       const int nb = gp < p_end ? max(0, min(32, N - gn)) : 0;
       // INT4 0x08 unpacks to lo = 0, hi = 0; int8 0 is 0: masked weights
       // contribute nothing
-      const int8_t* bsrc = wp + (size_t)min(gp, Kw - 1) * N + min(gn, N - 1);
+      const int8_t* bsrc =
+          wp + (size_t)min(gp, Kw - 1) * ld + min(gn, N - 1);
       load16(br[2 * h], bsrc, nb, b_vec, kW4 ? 0x08 : 0);
       load16(br[2 * h + 1], bsrc + 16, nb - 16, b_vec, kW4 ? 0x08 : 0);
     }
@@ -252,6 +260,7 @@ __device__ __forceinline__ void load16_f32(uint4 (&r)[4], const float* src,
 // kGrouped (kW4 only): gs (K/group, N) f32 holds one scale per (K-group,
 // n), group a multiple of 16 dividing K/2; each group's f32 sum is added
 // into acc times its scale once the group is done.
+// W's rows lie ldw bytes apart (0: N), as in s8_tile.
 template <bool kW4, bool kSplitX = false, bool kGrouped = false>
 __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
                                         const int8_t* __restrict__ w, int M,
@@ -260,7 +269,7 @@ __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
                                         BfTileX<kSplitX>& sm,
                                         float (&acc)[2][4][4],
                                         const float* __restrict__ gs = nullptr,
-                                        int group = 0) {
+                                        int group = 0, int ldw = 0) {
   static_assert(kW4 || !kGrouped, "group scales need INT4 weights");
   constexpr int R = bf_step_rows<kW4>();
   constexpr int kParts = kSplitX ? 2 : 1;
@@ -269,8 +278,9 @@ __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int Kw = kW4 ? K / 2 : K;          // weight rows
+  const int ld = ldw ? ldw : N;
   const bool a_vec = (Kw % 8) == 0;        // 16-byte aligned x segments
-  const bool b_vec = (N % 16) == 0;
+  const bool b_vec = (ld % 16) == 0 && aligned16(w);
   // A: 64 rows x 64 k; a thread loads 16 values of one row. Columns
   // [0, 32) of a W4 step are the lo k half, [32, 64) the hi half.
   const int a_row = tid >> 2, a_q = tid & 3;
@@ -300,7 +310,7 @@ __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
     const int gr = r0 + b_r;
     const int gn = n0 + b_col;
     const int nb = gr < r_end ? max(0, min(kW4 ? 16 : 32, N - gn)) : 0;
-    const int8_t* bsrc = w + (size_t)min(gr, Kw - 1) * N + min(gn, N - 1);
+    const int8_t* bsrc = w + (size_t)min(gr, Kw - 1) * ld + min(gn, N - 1);
     // masked bytes: 0x08 unpacks to INT4 (0, 0); 0 is int8 0
     load16(br[0], bsrc, nb, b_vec, kW4 ? 0x08 : 0);
     if (!kW4) load16(br[1], bsrc + 16, nb - 16, b_vec, 0);

@@ -29,9 +29,26 @@ _SMEM_LIMIT = 227 * 1024
 
 
 def positions(cache_index, batch: int, device) -> torch.Tensor:
-    """A scalar or (B,) position(s) -> (B,) int32 per-row positions."""
+    """A scalar or (B,) position(s) -> (B,) int32 per-row positions. A
+    Python int is filled on the device: copying it from pageable host
+    memory would wait for the stream before every launch."""
+    if isinstance(cache_index, (int, np.integer)):
+        return torch.full((batch,), int(cache_index), dtype=torch.int32,
+                          device=device)
     return torch.as_tensor(cache_index, device=device).to(
         torch.int32).reshape(-1).expand(batch).contiguous()
+
+
+def scalar_position(cache_index):
+    """One position for every row, as the TPU kernels take it: a CUDA
+    tensor stays one, anything else becomes an int; raises on a vector of
+    positions."""
+    t = (cache_index if isinstance(cache_index, torch.Tensor)
+         else torch.as_tensor(np.asarray(cache_index)))
+    if t.numel() != 1:
+        raise ValueError(f"one position for every row, got positions of "
+                         f"shape {tuple(t.shape)}")
+    return t.reshape(()) if t.is_cuda else int(t)
 
 
 def attention_kernel_shape_ok(H: int, KH: int, D: int, S: int,

@@ -243,7 +243,13 @@ def _fused_decode_layers(qw, cfg, x, caches, pos, cos, sin, mode,
             attn, _, _ = fused_decode_attention(
                 qkv, cos, sin, c.k, c.v, c.k_scale, c.v_scale, pos,
                 n_heads=H, n_kv_heads=KH)
-            res = fused_wo_mlp(attn, x, *block, eps=eps, next_qkv=nxt)
+            # gate and up stay one array: up at block 1 of width d_ff
+            wgu, sgu = layer["w_gateup"]
+            F = cfg.d_ff
+            res = fused_wo_mlp(attn, x, layer["wo"], (wgu, sgu[:F]),
+                               (wgu, sgu[F:]), layer["w_down"],
+                               layer["mlp_norm"], eps=eps, block_g=F,
+                               up_block_offset=1, n_f=F, next_qkv=nxt)
             res = (res,) if nxt is None else res
         x, qkv = res[0], (res[1] if nxt is not None else None)
     return x

@@ -11,7 +11,11 @@ rest as max |kernel - plain| relative to max |plain|: decode attention and
 the fused layer kernels < 2e-2 (< 6e-2 with int8 dots), the weight-only
 GEMMs (KW4, KW8, group-wise KW4G; bf16 or f32 x) and their im2col convs
 (``conv2d_w8``, ``conv2d_w4`` at ResNet-50 conv shapes) < 1e-2, and their
-repeated calls give the same bits.
+repeated calls give the same bits. KDL (``fused_decode_layer``) gives
+KSOL's bits on the same inputs, and KFL the same bits with gate and up
+separate or concatenated. KGQA: f32 q within 1e-4 of the max (f32 sums of
+1024 rows in another order); bf16 q within one bf16 ulp of every prob
+(v_scale * sum_s ulp(p_s) |v_s|) plus that.
 """
 import pytest
 import torch
@@ -22,7 +26,13 @@ from aimet_tpu_torch.ops.decode_attention_fused import (
     fused_decode_attention, fused_decode_attention_torch)
 from aimet_tpu_torch.ops.decode_layer_sol import (sol_decode_layer,
                                                   sol_decode_layer_torch)
-from aimet_tpu_torch.ops.fused_layer import fused_wo_mlp, fused_wo_mlp_torch
+from aimet_tpu_torch import _build
+from aimet_tpu_torch.ops import fused_layer as flay
+from aimet_tpu_torch.ops.decode_attention import (
+    fused_gqa_decode_attention, fused_gqa_decode_attention_torch)
+from aimet_tpu_torch.ops.fused_layer import (fused_decode_layer,
+                                             fused_decode_layer_torch,
+                                             fused_wo_mlp, fused_wo_mlp_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -183,19 +193,39 @@ def _block(gen, a, d, f, nq):
             d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)))
 
 
+def _jax_form(kw, separate=False):
+    """``_block``'s arguments in the JAX signature of fused_wo_mlp /
+    fused_decode_layer: gate|up as one array located by
+    ``up_block_offset``, or (``separate``) as two contiguous arrays."""
+    kw = dict(kw)
+    w, s = kw.pop("gateup_pair")
+    f = w.shape[1] // 2
+    if separate:
+        kw.update(gate_pair=(w[:, :f].contiguous(), s[:f]),
+                  up_pair=(w[:, f:].contiguous(), s[f:]))
+    else:
+        kw.update(gate_pair=(w, s[:f]), up_pair=(w, s[f:]), block_g=f,
+                  up_block_offset=1, n_f=f)
+    return kw
+
+
 @pytest.mark.parametrize("next_qkv", [False, True])
 def test_fused_wo_mlp_kernel_matches_plain(gen, next_qkv):
     m, a, d, f, nq = 16, 2048, 2048, 5632, 3072
     ao = torch.randn((m, a), generator=gen, device="cuda").to(torch.bfloat16)
     resid = torch.randn((m, d), generator=gen, device="cuda").to(
         torch.bfloat16)
-    kw = _block(gen, a, d, f, nq if next_qkv else 0)
+    blk = _block(gen, a, d, f, nq if next_qkv else 0)
+    kw = _jax_form(blk)
     got = fused_wo_mlp(ao, resid, **kw)
     want = fused_wo_mlp_torch(ao, resid, **kw)
-    got, want = (got, want) if next_qkv else ((got,), (want,))
-    for g, w in zip(got, want):
+    sep = fused_wo_mlp(ao, resid, **_jax_form(blk, separate=True))
+    got, want, sep = ((got, want, sep) if next_qkv
+                      else ((got,), (want,), (sep,)))
+    for g, w, p in zip(got, want, sep):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert _rel(g, w) < 2e-2
+        assert torch.equal(g, p)     # gate and up apart: the same bits
 
 
 @pytest.mark.parametrize("int8_dots", [False, True])
@@ -317,3 +347,124 @@ def test_weight_only_im2col_convs_match_plain(gen, bits, shape, co, k,
                             None, None)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert _rel(got, want) < 1e-2
+
+
+def _layer_inputs(gen, b, s, h, kh, d, pos):
+    kc = torch.randint(-127, 128, (b, s, kh, d), dtype=torch.int8,
+                       generator=gen, device="cuda")
+    vc = torch.randint(-127, 128, (b, s, kh, d), dtype=torch.int8,
+                       generator=gen, device="cuda")
+    ks = torch.rand((b, kh), generator=gen, device="cuda") * 0.05 + 0.01
+    vs = torch.rand((b, kh), generator=gen, device="cuda") * 0.05 + 0.01
+    qkv = torch.randn((b, (h + 2 * kh) * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    resid = torch.randn((b, h * d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ang = torch.full((1, 1), float(pos), device="cuda") * torch.rand(
+        d // 2, generator=gen, device="cuda")
+    return qkv, resid, kc, vc, ks, vs, torch.cos(ang), torch.sin(ang)
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["4d", "flat"])
+@pytest.mark.parametrize("next_qkv", [False, True])
+def test_fused_decode_layer_kernel_matches_plain_and_sol(gen, next_qkv,
+                                                         flat):
+    """KDL against its plain version, and against KSOL on the same inputs
+    (the same kernel code: the same bits), at the KSOL test's shapes: at
+    Llama-3-8B widths these weights take both just above 2e-2 of the max
+    against the plain version, whose decode attention rounds its probs and
+    context to bf16 where the kernel keeps f32 (chip_smoke.py holds KDL at
+    those widths on its own weights)."""
+    b, s, h, kh, d, f, pos = 16, 512, 16, 4, 128, 5632, 300
+    qkv, resid, kc, vc, ks, vs, cos, sin = _layer_inputs(gen, b, s, h, kh,
+                                                         d, pos)
+    blk = _block(gen, h * d, h * d, f, (h + 2 * kh) * d if next_qkv else 0)
+    kw = dict(_jax_form(blk), n_heads=h, n_kv_heads=kh)
+    caches = [(kc.clone(), vc.clone()) for _ in range(3)]
+    view = (lambda t: t.view(b, s, kh * d)) if flat else (lambda t: t)
+    before = fused_decode_layer.launches
+    got = fused_decode_layer(qkv, resid, view(caches[0][0]),
+                             view(caches[0][1]), ks, vs, pos, cos, sin, **kw)
+    assert fused_decode_layer.launches == before + 1
+    want = fused_decode_layer_torch(qkv, resid, view(caches[1][0]),
+                                    view(caches[1][1]), ks, vs, pos, cos,
+                                    sin, **kw)
+    sol = sol_decode_layer(qkv, resid, *caches[2], ks, vs, pos, cos, sin,
+                           n_heads=h, n_kv_heads=kh, **blk)
+    torch.cuda.synchronize()
+    assert got[-2].dim() == (3 if flat else 4)
+    assert got[-2].data_ptr() == caches[0][0].data_ptr()
+    for c in caches[1:]:
+        assert torch.equal(caches[0][0], c[0]) and torch.equal(
+            caches[0][1], c[1])
+    n_out = 2 if next_qkv else 1
+    for g, w, o in zip(got[:n_out], want[:n_out], sol[:n_out]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g, w) < 2e-2
+        assert torch.equal(g, o)
+
+
+def test_fused_decode_layer_copies_no_weight(gen, monkeypatch):
+    """The kernel gets pointers into the arrays passed: gate at w_gateup's
+    start, up F columns on, both with a row stride of 2F."""
+    b, s, h, kh, d, f, pos = 16, 256, 32, 8, 128, 14336, 100
+    qkv, resid, kc, vc, ks, vs, cos, sin = _layer_inputs(gen, b, s, h, kh,
+                                                         d, pos)
+    blk = _block(gen, h * d, h * d, f, (h + 2 * kh) * d)
+    seen = []
+    launch = _build.launch
+
+    def spy(name, *args):
+        if name == "aimet_fused_layer":
+            a = flay._Args.from_address(args[0])
+            seen.append({n: getattr(a, n) for n in (
+                "wo", "wg", "wu", "wd", "wq", "ld_gu", "F")})
+        return launch(name, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    fused_decode_layer(qkv, resid, kc, vc, ks, vs, pos, cos, sin,
+                       n_heads=h, n_kv_heads=kh, **_jax_form(blk))
+    (a,) = seen
+    wgu = blk["gateup_pair"][0]
+    assert a["wg"] == wgu.data_ptr() and a["wu"] == wgu.data_ptr() + f
+    assert a["ld_gu"] == 2 * f and a["F"] == f
+    assert a["wo"] == blk["wo_pair"][0].data_ptr()
+    assert a["wd"] == blk["down_pair"][0].data_ptr()
+    assert a["wq"] == blk["next_qkv"][0][0].data_ptr()
+
+
+def _gqa_flip_bound(q, kc, vc, ks, vs, pos):
+    """v_scale * sum_s ulp_bf16(p_s) |v[s]|: the context's change when every
+    prob's bf16 rounding moves by one ulp."""
+    D = q.shape[-1]
+    qs = q * (ks / D ** 0.5)[:, :, None, None].to(q.dtype)
+    sc = torch.einsum("bkrd,bskd->bkrs", qs.float(), kc.float())
+    live = torch.arange(kc.shape[1], device=q.device) <= pos
+    p = torch.softmax(sc.masked_fill(~live, -1e30), -1)
+    ulp = torch.where(p > 0, torch.exp2(torch.floor(torch.log2(
+        p.clamp_min(1e-30))) - 7), torch.zeros_like(p))
+    return torch.einsum("bkrs,bskd->bkrd", ulp,
+                        vc.abs().float()) * vs[:, :, None, None]
+
+
+@pytest.mark.parametrize("pos", [700, 0, -1, 1030])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gqa_attention_kernel_matches_plain(gen, dtype, pos):
+    b, s, kh, rep, d = 16, 1024, 8, 4, 128
+    _, _, kc, vc, ks, vs, _, _ = _layer_inputs(gen, b, s, kh * rep, kh, d,
+                                               0)
+    q = torch.randn((b, kh, rep, d), generator=gen, device="cuda").to(dtype)
+    before = fused_gqa_decode_attention.launches
+    got = fused_gqa_decode_attention(q, kc, vc, ks, vs, pos)
+    assert fused_gqa_decode_attention.launches == before + 1
+    want = fused_gqa_decode_attention_torch(q, kc, vc, ks, vs, pos)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if dtype == torch.float32:
+        assert _rel(got, want) < 1e-4
+    else:
+        bound = _gqa_flip_bound(q, kc, vc, ks, vs, pos) \
+            + 1e-4 * want.abs().max()
+        assert ((got - want).abs() <= bound).all()
+    assert torch.equal(fused_gqa_decode_attention(q, kc, vc, ks, vs, pos),
+                       got)

@@ -1,20 +1,30 @@
-"""aimet_tpu_torch.ops.fused_layer.fused_wo_mlp (the plain version the CPU
-takes) against aimet_tpu.ops.fused_layer.fused_wo_mlp (Pallas, interpret
-mode) on the same numpy inputs, with gate|up concatenated as serving
-stores them (``up_block_offset``) and as separate arrays.
+"""aimet_tpu_torch.ops.fused_layer (the plain versions the CPU takes)
+against aimet_tpu.ops.fused_layer (Pallas, interpret mode) on the same
+numpy inputs, through the JAX signature: gate and up as separate arrays
+and concatenated as serving stores them (``up_block_offset``).
 
-Tolerances, as tests/test_fused_layer.py: f32 at rtol = atol = 2e-5 (the
-same rounding points; the TPU kernel's biased-nibble sums differ in the
-last bits); bf16 within 5e-2 of the max.
+``fused_wo_mlp`` tolerances, as tests/test_fused_layer.py: f32 at rtol =
+atol = 2e-5 (the same rounding points; the TPU kernel's biased-nibble
+sums differ in the last bits); bf16 within 5e-2 of the max.
+
+``fused_decode_layer`` at the shapes of tests/test_fused_layer.py:97-118
+(b 8, s 32, h 8, kh 2, d 128, position 11): cache bytes bit for bit,
+outputs within that test's 2e-2 of the max (bf16 activations rounded at
+the same points, f32 sums in another order).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from aimet_tpu.models.transformer import TransformerConfig, rope_freqs
+from aimet_tpu.ops.fused_layer import fused_decode_layer as j_layer
 from aimet_tpu.ops.fused_layer import fused_wo_mlp as j_fused
 from aimet_tpu.ops.int_matmul import quantize_weight_int4
-from aimet_tpu_torch.ops.fused_layer import (fused_wo_mlp, fused_wo_mlp_torch,
+from aimet_tpu.ops.kv_cache import (flatten_kv_caches,
+                                    init_quantized_kv_cache, prefill_kv)
+from aimet_tpu_torch.ops.fused_layer import (fused_decode_layer,
+                                             fused_wo_mlp, fused_wo_mlp_torch,
                                              rms_norm)
 from aimet_tpu_torch.ops.int_matmul import matmul_w4a8_torch
 
@@ -44,12 +54,27 @@ def _case(m, A, D, F, nq, seed, dtype=jnp.float32):
         wo=wo, wg=wg, wu=wu, wgu=wgu, wd=wd, wq=q4(D, nq) if nq else None)
 
 
-def _port(c, dtype, next_qkv):
-    pair = lambda p: (torch.from_numpy(p[0]), torch.from_numpy(p[1]))
-    nxt = ((pair(c["wq"]), _t(c["agamma"])) if next_qkv else None)
+def _pair(p):
+    return torch.from_numpy(p[0]), torch.from_numpy(p[1])
+
+
+def _gate_up(c, concatenated, F):
+    """The port's gate and up arguments in either JAX form."""
+    if not concatenated:
+        return (_pair(c["wg"]), _pair(c["wu"])), {}
+    w, s = _pair(c["wgu"])
+    return (((w, s[:F]), (w, s[F:])),
+            dict(up_block_offset=F // BLOCKS["block_g"], n_f=F))
+
+
+def _port(c, dtype, next_qkv, concatenated=True):
+    F = c["wg"][0].shape[1]
+    (gate, up), kw = _gate_up(c, concatenated, F)
+    nxt = ((_pair(c["wq"]), _t(c["agamma"])) if next_qkv else None)
     return fused_wo_mlp(_t(c["ao"], dtype), _t(c["resid"], dtype),
-                        pair(c["wo"]), pair(c["wgu"]), pair(c["wd"]),
-                        _t(c["gamma"]), eps=1e-5, next_qkv=nxt)
+                        _pair(c["wo"]), gate, up, _pair(c["wd"]),
+                        _t(c["gamma"]), eps=1e-5, next_qkv=nxt, **BLOCKS,
+                        **kw)
 
 
 @pytest.mark.parametrize("m", [1, 8, 16, 33])
@@ -72,7 +97,7 @@ def test_fused_wo_mlp_f32_next_qkv_separate_gate_up():
     out, qkv = j_fused(c["ao"], c["resid"], c["wo"], c["wg"], c["wu"],
                        c["wd"], c["gamma"], eps=1e-5, block_q=128,
                        next_qkv=(c["wq"], c["agamma"]), **BLOCKS)
-    got_out, got_qkv = _port(c, None, True)
+    got_out, got_qkv = _port(c, None, True, concatenated=False)
     np.testing.assert_allclose(got_out.numpy(), np.asarray(out), rtol=2e-5,
                                atol=2e-5)
     np.testing.assert_allclose(got_qkv.numpy(), np.asarray(qkv), rtol=2e-5,
@@ -88,7 +113,7 @@ def test_fused_wo_mlp_bf16_rect(next_qkv):
         kw.update(block_q=128, next_qkv=(c["wq"], c["agamma"]))
     want = j_fused(c["ao"], c["resid"], c["wo"], c["wg"], c["wu"], c["wd"],
                    c["gamma"], **kw)
-    got = _port(c, torch.bfloat16, next_qkv)
+    got = _port(c, torch.bfloat16, next_qkv, concatenated=False)
     want, got = (want, got) if next_qkv else ((want,), (got,))
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
@@ -102,13 +127,200 @@ def test_fused_wo_mlp_int8_dots_is_the_w4a8_composition():
     exact W4A8 matmul (the whole-layer kernel's phases in w4a8 mode)."""
     m, A, D, F = 4, 128, 128, 256
     c = _case(m, A, D, F, 0, 3)
-    pair = lambda p: (torch.from_numpy(p[0]), torch.from_numpy(p[1]))
     ao, resid, gamma = _t(c["ao"]), _t(c["resid"]), _t(c["gamma"])
-    mm = lambda x, p: matmul_w4a8_torch(x, *pair(p), torch.float32)
+    mm = lambda x, p: matmul_w4a8_torch(x, *_pair(p), torch.float32)
     y = mm(ao, c["wo"]) + resid
     gu = mm(rms_norm(y, gamma, 1e-5), c["wgu"])
     h = gu[:, :F] * torch.sigmoid(gu[:, :F]) * gu[:, F:]
     want = mm(h, c["wd"]) + y
-    got = fused_wo_mlp_torch(ao, resid, pair(c["wo"]), pair(c["wgu"]),
-                             pair(c["wd"]), gamma, int8_dots=True)
+    (gate, up), kw = _gate_up(c, True, F)
+    got = fused_wo_mlp_torch(ao, resid, _pair(c["wo"]), gate, up,
+                             _pair(c["wd"]), gamma, int8_dots=True,
+                             block_g=128, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# fused_decode_layer: the whole decode layer
+# ---------------------------------------------------------------------------
+
+LAYER_BLOCKS = dict(block_a=512, block_g=512, block_d=512)
+B, S, H, KH, HD, POS = 8, 32, 8, 2, 128, 11
+DM, FF = H * HD, 2 * H * HD
+
+
+def _layer_case(seed, n_layers=1):
+    """Inputs of tests/test_fused_layer.py:97-118: prefilled caches, this
+    layer's qkv, the residual, rope rows and per-layer INT4 weights (each
+    layer but the last with the next layer's QKV weight)."""
+    rs = np.random.RandomState(seed)
+    cfg = TransformerConfig(vocab_size=64, d_model=DM, n_layers=n_layers,
+                            n_heads=H, n_kv_heads=KH, d_ff=FF)
+    nq = (H + 2 * KH) * HD
+
+    def rq(k, n):
+        return quantize_weight_int4(
+            jnp.asarray(rs.randn(k, n) * 0.05, jnp.float32))
+
+    caches, layers = [], []
+    for _ in range(n_layers):
+        caches.append(prefill_kv(
+            init_quantized_kv_cache(B, S, KH, HD),
+            jnp.asarray(rs.randn(B, POS, KH, HD), jnp.float32),
+            jnp.asarray(rs.randn(B, POS, KH, HD), jnp.float32), 0))
+        wg, wu = rq(DM, FF), rq(DM, FF)
+        layers.append(dict(
+            wo=rq(H * HD, DM), wg=wg, wu=wu,
+            wgu=(jnp.concatenate([wg[0], wu[0]], 1),
+                 jnp.concatenate([wg[1], wu[1]])),
+            wd=rq(FF, DM), wq=rq(DM, nq),
+            gamma=jnp.asarray(rs.rand(DM) + 0.5, jnp.float32),
+            agamma=jnp.asarray(rs.rand(DM) + 0.5, jnp.float32)))
+    cos, sin = rope_freqs(cfg, jnp.asarray([POS]))
+    return dict(
+        caches=caches, layers=layers, cos=cos, sin=sin,
+        qkv=jnp.asarray(rs.randn(B, nq), jnp.float32).astype(jnp.bfloat16),
+        resid=jnp.asarray(rs.randn(B, DM) * 0.1, jnp.float32
+                          ).astype(jnp.bfloat16))
+
+
+def _tt(a):
+    """numpy/JAX array -> torch tensor (bf16 kept as bf16)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _weights(layer, concatenated, to):
+    """gate, up and the keyword arguments of the JAX signature, with the
+    arrays converted by ``to``."""
+    if concatenated:
+        w, s = to(layer["wgu"][0]), to(layer["wgu"][1])
+        return ((w, s[:FF]), (w, s[FF:]),
+                dict(up_block_offset=FF // LAYER_BLOCKS["block_g"], n_f=FF))
+    return ((to(layer["wg"][0]), to(layer["wg"][1])),
+            (to(layer["wu"][0]), to(layer["wu"][1])), {})
+
+
+def _run_layer(fn, to, c, layer, cache, qkv, resid, has_next, concatenated,
+               flat, pos=POS):
+    """One call of ``fn`` (JAX's or the port's fused_decode_layer) on the
+    case's arrays converted by ``to``."""
+    pair = lambda p: (to(p[0]), to(p[1]))
+    gate, up, kw = _weights(layer, concatenated, to)
+    if has_next:
+        kw["next_qkv"] = (pair(c["wq_next"]), to(c["agamma_next"]))
+    k, v = cache
+    return fn(qkv, resid, k, v, to(c["ks"]), to(c["vs"]), pos, to(c["cos"]),
+              to(c["sin"]), pair(layer["wo"]), gate, up, pair(layer["wd"]),
+              to(layer["gamma"]), n_heads=H, n_kv_heads=KH, **LAYER_BLOCKS,
+              **kw)
+
+
+def _layer_args(case, i, flat):
+    """Layer i's cache arrays (flat or 4-D) and scales, and the next
+    layer's QKV weight and norm."""
+    cache = case["caches"][i]
+    if flat:
+        cache = flatten_kv_caches([cache])[0]
+    nxt = case["layers"][min(i + 1, len(case["layers"]) - 1)]
+    return (np.asarray(cache.k), np.asarray(cache.v)), dict(
+        case, ks=cache.k_scale, vs=cache.v_scale,
+        wq_next=case["layers"][i]["wq"] if i + 1 == len(case["layers"])
+        else nxt["wq"], agamma_next=nxt["agamma"])
+
+
+def _relmax(got, want):
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    return np.abs(g - w).max() / max(np.abs(w).max(), 1e-9)
+
+
+@pytest.mark.parametrize("flat", [False, True], ids=["4d", "flat"])
+@pytest.mark.parametrize("concatenated", [False, True],
+                         ids=["separate", "concatenated"])
+@pytest.mark.parametrize("has_next", [True, False], ids=["next_qkv", "last"])
+def test_fused_decode_layer_matches_jax(has_next, concatenated, flat):
+    c = _layer_case(seed=0)
+    (k, v), a = _layer_args(c, 0, flat)
+    want = _run_layer(j_layer, jnp.asarray, a, c["layers"][0],
+                      (jnp.asarray(k), jnp.asarray(v)), c["qkv"], c["resid"],
+                      has_next, concatenated, flat, pos=jnp.int32(POS))
+    kc, vc = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    got = _run_layer(fused_decode_layer, _tt, a, c["layers"][0], (kc, vc),
+                     _tt(c["qkv"]), _tt(c["resid"]), has_next, concatenated,
+                     flat)
+    assert len(got) == len(want) == (4 if has_next else 3)
+    assert got[-2] is kc and got[-1] is vc            # in place, same layout
+    assert kc.dim() == (3 if flat else 4)
+    np.testing.assert_array_equal(kc.numpy(), np.asarray(want[-2]))
+    np.testing.assert_array_equal(vc.numpy(), np.asarray(want[-1]))
+    assert not np.array_equal(kc.numpy(), k)          # the row was appended
+    for g, w in zip(got[:-2], want[:-2]):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
+        assert _relmax(g, w) < 2e-2, _relmax(g, w)
+
+
+def test_fused_decode_layer_takes_one_position():
+    """A scalar position, as in JAX; a vector of positions raises."""
+    c = _layer_case(seed=1)
+    (k, v), a = _layer_args(c, 0, False)
+    kc, vc = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    args = (a, c["layers"][0], (kc, vc), _tt(c["qkv"]), _tt(c["resid"]),
+            False, True, False)
+    with pytest.raises(ValueError, match="one position"):
+        _run_layer(fused_decode_layer, _tt, *args,
+                   pos=torch.full((B,), POS, dtype=torch.int32))
+    assert np.array_equal(kc.numpy(), k)              # nothing was written
+    out0, _, _ = _run_layer(fused_decode_layer, _tt, *args,
+                            pos=torch.tensor(POS))
+    kc.copy_(torch.from_numpy(k.copy()))
+    vc.copy_(torch.from_numpy(v.copy()))
+    out1, _, _ = _run_layer(fused_decode_layer, _tt, *args, pos=POS)
+    assert torch.equal(out0, out1)
+
+
+def test_fused_decode_layer_two_layer_chain():
+    """Layer 0's next QKV feeds layer 1 (the last), flat caches and
+    concatenated gate/up as the decode step stores them, against the same
+    chain of the JAX function.
+
+    Layer 0's cache bytes match bit for bit. Layer 1 appends a row made
+    from layer 0's computed qkv, which the two sides sum in another order:
+    its codes may move by what that difference moves them, at most
+    2 max|dk| / k_scale + 1 levels for K (rope mixes two values) and
+    max|dv| / v_scale + 1 for V; every other byte matches."""
+    c = _layer_case(seed=2, n_layers=2)
+    outs = {}
+    for side, fn, to in (("jax", j_layer, jnp.asarray),
+                         ("port", fused_decode_layer, _tt)):
+        qkv, x, caches, qkvs = to(c["qkv"]), to(c["resid"]), [], []
+        for i in range(2):
+            (k, v), a = _layer_args(c, i, True)
+            cache = (to(k.copy()), to(v.copy()))
+            res = _run_layer(fn, to, a, c["layers"][i], cache, qkv, x,
+                             i == 0, True, True,
+                             pos=jnp.int32(POS) if side == "jax" else POS)
+            x, qkv = res[0], (res[1] if i == 0 else None)
+            caches.append(res[-2:])
+            qkvs.append(qkv)
+        outs[side] = (x, caches, qkvs[0])
+    (jx, jcaches, jq), (px, pcaches, pq) = outs["jax"], outs["port"]
+    for name, j, p in (("k", jcaches[0][0], pcaches[0][0]),
+                       ("v", jcaches[0][1], pcaches[0][1])):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j), name)
+    dq = np.abs(pq.float().numpy() - np.asarray(jq, np.float32))
+    nk = slice(H * HD, (H + KH) * HD)
+    a1 = _layer_args(c, 1, True)[1]
+    for j, p, d, scale, mix in (
+            (jcaches[1][0], pcaches[1][0], dq[:, nk], a1["ks"], 2),
+            (jcaches[1][1], pcaches[1][1], dq[:, (H + KH) * HD:], a1["vs"],
+             1)):
+        j = np.asarray(j, np.int32).reshape(B, S, KH, HD)
+        p = p.numpy().astype(np.int32).reshape(B, S, KH, HD)
+        others = np.arange(S) != POS
+        np.testing.assert_array_equal(p[:, others], j[:, others])
+        bound = mix * d.reshape(B, KH, HD).max(-1) / np.asarray(scale) + 1
+        assert (np.abs(p[:, POS] - j[:, POS]).max(-1) <= bound).all()
+    assert _relmax(px, jx) < 2e-2, _relmax(px, jx)

@@ -37,6 +37,7 @@ def test_importing_port_leaves_jax_unloaded():
             "import aimet_tpu_torch.ops.decode_attention_fused; "
             "import aimet_tpu_torch.ops.fused_layer; "
             "import aimet_tpu_torch.ops.decode_layer_sol; "
+            "import aimet_tpu_torch.ops.decode_attention; "
             "import aimet_tpu_torch.quantsim.lowering; "
             "import aimet_tpu_torch.quantsim.qsim; "
             "import aimet_tpu_torch.quantization.encoding_analyzer; "
