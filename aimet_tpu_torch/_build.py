@@ -46,24 +46,27 @@ SIGNATURES = {
     # xq, sx, wp, sw, out, ws, M, N, K2, splits, out_is_bf16, stream
     "aimet_w4a8_gemm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                         _VP],
-    # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out,
+    # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out, scores,
     # B, S, H, KH, D, sqrt_d, io_is_bf16, stream
-    "aimet_decode_attention": [_VP] * 11 + [_I] * 5 + [_F, _I, _VP],
-    # q, kc, vc, ks, vs, pos, out, B, S, KH, rep, D, sqrt_d, q_is_bf16,
-    # stream
-    "aimet_gqa_attention": [_VP] * 5 + [_I, _VP] + [_I] * 5 + [_F, _I, _VP],
+    "aimet_decode_attention": [_VP] * 12 + [_I] * 5 + [_F, _I, _VP],
+    # q, kc, vc, ks, vs, pos, out, scores, B, S, KH, rep, D, sqrt_d,
+    # q_is_bf16, stream
+    "aimet_gqa_attention": [_VP] * 5 + [_I, _VP, _VP] + [_I] * 5
+    + [_F, _I, _VP],
     # x, w, sw, out, ws, M, N, K, splits, x_is_f32, out_is_bf16, stream
     "aimet_w4_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
     "aimet_w8_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
     # x, w, gs, out, ws, M, N, K, group, splits, x_is_f32, out_is_bf16,
-    # stream
-    "aimet_w4g_gemm": [_VP] * 5 + [_I] * 7 + [_VP],
+    # decode, stream
+    "aimet_w4g_gemm": [_VP] * 5 + [_I] * 8 + [_VP],
     # x, xq, M, K, inv_dx, shift, hi, x_is_bf16, stream
     "aimet_staticq_quant": [_VP, _VP, _I, _I, _F, _F, _F, _I, _VP],
     # xq, w, sv, cb, out, ws, M, N, K, splits, out_is_bf16, stream
     "aimet_staticq_gemm": [_VP] * 6 + [_I] * 5 + [_VP],
     # xq, sx, w, sw, cb, out, ws, M, N, K, splits, out_kind, stream
     "aimet_q8_gemm": [_VP] * 7 + [_I] * 5 + [_VP],
+    # xq, lda, w (N, K), ldb, out, M, N, K, splits, stream
+    "aimet_q8_int32_kmajor": [_VP, _I, _VP, _I, _VP] + [_I] * 4 + [_VP],
     # attn, int8, rep, head_dim, S -> bytes (not an error code)
     "aimet_fused_layer_smem": [_I] * 5,
     # attn, int8, smem, int* blocks

@@ -32,9 +32,13 @@
 // context the 16 warps take cache rows in turn, a lane 4 bytes of a row, so
 // a warp reads a whole 128-byte row at once, and each warp issues the loads
 // of 8 rows before it uses any (the loops are otherwise latency-bound). The
-// cache is streamed once per block. Scores for S <= max_len sit in shared
-// memory. One block per (b, j) is 256 blocks at batch 32; splitting S across
-// blocks (flash-decoding) is later work.
+// cache is streamed once per block. The score rows sit in shared memory
+// while they fit (S <= 12,352 at rep 4, D 128, in sm_90's 227 KB a
+// block); for a longer cache the wrapper passes a (B, KH, rep, S) f32
+// workspace and the rows live there (in L2 for the most part), with the
+// same arithmetic, so every cache length is taken. One block per (b, j) is
+// 256 blocks at batch 32; splitting S across blocks (flash-decoding) is
+// later work.
 #include "decode_attention.cuh"
 
 namespace {
@@ -52,22 +56,23 @@ decode_attention_kernel(const T* __restrict__ qkv,
                         const float* __restrict__ iks,
                         const float* __restrict__ ivs,
                         const int* __restrict__ positions, T* __restrict__ out,
-                        int S, int H, int KH, int D, float sqrt_d) {
+                        float* scores, int S, int H, int KH, int D,
+                        float sqrt_d) {
   extern __shared__ float smem[];
   aimet::attention_body<T, kThreads>(qkv, cosb, sinb, kc, vc, ks, vs, iks,
                                      ivs, positions, out, blockIdx.x / KH,
                                      blockIdx.x % KH, S, H, KH, D, sqrt_d,
-                                     smem);
+                                     smem, scores);
 }
 
 template <typename T>
 int run(const void* qkv, const void* cosb, const void* sinb, void* kc,
         void* vc, const void* ks, const void* vs, const void* iks,
-        const void* ivs, const void* pos, void* out, int B, int S, int H,
-        int KH, int D, float sqrt_d, cudaStream_t st) {
+        const void* ivs, const void* pos, void* out, void* ws, int B, int S,
+        int H, int KH, int D, float sqrt_d, cudaStream_t st) {
   const int rep = H / KH;
-  const size_t smem =
-      sizeof(float) * aimet::attention_smem_floats(rep, D, S, kWarps);
+  const size_t smem = sizeof(float) * aimet::attention_smem_floats(
+                                          rep, D, ws ? 0 : S, kWarps);
   auto kern = decode_attention_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -80,22 +85,25 @@ int run(const void* qkv, const void* cosb, const void* sinb, void* kc,
       static_cast<int8_t*>(vc), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const float*>(iks),
       static_cast<const float*>(ivs), static_cast<const int*>(pos),
-      static_cast<T*>(out), S, H, KH, D, sqrt_d);
+      static_cast<T*>(out), static_cast<float*>(ws), S, H, KH, D, sqrt_d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Shapes: qkv (B, (H + 2 KH) D); cos, sin (B, D/2) f32; caches (B, S, KH, D)
-// int8; ks, vs, iks, ivs (B, KH) f32; positions (B,) int32; out (B, H D).
-// Requires H % KH == 0, H / KH <= 8, D % 4 == 0 and D <= 128.
+// int8; ks, vs, iks, ivs (B, KH) f32; positions (B,) int32; out (B, H D);
+// ws null, or a (B, KH, H / KH, S) f32 workspace for the score rows (for
+// a cache whose rows do not fit in shared memory). Requires H % KH == 0,
+// H / KH <= 8, D % 4 == 0 and D <= 128.
 extern "C" int aimet_decode_attention(const void* qkv, const void* cosb,
                                       const void* sinb, void* kc, void* vc,
                                       const void* ks, const void* vs,
                                       const void* iks, const void* ivs,
-                                      const void* pos, void* out, int B, int S,
-                                      int H, int KH, int D, float sqrt_d,
-                                      int io_is_bf16, void* stream) {
+                                      const void* pos, void* out, void* ws,
+                                      int B, int S, int H, int KH, int D,
+                                      float sqrt_d, int io_is_bf16,
+                                      void* stream) {
   if (B <= 0) return 0;
   if (KH <= 0 || H % KH != 0 || H / KH > aimet::kAttnMaxRep || D % 4 != 0 ||
       D <= 0 || D > 128 || S <= 0)
@@ -103,7 +111,7 @@ extern "C" int aimet_decode_attention(const void* qkv, const void* cosb,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (io_is_bf16)
     return run<__nv_bfloat16>(qkv, cosb, sinb, kc, vc, ks, vs, iks, ivs, pos,
-                              out, B, S, H, KH, D, sqrt_d, st);
-  return run<float>(qkv, cosb, sinb, kc, vc, ks, vs, iks, ivs, pos, out, B, S,
-                    H, KH, D, sqrt_d, st);
+                              out, ws, B, S, H, KH, D, sqrt_d, st);
+  return run<float>(qkv, cosb, sinb, kc, vc, ks, vs, iks, ivs, pos, out, ws,
+                    B, S, H, KH, D, sqrt_d, st);
 }

@@ -17,7 +17,9 @@ __host__ __device__ inline size_t attention_scores_floats(int rep, int S) {
   return ((size_t)rep * S + 3) / 4 * 4;
 }
 
-// shared memory of attention_body, in floats, for a block of `warps` warps
+// shared memory of attention_body, in floats, for a block of `warps` warps;
+// S = 0 when the score rows live in a global workspace instead (a cache
+// too long for them to fit in shared memory)
 __host__ __device__ inline size_t attention_smem_floats(int rep, int D, int S,
                                                        int warps) {
   return (size_t)rep * D + attention_scores_floats(rep, S) +
@@ -51,24 +53,29 @@ struct ProbsRounded {
 
 // Steps 4-5 for the rep query rows of one kv head: smem starts with them
 // ([rep][D] f32, scaled, written before a block barrier), then holds the
-// score rows and the warps' partial contexts (attention_smem_floats);
+// score rows and the warps' partial contexts (attention_smem_floats). With
+// `scores` non-null the score rows ([rep][S] f32) live there instead, in
+// global memory, and smem holds only the query rows and the partial
+// contexts: the arithmetic and its rounding points are the same, so only
+// the cache length the block takes changes;
 // kcb / vcb are the head's cache rows, stride_s bytes apart. Rows s < n
 // are live, all n masked to -1e30 when `masked`. Writes
 // out[r * D + d] = from_f32<OutT>(context * vscale); the caller puts a
 // block barrier before reusing smem.
 template <int kThreads, typename Probs, typename OutT>
-__device__ __forceinline__ void attend(float* smem, const int8_t* kcb,
-                                       const int8_t* vcb, size_t stride_s,
-                                       int S, int n, bool masked, int rep,
-                                       int D, float vscale,
-                                       OutT* __restrict__ out) {
+__device__ __forceinline__ void attend(float* smem, float* scores,
+                                       const int8_t* kcb, const int8_t* vcb,
+                                       size_t stride_s, int S, int n,
+                                       bool masked, int rep, int D,
+                                       float vscale, OutT* __restrict__ out) {
   constexpr int kWarps = kThreads / 32;
   constexpr int kMaxRep = kAttnMaxRep;
   constexpr int kUnroll = kAttnUnroll;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* q = smem;                               // [rep][D]
-  float* sc = smem + rep * D;                          // [rep][S]
-  float* part = sc + attention_scores_floats(rep, S);  // [warps][rep][D]
+  float* sc = scores ? scores : smem + rep * D;        // [rep][S]
+  float* part = smem + rep * D +                       // [warps][rep][D]
+                (scores ? 0 : attention_scores_floats(rep, S));
 
   // 4: scores. A warp takes cache rows in turn, each lane 4 dims (one
   // 4-byte load, so a warp reads a 128-byte row in one transaction);
@@ -175,7 +182,9 @@ __device__ __forceinline__ void attend(float* smem, const int8_t* kcb,
 }
 
 // Attention of batch row b, kv head j, by a block of kThreads threads;
-// `smem` holds attention_smem_floats(H / KH, D, S, kThreads / 32) floats.
+// `smem` holds attention_smem_floats(H / KH, D, S, kThreads / 32) floats,
+// or, with a (B, KH, H / KH, S) f32 score workspace `scores`, those of
+// S = 0.
 // Ends with a block barrier, so the block may reuse `smem` at once.
 template <typename T, int kThreads>
 __device__ __forceinline__ void attention_body(
@@ -184,7 +193,7 @@ __device__ __forceinline__ void attention_body(
     const float* __restrict__ ks, const float* __restrict__ vs,
     const float* __restrict__ iks, const float* __restrict__ ivs,
     const int* __restrict__ positions, T* __restrict__ out, int b, int j,
-    int S, int H, int KH, int D, float sqrt_d, float* smem) {
+    int S, int H, int KH, int D, float sqrt_d, float* smem, float* scores) {
   const int rep = H / KH, D2 = D / 2;
   const int tid = threadIdx.x;
   float* q = smem;                            // [rep][D], scaled
@@ -224,7 +233,8 @@ __device__ __forceinline__ void attention_body(
   const bool masked = pos < 0;
   const int n = masked ? S : min(pos + 1, S);
   attend<kThreads, ProbsByReciprocal>(
-      smem, kcb, vcb, stride_s, S, n, masked, rep, D, vscale,
+      smem, scores ? scores + bj * rep * S : nullptr, kcb, vcb, stride_s, S,
+      n, masked, rep, D, vscale,
       out + (size_t)b * H * D + (size_t)j * rep * D);
   __syncthreads();
 }

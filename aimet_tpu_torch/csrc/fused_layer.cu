@@ -101,6 +101,8 @@ struct FusedLayerArgs {
   const void* iks;         // 1 / ks, 1 / vs (f32, IEEE)
   const void* ivs;
   const void* pos;         // (M,) int32
+  void* scores;            // (M, KH, H / KH, S) f32 score rows, or null:
+                           // in shared memory (aimet_fused_layer_smem)
   int M, A, D, F, Nq;
   int ld_gu;               // row stride of W_gate and W_up (F or 2F)
   int split_a, split_b, split_c, split_d;
@@ -254,7 +256,7 @@ fused_layer_kernel(const FusedLayerArgs a) {
           static_cast<const float*>(a.vs), static_cast<const float*>(a.iks),
           static_cast<const float*>(a.ivs), static_cast<const int*>(a.pos),
           ao, item / a.KH, item % a.KH, a.S, a.H, a.KH, a.HD, a.sqrt_d,
-          reinterpret_cast<float*>(smem));
+          reinterpret_cast<float*>(smem), static_cast<float*>(a.scores));
     grid.sync();
     x_a = ao;
   }
@@ -375,6 +377,7 @@ cudaError_t prepare(Kernel k, int smem) {
 
 // Dynamic shared memory of the kernel, in bytes: the larger of a GEMM
 // tile and (KSOL) the attention phase's scratch; at least the row phases'.
+// S = 0 when the score rows go to the global workspace `scores`.
 extern "C" int aimet_fused_layer_smem(int attn, int int8, int rep, int HD,
                                       int S) {
   size_t b = int8 ? sizeof(aimet::S8Tile) : sizeof(aimet::BfTile);

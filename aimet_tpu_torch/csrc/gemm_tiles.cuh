@@ -38,7 +38,7 @@ __device__ __forceinline__ uint32_t ld_u32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
@@ -258,10 +258,12 @@ __device__ __forceinline__ void load16_f32(uint4 (&r)[4], const float* src,
 // (K/2, N) split-half INT4, packed row p holding k = p and k = p + K/2;
 // else w (K, N) int8, row r holding k = r.
 // kGrouped (kW4 only): gs (K/group, N) f32 holds one scale per (K-group,
-// n), group a multiple of 16 dividing K/2; each group's f32 sum is added
-// into acc times its scale once the group is done.
+// n), the group a multiple of 16 dividing K/2 (kAnyGroup: any group
+// dividing K/2); each group's f32 sum is added into acc times its scale
+// once the group is done.
 // W's rows lie ldw bytes apart (0: N), as in s8_tile.
-template <bool kW4, bool kSplitX = false, bool kGrouped = false>
+template <bool kW4, bool kSplitX = false, bool kGrouped = false,
+          bool kAnyGroup = false>
 __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
                                         const int8_t* __restrict__ w, int M,
                                         int N, int K, int m0, int n0,
@@ -405,7 +407,7 @@ __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
               mma_bf16(d[mi][ni], a[part][mi], b[ni]);
         }
       };
-      if constexpr (kGrouped) {
+      if constexpr (kGrouped && !kAnyGroup) {
         // this 16-wide k slice: packed rows r0 + (kk & 31) .. + 15 of the
         // lo (kk < 32) or hi half; a group never straddles a slice
         const int prow = r0 + (kk & 31);
@@ -424,6 +426,58 @@ __device__ __forceinline__ void bf_tile(const void* __restrict__ xv,
           }
           mma_into(thi);
         }
+      } else if constexpr (kGrouped) {
+        // any group: each group that meets the slice gets one MMA with
+        // the x values of the slice's other groups masked to 0 (a group
+        // of 8 meets two of a slice, one of 24 straddles slices)
+        const int prow = r0 + (kk & 31);
+        if (prow >= r_end) continue;                   // warp-uniform
+        auto slice_groups = [&](float (&tmp)[2][4][4], int& cur, int gbase) {
+          // rows past r_end hold no weights: no group of theirs is met
+          const int g_end = (min(prow + 16, r_end) - 1) / group;
+          for (int gi = prow / group; gi <= g_end; ++gi) {
+            if (gi != cur) {
+              if (cur >= 0) fold(tmp, gbase + cur);
+              cur = gi;
+            }
+            const int k0 = max(gi * group - prow, 0);
+            const int k1 = min((gi + 1) * group - prow, 16);
+            if (k0 == 0 && k1 == 16) {
+              mma_into(tmp);
+              continue;
+            }
+            // mask: this thread's A values sit at slice k 2t, 2t+1 (regs
+            // 0, 1) and 2t+8, 2t+9 (regs 2, 3)
+            uint32_t keep[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int ka = 2 * t + 8 * h;
+              keep[h] = (ka >= k0 && ka < k1 ? 0x0000FFFFu : 0u) |
+                        (ka + 1 >= k0 && ka + 1 < k1 ? 0xFFFF0000u : 0u);
+            }
+            uint32_t am[kParts][2][4];
+#pragma unroll
+            for (int part = 0; part < kParts; ++part)
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  am[part][mi][e] = a[part][mi][e] & keep[e >> 1];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              if (m0 + wm * 32 + mi * 16 >= M) continue;   // warp-uniform
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+                for (int part = 0; part < kParts; ++part)
+                  mma_bf16(tmp[mi][ni], am[part][mi], b[ni]);
+            }
+          }
+        };
+        if (kk < 32)
+          slice_groups(tlo, cur_lo, 0);
+        else
+          slice_groups(thi, cur_hi, Kw / group);
       } else {
         mma_into(acc);
       }

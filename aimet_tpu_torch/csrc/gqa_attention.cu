@@ -15,7 +15,9 @@
 //   3. the mask s <= pos, -1e30 elsewhere (masked rows contribute exactly 0
 //      after the softmax and are skipped);
 //   4. the softmax in f32 over the whole score row, which sits in shared
-//      memory (an online-rescaled softmax would round at other points);
+//      memory, or, for a cache too long for that, in a global workspace
+//      the wrapper passes (an online-rescaled softmax would round at other
+//      points);
 //   5. each prob divided by the row's sum and rounded to T;
 //   6. the context from the int8 V rows in f32, times v_scale; f32 out.
 // Steps 2-6 are K3's (decode_attention.cuh: attend), with the probs
@@ -41,8 +43,8 @@ __global__ void __launch_bounds__(kThreads)
 gqa_attention_kernel(const T* __restrict__ q, const int8_t* kc,
                      const int8_t* vc, const float* __restrict__ ks,
                      const float* __restrict__ vs, int pos,
-                     float* __restrict__ out, int S, int KH, int rep, int D,
-                     float sqrt_d) {
+                     float* __restrict__ out, float* scores, int S, int KH,
+                     int rep, int D, float sqrt_d) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / KH, j = blockIdx.x % KH;
   const size_t bj = (size_t)b * KH + j;
@@ -57,16 +59,17 @@ gqa_attention_kernel(const T* __restrict__ q, const int8_t* kc,
   const size_t head = (size_t)b * S * stride_s + (size_t)j * D;
   const bool masked = pos < 0;
   aimet::attend<kThreads, aimet::ProbsRounded<T>>(
-      smem, kc + head, vc + head, stride_s, S, masked ? S : min(pos + 1, S),
+      smem, scores ? scores + bj * rep * S : nullptr, kc + head, vc + head,
+      stride_s, S, masked ? S : min(pos + 1, S),
       masked, rep, D, vs[bj], out + bj * rep * D);
 }
 
 template <typename T>
 int run(const void* q, const void* kc, const void* vc, const void* ks,
-        const void* vs, int pos, void* out, int B, int S, int KH, int rep,
-        int D, float sqrt_d, cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * aimet::attention_smem_floats(rep, D, S, kWarps);
+        const void* vs, int pos, void* out, void* ws, int B, int S, int KH,
+        int rep, int D, float sqrt_d, cudaStream_t st) {
+  const size_t smem = sizeof(float) * aimet::attention_smem_floats(
+                                          rep, D, ws ? 0 : S, kWarps);
   auto kern = gqa_attention_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -76,29 +79,31 @@ int run(const void* q, const void* kc, const void* vc, const void* ks,
   kern<<<B * KH, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kc),
       static_cast<const int8_t*>(vc), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), pos, static_cast<float*>(out), S, KH,
-      rep, D, sqrt_d);
+      static_cast<const float*>(vs), pos, static_cast<float*>(out),
+      static_cast<float*>(ws), S, KH, rep, D, sqrt_d);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Shapes: q (B, KH, rep, D) f32 or bf16; caches (B, S, KH, D) int8; ks, vs
-// (B, KH) f32; out (B, KH, rep, D) f32. Requires rep <= 8, D % 4 == 0 and
+// (B, KH) f32; out (B, KH, rep, D) f32; ws null, or a (B, KH, rep, S) f32
+// workspace for the score rows. Requires rep <= 8, D % 4 == 0 and
 // D <= 128.
 extern "C" int aimet_gqa_attention(const void* q, const void* kc,
                                    const void* vc, const void* ks,
-                                   const void* vs, int pos, void* out, int B,
-                                   int S, int KH, int rep, int D, float sqrt_d,
-                                   int q_is_bf16, void* stream) {
+                                   const void* vs, int pos, void* out,
+                                   void* ws, int B, int S, int KH, int rep,
+                                   int D, float sqrt_d, int q_is_bf16,
+                                   void* stream) {
   if (B <= 0) return 0;
   if (KH <= 0 || rep <= 0 || rep > aimet::kAttnMaxRep || D % 4 != 0 ||
       D <= 0 || D > 128 || S <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_is_bf16)
-    return run<__nv_bfloat16>(q, kc, vc, ks, vs, pos, out, B, S, KH, rep, D,
-                              sqrt_d, st);
-  return run<float>(q, kc, vc, ks, vs, pos, out, B, S, KH, rep, D, sqrt_d,
-                    st);
+    return run<__nv_bfloat16>(q, kc, vc, ks, vs, pos, out, ws, B, S, KH, rep,
+                              D, sqrt_d, st);
+  return run<float>(q, kc, vc, ks, vs, pos, out, ws, B, S, KH, rep, D,
+                    sqrt_d, st);
 }

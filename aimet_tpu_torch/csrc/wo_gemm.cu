@@ -34,6 +34,26 @@
 // a (splits, M, N) f32 workspace and an epilogue kernel adds the slices
 // in split order: repeated calls give the same bits. A TMA + wgmma
 // pipeline is later work.
+//
+// KW4G takes any group dividing K/2. In the tile, a group of 16 or a
+// multiple covers whole 16-wide k slices; a smaller or straddling one
+// (8, 24) gets one MMA per group that meets a slice, with the x values of
+// the slice's other groups masked to 0 (a separate instantiation, so the
+// common groups keep their code). With a bf16 x of at most 64 rows it
+// takes a weight-streaming route instead (w4g_decode_kernel): the tile's
+// 64-row M block would load and multiply 48 masked rows at M = 16, and its
+// one 16-byte weight load a thread a step keeps ~4 KB a block in flight.
+// There a block owns 128 columns and a range of packed rows; cp.async
+// feeds a 4-stage shared-memory ring of 64 packed rows (8 KB) and of the
+// matching x columns of both planes; the M tile is 16, 32 or 64 rows, as
+// M needs. Each warp takes 32 columns of one nibble plane. It unpacks 4
+// packed bytes of a column quad from two rows in registers straight into
+// B fragments (a byte permute, then 0x4300 | nibble - 136 as bf16x2: the
+// MMA's column g of n8 block c is tile column 4g + c, so one 32-bit load
+// feeds 4 blocks), keeps one running group sum beside its accumulators
+// (the planes' groups differ, the warps' planes do not) and folds it with
+// the group's scales, read once a group into registers, when the group
+// changes. The planes meet through shared memory in a fixed order.
 #include <algorithm>
 
 #include "gemm_tiles.cuh"
@@ -47,7 +67,8 @@ using aimet::kTileThreads;
 // ws == nullptr: writes out = acc * sw (grouped: acc, already scaled);
 // else writes the block's partial sums into slice blockIdx.z of ws
 // (splits, M, N).
-template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
+template <bool kW4, bool kF32X, bool kGrouped, typename OutT,
+          bool kAnyGroup = false>
 __global__ void __launch_bounds__(kTileThreads)
 wo_gemm_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ sw, OutT* __restrict__ out,
@@ -59,8 +80,8 @@ wo_gemm_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
   const int r_begin = blockIdx.z * split_rows;
   const int r_end = min(Kw, r_begin + split_rows);
   float acc[2][4][4] = {};
-  aimet::bf_tile<kW4, kF32X, kGrouped>(x, w, M, N, K, m0, n0, r_begin, r_end,
-                                        sm, acc, sw, group);
+  aimet::bf_tile<kW4, kF32X, kGrouped, kAnyGroup>(
+      x, w, M, N, K, m0, n0, r_begin, r_end, sm, acc, sw, group);
   float* slice = ws == nullptr ? nullptr : ws + (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -96,6 +117,354 @@ __global__ void wo_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// ------------------------------------------------------ KW4G at decode M
+// The weight-streaming route of KW4G for bf16 x at M <= 64 (see the note
+// at the top). A block owns 128 columns and a range of packed rows; 8
+// warps: warp w takes the 32 columns cq = w & 3 and the lo (w < 4) or hi
+// nibble plane, so each warp keeps one running group sum beside its
+// accumulators.
+constexpr int kDecN = 128;               // columns a block
+constexpr int kDecR = 64;                // packed rows a stage
+constexpr int kDecStages = 4;            // cp.async ring
+constexpr int kDecThreads = 256;
+// shared row strides: 144 bytes of weights (the 4 rows a fragment load
+// touches land in distinct banks), 272 bytes of x (the 8 rows likewise)
+constexpr int kDecLdw = kDecN + 16;
+constexpr int kDecLdx = 2 * kDecR + 8;   // bf16
+
+template <int MT>                        // m16 row blocks: M <= 16 MT
+struct DecStage {
+  int8_t w[kDecR][kDecLdw];              // packed rows [s0, s0 + R)
+  uint16_t x[16 * MT][kDecLdx];          // x[m, s0..] | x[m, K/2 + s0..]
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// bf16x2 of two nibbles, one in bits 0-3 and one in bits 16-19 of v: the
+// value n - 8 (lo: (p & 15) - 8), or with kSigned the two's-complement
+// nibble (hi: p >> 4), exact: 0x4300 | n is the bf16 128 + n.
+template <bool kSigned>
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v) {
+  uint32_t r = (v & 0x000F000Fu) | 0x43004300u;
+  if (kSigned) r ^= 0x00080008u;
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&r);
+  h = __hsub2(h, __floats2bfloat162_rn(136.0f, 136.0f));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// out = sum_g gs[g, n] * (sum_{k in g} x[m, k] W[k, n]) over packed rows
+// [blockIdx.y * split_rows, ...) for columns [blockIdx.x * 128, ...);
+// ws == nullptr: written to out, else to slice blockIdx.y of ws.
+template <int MT, typename OutT, bool kAnyGroup>
+__global__ void __launch_bounds__(kDecThreads, MT <= 2 ? 2 : 1)
+w4g_decode_kernel(const uint16_t* __restrict__ x,
+                  const int8_t* __restrict__ w, const float* __restrict__ gs,
+                  OutT* __restrict__ out, float* __restrict__ ws, int M,
+                  int N, int K, int group, int split_rows) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  auto* stages = reinterpret_cast<DecStage<MT>*>(dsmem);
+  const int K2 = K / 2;
+  const int n0 = blockIdx.x * kDecN;
+  const int r_begin = blockIdx.y * split_rows;
+  const int r_end = min(K2, r_begin + split_rows);
+  const int nst = (r_end - r_begin + kDecR - 1) / kDecR;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int cq = warp & 3, half = warp >> 2;
+
+  auto load_stage = [&](int st) {
+    DecStage<MT>& sm = stages[st % kDecStages];
+    const int s0 = r_begin + st * kDecR;
+    // weights: 64 rows x 8 chunks of 16 bytes; rows past r_end are zeros
+#pragma unroll
+    for (int i = 0; i < kDecR * 8 / kDecThreads; ++i) {
+      const int c = tid + i * kDecThreads, row = c >> 3, col = (c & 7) * 16;
+      const int p = s0 + row;
+      const bool ok = p < r_end && n0 + col < N;
+      cp_async16(&sm.w[row][col],
+                 w + (size_t)(ok ? p : r_begin) * N + (ok ? n0 + col : 0),
+                 ok ? 16 : 0);
+    }
+    // x: 16 MT rows x (8 lo + 8 hi chunks of 8 values); values past r_end
+    // and rows past M are zeros, so zero-filled weights add nothing
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int c = tid + i * kDecThreads, m = c >> 4, h = (c >> 3) & 1;
+      const int e = (c & 7) * 8;
+      const int valid = m < M ? max(0, min(8, r_end - (s0 + e))) : 0;
+      const size_t off = (size_t)(valid ? m : 0) * K + (size_t)h * K2 +
+                         (valid ? s0 + e : 0);
+      cp_async16(&sm.x[m][h * kDecR + e], x + off, 2 * valid);
+    }
+  };
+
+  float acc[MT][4][4], tmp[MT][4][4];
+#pragma unroll
+  for (int mb = 0; mb < MT; ++mb)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mb][c][e] = tmp[mb][c][e] = 0.0f;
+  // this thread's 8 columns, n0 + cq * 32 + 8t + [0, 8): accumulator
+  // (c, e) holds column 8t + 4 (e & 1) + c (the B fragment's column g of
+  // n8 block c is tile column 4g + c, so one 32-bit load feeds 4 blocks)
+  const int ncol = n0 + cq * 32 + 8 * t;
+  const bool col_ok = ncol < N;
+  float4 sc[2];                     // the current group's scales
+  int cur = -1;
+  const int kbase = half * K2;      // k of packed row 0 in this plane
+  auto set_group = [&](int gi) {
+    const float* sp = gs + (size_t)gi * N + ncol;
+    sc[0] = col_ok ? __ldg(reinterpret_cast<const float4*>(sp))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    sc[1] = col_ok ? __ldg(reinterpret_cast<const float4*>(sp + 4))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    cur = gi;
+  };
+  auto fold = [&]() {
+    const float s8[8] = {sc[0].x, sc[0].y, sc[0].z, sc[0].w,
+                         sc[1].x, sc[1].y, sc[1].z, sc[1].w};
+#pragma unroll
+    for (int mb = 0; mb < MT; ++mb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mb][c][e] = fmaf(tmp[mb][c][e], s8[4 * (e & 1) + c],
+                               acc[mb][c][e]);
+          tmp[mb][c][e] = 0.0f;
+        }
+  };
+
+#pragma unroll
+  for (int st = 0; st < kDecStages - 1; ++st) {
+    if (st < nst) load_stage(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();
+    if (st + kDecStages - 1 < nst) load_stage(st + kDecStages - 1);
+    cp_async_commit();
+    const DecStage<MT>& sm = stages[st % kDecStages];
+    const int s0 = r_begin + st * kDecR;
+    // B of slice j: rows 16j + 2t, +1, +8, +9 at columns cq * 32 + 4g ..
+    auto load_w = [&](int j, uint32_t (&wv)[4]) {
+      const int8_t* wr = &sm.w[16 * j + 2 * t][cq * 32 + 4 * g];
+      wv[0] = aimet::ld_u32(wr);
+      wv[1] = aimet::ld_u32(wr + kDecLdw);
+      wv[2] = aimet::ld_u32(wr + 8 * kDecLdw);
+      wv[3] = aimet::ld_u32(wr + 9 * kDecLdw);
+    };
+    // the words' nibbles of this plane as the B fragments of 4 n8 blocks
+    auto unpack = [&](const uint32_t (&wv)[4], uint32_t (&b)[4][2]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t sel = c | (c << 4) | ((4 + c) << 8) | ((4 + c) << 12);
+        const uint32_t p01 = __byte_perm(wv[0], wv[1], sel);
+        const uint32_t p23 = __byte_perm(wv[2], wv[3], sel);
+        if (half) {
+          b[c][0] = nibbles_bf16x2<true>(p01 >> 4);
+          b[c][1] = nibbles_bf16x2<true>(p23 >> 4);
+        } else {
+          b[c][0] = nibbles_bf16x2<false>(p01);
+          b[c][1] = nibbles_bf16x2<false>(p23);
+        }
+      }
+    };
+    // A of slice j: x rows 16 mb + g (+8), columns 2t (+8) of this plane
+    auto load_x = [&](int j, uint32_t (&a)[MT][4]) {
+#pragma unroll
+      for (int mb = 0; mb < MT; ++mb) {
+        const uint16_t* xr =
+            &sm.x[16 * mb + g][half * kDecR + 16 * j + 2 * t];
+        a[mb][0] = aimet::ld_u32(xr);
+        a[mb][1] = aimet::ld_u32(xr + 8 * kDecLdx);
+        a[mb][2] = aimet::ld_u32(xr + 8);
+        a[mb][3] = aimet::ld_u32(xr + 8 * kDecLdx + 8);
+      }
+    };
+    const int s_end = min(s0 + kDecR, r_end);
+    if (!kAnyGroup && s_end == s0 + kDecR &&
+        (kbase + s0) / group == (kbase + s_end - 1) / group) {
+      // the whole stage in one group: its loads first, then the MMAs,
+      // with no branch between the slices
+      const int gi = (kbase + s0) / group;
+      if (gi != cur) {
+        if (cur >= 0) fold();
+        set_group(gi);
+      }
+      uint32_t wv[kDecR / 16][4];
+#pragma unroll
+      for (int j = 0; j < kDecR / 16; ++j) load_w(j, wv[j]);
+#pragma unroll
+      for (int j = 0; j < kDecR / 16; ++j) {
+        uint32_t a[MT][4], b[4][2];
+        load_x(j, a);
+        unpack(wv[j], b);
+#pragma unroll
+        for (int mb = 0; mb < MT; ++mb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            aimet::mma_bf16(tmp[mb][c], a[mb], b[c]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int j = 0; j < kDecR / 16; ++j) {
+      const int p0 = s0 + 16 * j;
+      if (p0 >= r_end) break;                       // block-uniform
+      uint32_t wv[4], b[4][2], a[MT][4];
+      load_w(j, wv);
+      unpack(wv, b);
+      load_x(j, a);
+      const int k_first = kbase + p0;
+      if constexpr (!kAnyGroup) {
+        // a group of 16 or a multiple covers the whole slice
+        const int gi = k_first / group;
+        if (gi != cur) {
+          if (cur >= 0) fold();
+          set_group(gi);
+        }
+#pragma unroll
+        for (int mb = 0; mb < MT; ++mb)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) aimet::mma_bf16(tmp[mb][c], a[mb], b[c]);
+        continue;
+      }
+      // any group: one MMA per group that meets the slice, the x values of
+      // the slice's other groups masked to 0
+      const int k_last = kbase + min(p0 + 16, r_end) - 1;
+      for (int gi = k_first / group; gi <= k_last / group; ++gi) {
+        if (gi != cur) {
+          if (cur >= 0) fold();
+          set_group(gi);
+        }
+        const int k0 = max(gi * group - k_first, 0);
+        const int k1 = min((gi + 1) * group - k_first, 16);
+        uint32_t keep[2] = {0xFFFFFFFFu, 0xFFFFFFFFu};
+        if (k0 > 0 || k1 < 16) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ka = 2 * t + 8 * h;
+            keep[h] = (ka >= k0 && ka < k1 ? 0x0000FFFFu : 0u) |
+                      (ka + 1 >= k0 && ka + 1 < k1 ? 0xFFFF0000u : 0u);
+          }
+        }
+#pragma unroll
+        for (int mb = 0; mb < MT; ++mb) {
+          const uint32_t am[4] = {a[mb][0] & keep[0], a[mb][1] & keep[0],
+                                  a[mb][2] & keep[1], a[mb][3] & keep[1]};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) aimet::mma_bf16(tmp[mb][c], am, b[c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (cur >= 0) fold();
+  // the hi plane's warps hand their sums to the lo plane's through shared
+  // memory (the ring is free): a fixed order of addition
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(dsmem);
+  constexpr int kVals = MT * 16;
+  if (half) {
+#pragma unroll
+    for (int mb = 0; mb < MT; ++mb)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[((cq * 32 + lane) * kVals) + mb * 16 + c * 4 + e] =
+              acc[mb][c][e];
+  }
+  __syncthreads();
+  if (half) return;
+  float* slice = ws == nullptr ? nullptr : ws + (size_t)blockIdx.y * M * N;
+#pragma unroll
+  for (int mb = 0; mb < MT; ++mb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 16 * mb + g + (e >= 2 ? 8 : 0);
+      const int n = ncol + 4 * (e & 1);
+      if (m >= M || !col_ok) continue;
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = acc[mb][c][e] +
+               red[((cq * 32 + lane) * kVals) + mb * 16 + c * 4 + e];
+      const size_t o = (size_t)m * N + n;
+      if (slice != nullptr) {
+        *reinterpret_cast<float4*>(slice + o) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) out[o + c] = aimet::from_f32<OutT>(v[c]);
+      }
+    }
+}
+
+template <int MT>
+constexpr size_t smem_of() {
+  return kDecStages * sizeof(DecStage<MT>);
+}
+
+template <typename OutT>
+int run_w4g_decode(const void* x, const void* w, const void* gs, void* out,
+                   void* ws, int M, int N, int K, int group, int splits,
+                   cudaStream_t s) {
+  const int K2 = K / 2;
+  const int steps = (K2 + kDecR - 1) / kDecR;
+  const int per_split = (steps + splits - 1) / splits;
+  const int nsplit = (steps + per_split - 1) / per_split;
+  const bool split = nsplit > 1;
+  const int mt = M <= 16 ? 1 : M <= 32 ? 2 : 4;
+  dim3 grid((N + kDecN - 1) / kDecN, nsplit);
+  auto launch = [&](auto kern, size_t smem) -> cudaError_t {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kDecThreads, smem, s>>>(
+        static_cast<const uint16_t*>(x), static_cast<const int8_t*>(w),
+        static_cast<const float*>(gs), static_cast<OutT*>(out),
+        split ? static_cast<float*>(ws) : nullptr, M, N, K, group,
+        per_split * kDecR);
+    return cudaGetLastError();
+  };
+  const bool any = group % 16 != 0;
+  cudaError_t e;
+  if (mt == 1)
+    e = any ? launch(w4g_decode_kernel<1, OutT, true>, smem_of<1>())
+            : launch(w4g_decode_kernel<1, OutT, false>, smem_of<1>());
+  else if (mt == 2)
+    e = any ? launch(w4g_decode_kernel<2, OutT, true>, smem_of<2>())
+            : launch(w4g_decode_kernel<2, OutT, false>, smem_of<2>());
+  else
+    e = any ? launch(w4g_decode_kernel<4, OutT, true>, smem_of<4>())
+            : launch(w4g_decode_kernel<4, OutT, false>, smem_of<4>());
+  if (e != cudaSuccess || !split) return static_cast<int>(e);
+  const size_t total = (size_t)M * N;
+  const int blocks =
+      (int)std::min<size_t>((total + 255) / 256, (size_t)4 * 132 * 8);
+  wo_reduce_kernel<OutT><<<blocks, 256, 0, s>>>(
+      static_cast<const float*>(ws), nullptr, static_cast<OutT*>(out), M, N,
+      nsplit);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
 int run(const void* x, const void* w, const void* sw, void* out, void* ws,
         int M, int N, int K, int group, int splits, cudaStream_t s) {
@@ -110,7 +479,10 @@ int run(const void* x, const void* w, const void* sw, void* out, void* ws,
   const int nsplit = (steps + per_split - 1) / per_split;
   const bool split = nsplit > 1;
   dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM, nsplit);
-  wo_gemm_kernel<kW4, kF32X, kGrouped, OutT><<<grid, kTileThreads, 0, s>>>(
+  auto kern = wo_gemm_kernel<kW4, kF32X, kGrouped, OutT>;
+  if constexpr (kGrouped)                // groups not a multiple of 16
+    if (group % 16) kern = wo_gemm_kernel<kW4, kF32X, true, OutT, true>;
+  kern<<<grid, kTileThreads, 0, s>>>(
       x, static_cast<const int8_t*>(w), static_cast<const float*>(sw),
       static_cast<OutT*>(out), split ? static_cast<float*>(ws) : nullptr, M,
       N, K, per_split * R, group);
@@ -134,7 +506,7 @@ int dispatch(const void* x, const void* w, const void* sw, void* out,
              int x_is_f32, int out_is_bf16, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return 0;
   if (splits <= 0 || (kW4 && K % 2 != 0) ||
-      (kGrouped && (group <= 0 || group % 16 != 0 || (K / 2) % group != 0)))
+      (kGrouped && (group <= 0 || (K / 2) % group != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_f32) {
@@ -173,11 +545,24 @@ extern "C" int aimet_w8_gemm(const void* x, const void* w, const void* sw,
 }
 
 // As aimet_w4_gemm with group scales gs (K/group, N) f32 in place of sw;
-// group a multiple of 16 dividing K/2.
+// any group dividing K/2. decode = 1 takes the weight-streaming route:
+// bf16 x, M <= 64, K and N multiples of 16, x and w 16-byte aligned; ws
+// then (splits, M, N) for splits of 64-row steps of K/2.
 extern "C" int aimet_w4g_gemm(const void* x, const void* w, const void* gs,
                               void* out, void* ws, int M, int N, int K,
                               int group, int splits, int x_is_f32,
-                              int out_is_bf16, void* stream) {
-  return dispatch<true, true>(x, w, gs, out, ws, M, N, K, group, splits,
-                              x_is_f32, out_is_bf16, stream);
+                              int out_is_bf16, int decode, void* stream) {
+  if (!decode)
+    return dispatch<true, true>(x, w, gs, out, ws, M, N, K, group, splits,
+                                x_is_f32, out_is_bf16, stream);
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (x_is_f32 || M > 64 || K % 16 || N % 16 || splits <= 0 ||
+      group <= 0 || (K / 2) % group != 0 || !aimet::aligned16(x) ||
+      !aimet::aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_is_bf16)
+    return run_w4g_decode<__nv_bfloat16>(x, w, gs, out, ws, M, N, K, group,
+                                         splits, s);
+  return run_w4g_decode<float>(x, w, gs, out, ws, M, N, K, group, splits, s);
 }

@@ -11,8 +11,8 @@ f32 scores and softmax, probs rounded to q's dtype, f32 context times
 v_scale.
 
 Unlike the TPU kernel, none of its layout constraints apply; the card
-takes rep <= 8, D % 4 == 0, D <= 128 and score rows that fit in shared
-memory, and raises otherwise.
+takes rep <= 8, D % 4 == 0, D <= 128 and any cache length (score rows too
+long for shared memory go to a global workspace), and raises otherwise.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from .. import _build
 from .._device import on_cuda
 from ._common import div_ieee
 from .decode_attention_fused import (attention_kernel_shape_ok,
-                                     scalar_position)
+                                     scalar_position, score_workspace)
 
 _WARPS = 16
 
@@ -81,7 +81,7 @@ def fused_gqa_decode_attention(q, kc, vc, k_scale, v_scale, pos):
                                                 pos)
     B, KH, rep, D = q.shape
     S = kc.shape[1]
-    attention_kernel_shape_ok(KH * rep, KH, D, S, _WARPS)
+    attention_kernel_shape_ok(KH * rep, KH, D)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for t in (kc, vc):
@@ -91,11 +91,12 @@ def fused_gqa_decode_attention(q, kc, vc, k_scale, v_scale, pos):
     ks = k_scale.to(torch.float32).contiguous()
     vs = v_scale.to(torch.float32).contiguous()
     out = torch.empty((B, KH, rep, D), dtype=torch.float32, device=q.device)
+    ws = score_workspace(B, KH, rep, D, S, _WARPS, q.device)
     fused_gqa_decode_attention.launches += 1
     _build.launch(
         "aimet_gqa_attention", q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        ks.data_ptr(), vs.data_ptr(), min(pos, S), out.data_ptr(), B, S, KH,
-        rep, D,
+        ks.data_ptr(), vs.data_ptr(), min(pos, S), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), B, S, KH, rep, D,
         float(np.float32(np.sqrt(D))), int(q.dtype == torch.bfloat16),
         _build.stream_ptr(q.device))
     return out

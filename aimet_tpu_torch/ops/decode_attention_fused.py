@@ -51,20 +51,33 @@ def scalar_position(cache_index):
     return t.reshape(()) if t.is_cuda else int(t)
 
 
-def attention_kernel_shape_ok(H: int, KH: int, D: int, S: int,
-                              warps: int) -> None:
+def attention_kernel_shape_ok(H: int, KH: int, D: int) -> None:
     """Raise unless the attention device code (``csrc/decode_attention.cuh``)
-    takes these heads and this cache length in a block of ``warps`` warps:
-    rep = H / KH <= 8, D % 4 == 0, D <= 128, and its scratch (query rows,
-    one score row per query head, the warps' partial contexts) within the
-    block's shared memory."""
+    takes these heads: rep = H / KH <= 8, D % 4 == 0, D <= 128. It takes
+    every cache length (see :func:`score_workspace`)."""
     rep = H // KH
-    smem = 4 * (rep * D + -(-rep * S // 4) * 4 + warps * rep * D)
-    if rep > _MAX_REP or D % 4 or D > _MAX_D or smem > _SMEM_LIMIT:
+    if rep > _MAX_REP or D % 4 or D > _MAX_D:
         raise ValueError(f"decode attention kernel takes rep <= {_MAX_REP}, "
-                         f"D % 4 == 0, D <= {_MAX_D} and at most "
-                         f"{_SMEM_LIMIT} bytes of shared memory (needs "
-                         f"{smem})")
+                         f"D % 4 == 0 and D <= {_MAX_D}; got rep {rep}, "
+                         f"D {D}")
+
+
+def scores_fit(rep: int, D: int, S: int, warps: int) -> bool:
+    """Whether the attention scratch of a block of ``warps`` warps (query
+    rows, one f32 score row of S per query head, the warps' partial
+    contexts) fits in the block's shared memory."""
+    smem = 4 * (rep * D + -(-rep * S // 4) * 4 + warps * rep * D)
+    return smem <= _SMEM_LIMIT
+
+
+def score_workspace(B: int, KH: int, rep: int, D: int, S: int, warps: int,
+                    device):
+    """None while the score rows fit in shared memory; else a
+    (B, KH, rep, S) f32 workspace for them (same arithmetic, so the same
+    bits as in shared memory)."""
+    if scores_fit(rep, D, S, warps):
+        return None
+    return torch.empty((B, KH, rep, S), dtype=torch.float32, device=device)
 
 
 def fused_decode_attention_torch(qkv, cos, sin, k_cache, v_cache, k_scale,
@@ -125,7 +138,7 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
         return fused_decode_attention_torch(
             qkv, cos, sin, k_cache, v_cache, k_scale, v_scale, cache_index,
             n_heads=n_heads, n_kv_heads=n_kv_heads)
-    attention_kernel_shape_ok(H, KH, D, S, _WARPS)
+    attention_kernel_shape_ok(H, KH, D)
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
     for t in (k_cache, v_cache):
@@ -140,12 +153,14 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     iks, ivs = reciprocal(ks), reciprocal(vs)
     pos = positions(cache_index, B, qkv.device)
     out = torch.empty((B, H * D), dtype=qkv.dtype, device=qkv.device)
+    ws = score_workspace(B, KH, H // KH, D, S, _WARPS, qkv.device)
     fused_decode_attention.launches += 1
     _build.launch(
         "aimet_decode_attention", qkv.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), iks.data_ptr(), ivs.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, S, H, KH, D,
+        pos.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        B, S, H, KH, D,
         float(np.float32(np.sqrt(D))), int(qkv.dtype == torch.bfloat16),
         _build.stream_ptr(qkv.device))
     return out, k_cache, v_cache

@@ -35,7 +35,7 @@ from .. import _build
 from .._device import on_cuda
 from .decode_attention_fused import (attention_kernel_shape_ok,
                                      fused_decode_attention_torch, positions,
-                                     scalar_position)
+                                     scalar_position, score_workspace)
 from .int_matmul import (_used_splits, matmul_w4_torch, matmul_w4a8_torch)
 from .kv_cache import reciprocal
 
@@ -44,7 +44,7 @@ _TILE_N = 128
 _PTRS = ("attn_out", "resid", "mlp_gamma", "attn_gamma", "out", "qkv_next",
          "wo", "so", "wg", "sg", "wu", "su", "wd", "sd", "wq", "sq", "ao",
          "y", "xbuf", "xq", "sx", "part", "qkv", "cosb", "sinb", "kc", "vc",
-         "ks", "vs", "iks", "ivs", "pos")
+         "ks", "vs", "iks", "ivs", "pos", "scores")
 _INTS = ("M", "A", "D", "F", "Nq", "ld_gu", "split_a", "split_b", "split_c",
          "split_d", "S", "H", "KH", "HD")
 
@@ -332,7 +332,7 @@ def launch_attention_layer(qkv, resid, k_cache, v_cache, k_scale, v_scale,
     KDL; the caller counts): caches (B, S, KH, D) contiguous int8, updated
     in place. Returns (out, next qkv or None)."""
     B, S, KH, D = k_cache.shape
-    attention_kernel_shape_ok(n_heads, KH, D, S, warps=8)
+    attention_kernel_shape_ok(n_heads, KH, D)
     for t in (k_cache, v_cache):
         if t.dtype != torch.int8 or not t.is_contiguous():
             raise ValueError("caches must be contiguous int8 (updated in "
@@ -345,6 +345,9 @@ def launch_attention_layer(qkv, resid, k_cache, v_cache, k_scale, v_scale,
                  sinb=rope(sin), kc=k_cache, vc=v_cache, ks=ks, vs=vs,
                  iks=reciprocal(ks), ivs=reciprocal(vs),
                  pos=positions(cache_index, B, qkv.device))
+    ws = score_workspace(B, KH, n_heads // KH, D, S, 8, qkv.device)
+    if ws is not None:                    # S too long for shared memory
+        extra["scores"] = ws
     return launch_layer(
         extra, resid, wo_pair, gate, up, down_pair, mlp_gamma, eps,
         next_qkv, A=n_heads * D, int8=int8,
@@ -405,7 +408,8 @@ def launch_layer(extra: dict, resid, wo_pair, gate, up, down_pair,
     lib = _build.library()
     smem = lib.aimet_fused_layer_smem(
         is_attn, int(int8), *((attn["H"] // attn["KH"], attn["HD"],
-                               attn["S"]) if attn else (1, 0, 0)))
+                               0 if "scores" in extra else attn["S"])
+                              if attn else (1, 0, 0)))
     grid = _grid(dev.index or 0, is_attn, int(int8), smem)
     step = 64 if int8 else 32   # packed rows a K step (gemm_tiles.cuh)
     splits = []

@@ -18,8 +18,9 @@ Two strategies, as in the JAX package:
    activation zero point, so the static-INT8 zero-point correction stays
    position independent). The JAX package leaves it to XLA's implicit
    GEMM; PyTorch has no int8 conv on CUDA, so here an ungrouped conv runs
-   as a fill-padded int8 im2col and KQ8's int32 entry
-   (``int8_matmul_int32``), and a grouped or depthwise one as an f64
+   as a fill-padded int8 im2col (rows padded to 16 bytes) and KQ8's int32
+   entry (``int8_matmul_int32``) on the OIHW weight as it lies, K-major
+   (its TMA + wgmma route), and a grouped or depthwise one as an f64
    ``F.conv2d`` on the integer-valued tensors with cuDNN off, rounded
    back (exact: every partial sum is an integer below 2^53 in magnitude,
    checked, which f64 carries). ``conv2d_int8_static`` and ``conv2d_w8a8_dynamic`` wrap it
@@ -100,6 +101,43 @@ def _patches(x: torch.Tensor, filter_shape, strides, padding: Padding,
         (B, Ho, Wo)
 
 
+def _int_patches(xq: torch.Tensor, filter_shape, strides, rhs_dilation):
+    """``_patches`` of an int8 NCHW tensor (VALID), written into rows of
+    a multiple of 16 bytes: ((M, K) view of the (M, ceil16(K)) buffer,
+    (B, Ho, Wo)). The TMA loads of KQ8's K-major route need 16-byte
+    aligned row strides, and ResNet-50's stem has K = 3 * 7 * 7 = 147; the
+    pad columns are never read (the route's K is the view's)."""
+    kh, kw = filter_shape
+    dh, dw = rhs_dilation or (1, 1)
+    sh, sw = strides
+    B, C = xq.shape[:2]
+    v = xq.unfold(2, (kh - 1) * dh + 1, sh).unfold(3, (kw - 1) * dw + 1, sw)
+    v = v[..., ::dh, ::dw]                       # (B, C, Ho, Wo, kh, kw)
+    Ho, Wo = v.shape[2:4]
+    K = C * kh * kw
+    buf = torch.empty((B * Ho * Wo, -(-K // 16) * 16), dtype=xq.dtype,
+                      device=xq.device)
+    p = buf[:, :K]
+    p.view(B, Ho, Wo, C, kh, kw).copy_(v.permute(0, 2, 3, 1, 4, 5))
+    return p, (B, Ho, Wo)
+
+
+def _weight_kmajor(wq: torch.Tensor) -> torch.Tensor:
+    """(co, ci, kh, kw) int8 -> the (ci*kh*kw, co) weight matrix as a
+    transposed view of the K-major (co, ci*kh*kw) reshape: no copy, unless
+    K is not a multiple of 16; then the rows are padded with zeros to one
+    (TMA's 16-byte aligned strides) and the view keeps K columns."""
+    co = wq.shape[0]
+    w2 = wq.reshape(co, -1)
+    K = w2.shape[1]
+    if K % 16:
+        pad = torch.zeros((co, -(-K // 16) * 16), dtype=wq.dtype,
+                          device=wq.device)
+        pad[:, :K] = w2
+        w2 = pad[:, :K]
+    return w2.t()
+
+
 def _im2col_conv(mm, x, w, w_scale, filter_shape, strides, padding,
                  rhs_dilation, out_dtype):
     p, (B, Ho, Wo) = _patches(x, filter_shape, strides, padding,
@@ -172,9 +210,8 @@ def conv_int_core(xq: torch.Tensor, wq: torch.Tensor, *, strides,
     xq = _dilate_and_pad(xq, padding, lhs_dilation, fill)
     co, cig, kh, kw = wq.shape
     if feature_group_count == 1:
-        p, (B, Ho, Wo) = _patches(xq, (kh, kw), strides, "VALID",
-                                  rhs_dilation)
-        acc = int8_matmul_int32(p, _weight_2d(wq).contiguous())
+        p, (B, Ho, Wo) = _int_patches(xq, (kh, kw), strides, rhs_dilation)
+        acc = int8_matmul_int32(p, _weight_kmajor(wq))
         return acc.reshape(B, Ho, Wo, co).permute(0, 3, 1, 2).contiguous()
     bound = cig * kh * kw * 128 * 128
     if bound >= 2 ** 53:

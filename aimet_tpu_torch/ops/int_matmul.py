@@ -41,6 +41,7 @@ from ._common import div_ieee, fma_f32
 
 _GEMM_DTYPES = (torch.float32, torch.bfloat16)
 _SMS = 132          # H100 SXM streaming multiprocessors
+MAX_DECODE_ROWS = 64
 _TILE_M, _TILE_N, _TILE_P = 64, 128, 64
 
 
@@ -307,16 +308,21 @@ def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
     x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
     w_scale = w_scale.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    steps = -(-K // _BF_STEP_K)
-    splits = _used_splits(steps, decode_splits(M, N, steps))
+    decode = group is not None and w4g_decode_route(M, N, K, x.dtype)
+    if decode:
+        splits = w4g_decode_splits(M, N, K)
+    else:
+        steps = -(-K // _BF_STEP_K)
+        splits = _used_splits(steps, decode_splits(M, N, steps))
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
           if splits > 1 else out)
     sizes = (M, N, K) if group is None else (M, N, K, group)
+    flags = () if group is None else (int(decode),)
     fn.launches += 1
     _build.launch(name, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
                   out.data_ptr(), ws.data_ptr(), *sizes, splits,
                   int(x.dtype == torch.float32),
-                  int(out_dtype == torch.bfloat16),
+                  int(out_dtype == torch.bfloat16), *flags,
                   _build.stream_ptr(x.device))
     return out
 
@@ -369,6 +375,29 @@ def matmul_w4_grouped_torch(x: torch.Tensor, w_packed: torch.Tensor,
     return acc.to(out_dtype or x.dtype)
 
 
+_W4G_DEC_N, _W4G_DEC_R = 128, 64   # columns a block, packed rows a step
+
+
+def w4g_decode_route(M: int, N: int, K: int, x_dtype) -> bool:
+    """Whether KW4G takes its weight-streaming route (decode M): a bf16 x
+    of at most 64 rows, K and N multiples of 16."""
+    return (x_dtype == torch.bfloat16 and M <= MAX_DECODE_ROWS
+            and K % 16 == 0 and N % 16 == 0)
+
+
+def w4g_decode_splits(M: int, N: int, K: int) -> int:
+    """The K splits of KW4G's weight-streaming route: as many as keep the
+    128-column tiles times splits within one wave of co-resident blocks
+    (2 an SM up to 32 rows, 1 above: their registers), each split at least
+    two 64-row steps of the packed weights (``chip_smoke.py``'s split
+    sweep, PERF.md §6)."""
+    steps = -(-(K // 2) // _W4G_DEC_R)
+    tiles = -(-N // _W4G_DEC_N)
+    per_sm = 2 if M <= 32 else 1
+    return _used_splits(steps, max(1, min(per_sm * _SMS // tiles,
+                                          steps // 2)))
+
+
 def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
                       scales: torch.Tensor, *, group_size: int = 128,
                       out_dtype: Optional[torch.dtype] = None
@@ -376,10 +405,11 @@ def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
     """Group-wise INT4: x (M, K) @ split-half INT4 weights (K//2, N) int8
     with one scale per (K-group, column), scales (K//group_size, N) f32
     (row g covers k in [g * group_size, (g + 1) * group_size)); K must be a
-    multiple of 2 * group_size. On CUDA tensors (x bf16 or f32, group_size a
-    multiple of 16) it launches kernel KW4G (``csrc/wo_gemm.cu``): bf16
-    MMAs with f32 sums, each group's sum scaled once; on CPU tensors it
-    takes :func:`matmul_w4_grouped_torch`."""
+    multiple of 2 * group_size. On CUDA tensors (x bf16 or f32, any group
+    size) it launches kernel KW4G (``csrc/wo_gemm.cu``): bf16 MMAs with f32
+    sums, each group's sum scaled once; a bf16 x of at most 64 rows takes
+    its weight-streaming route (:func:`w4g_decode_route`). On CPU tensors
+    it takes :func:`matmul_w4_grouped_torch`."""
     if x.dim() != 2 or w_packed.dim() != 2:
         raise ValueError("x must be (M, K) and w_packed (K//2, N)")
     M, K = x.shape
@@ -393,9 +423,6 @@ def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
     if not on_cuda(x, w_packed, scales):
         return matmul_w4_grouped_torch(x, w_packed, scales, group_size,
                                        out_dtype)
-    if group_size % 16:
-        raise ValueError(f"the KW4G kernel needs a group size that is a "
-                         f"multiple of 16, got {group_size}")
     return _launch_bf_gemm("aimet_w4g_gemm", matmul_w4_grouped, x, w_packed,
                            scales, out_dtype, K, N, group=group_size)
 
@@ -622,15 +649,55 @@ def matmul_q8(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
 matmul_q8.launches = 0
 
 
+_Q8_BM, _Q8_BK = 128, 128      # KQ8's K-major route: M tile, K step
+
+
+def _rows16(t: torch.Tensor) -> bool:
+    """A 2-D int8 tensor whose rows are unit-stride and 16-byte aligned."""
+    return (t.stride(1) == 1 and t.stride(0) % 16 == 0
+            and t.data_ptr() % 16 == 0)
+
+
+def q8_kmajor_splits(M: int, N: int, K: int) -> int:
+    """The K splits of KQ8's K-major route: none unless the 128 x BN output
+    tiles (BN 64 for N <= 64, else 128) fill under a quarter of the SMs (a
+    small-M call); then enough to fill them, each split at least four
+    128-wide K steps. Beyond that the zeroed output and the atomic adds
+    cost more than the idle SMs (``chip_smoke.py``'s split sweep, PERF.md
+    §6)."""
+    tiles = -(-M // _Q8_BM) * -(-N // (64 if N <= 64 else 128))
+    steps = -(-K // _Q8_BK)
+    if 4 * tiles > _SMS:
+        return 1
+    return _used_splits(steps, max(1, min(-(-_SMS // tiles), steps // 4)))
+
+
 def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """The exact int32 sums x_q (M, K) int8 @ w_q (K, N) int8. On CUDA
     tensors it launches KQ8's int32 entry (counted in
-    ``matmul_q8.launches``); on CPU tensors it takes
-    :func:`int8_matmul_int32_torch`."""
+    ``matmul_q8.launches``): the TMA + wgmma route when ``w_q`` is a
+    transposed view of a K-major (N, K) weight (strides (1, ldb)) and both
+    operands' rows are 16-byte aligned (no copy is made), else the
+    ``mma.sync`` tile on a contiguous N-major weight. On CPU tensors it
+    takes :func:`int8_matmul_int32_torch`."""
     _check_q8(x_q, w_q, None)
     if not on_cuda(x_q, w_q):
         return int8_matmul_int32_torch(x_q, w_q)
-    return _launch_q8(x_q, None, w_q, None, None, torch.int32)
+    for t in (x_q, w_q):
+        if t.dtype != torch.int8:
+            raise TypeError(f"expected int8 operands, got {t.dtype}")
+    wt = w_q.t()                                   # (N, K)
+    if not (_rows16(x_q) and _rows16(wt)):
+        return _launch_q8(x_q, None, w_q, None, None, torch.int32)
+    (M, K), N = x_q.shape, w_q.shape[1]
+    splits = q8_kmajor_splits(M, N, K)
+    out = (torch.zeros if splits > 1 else torch.empty)(
+        (M, N), dtype=torch.int32, device=x_q.device)
+    matmul_q8.launches += 1
+    _build.launch("aimet_q8_int32_kmajor", x_q.data_ptr(), x_q.stride(0),
+                  wt.data_ptr(), wt.stride(0), out.data_ptr(), M, N, K,
+                  splits, _build.stream_ptr(x_q.device))
+    return out
 
 
 def matmul_w8a8_fusedq(x: torch.Tensor, w_q: torch.Tensor,

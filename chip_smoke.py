@@ -154,6 +154,9 @@ CNN_MODES = {
     "w4a8": ("w4a8", 4, lambda c: {"q8_gemm": c, "act_quant": 1,
                                    "w4a8_gemm": 1}),
 }
+# KW4G's timed rows: (tag, M) at 4096 x 14336, group 128
+W4G_ROWS = (("prefill", 4096), ("decode", 16), ("decode M=32", 32),
+            ("decode M=64", 64))
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
     "w4": ("w4_gemm", "sol_decode_layer", "decode_attention",
@@ -163,6 +166,8 @@ PATH_KERNELS = {
     "w8": ("w8_gemm", "decode_attention"),
     "decode_step": ("w4_gemm", "fused_decode_layer"),
     "gqa": ("gqa_decode_attention",),
+    "long_cache": ("sol_decode_layer", "decode_attention", "fused_wo_mlp",
+                   "fused_decode_layer", "gqa_decode_attention"),
 }
 # the lowered models: mode -> (lower_to_int mode, param bitwidth, the
 # launches of one forward by kernel, n = linears a forward)
@@ -180,49 +185,86 @@ def log(*a):
     print(*a, flush=True)
 
 
+@contextlib.contextmanager
+def profiled():
+    """torch.profiler over the CPU and CUDA, opened with two short spinning
+    kernels: in this long process the profiler drops the first kernel
+    record of each session (one of 2 x 20 timed kernels, every session, in
+    a run of this script's phases), so the record it drops is a spin's,
+    which ``_kernel_events`` leaves out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda._sleep(1000)
+        yield prof
+
+
 def _kernel_events(prof, match=None):
-    """CUDA kernel events of a profile, optionally those whose name
-    contains one of the strings in ``match``."""
+    """CUDA kernel events of a profile but ``profiled``'s spins, optionally
+    those whose name contains one of the strings in ``match``."""
     import torch
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and "spin_kernel" not in e.name
             and (match is None or any(m in e.name for m in match))]
 
 
 def timed(fn, iters, match=None, warmup=3):
     """Run fn(i) ``iters`` times under torch.profiler. Returns (device ms
     per call of the CUDA kernels named by ``match``, or of all kernels when
-    ``match`` is None; host-clock ms per call, synchronised). If the
-    profiler records no such kernel twice, the device time comes from CUDA
-    events around the calls (all of their kernels) and is said so."""
+    ``match`` is None; host-clock ms per call, synchronised). Profiles of
+    single calls count a call's kernels (the most seen in three); a
+    profile of the ``iters`` calls that holds another number than
+    ``iters`` times that lost events (the profiler does, in a long
+    process) and is taken again. If three profiles do, the device time is
+    the median of CUDA events around each call, the calls queued behind a
+    spinning kernel (so the host's gaps between the calls do not count;
+    all of a call's kernels do), and is said so."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    per_call = 0                     # the most seen in three calls
+    for _ in range(3):
+        with profiled() as prof:
+            fn(0)
+            torch.cuda.synchronize()
+        per_call = max(per_call, len(_kernel_events(prof, match)))
+    wall = 0.0
+    for _ in range(3 if per_call else 0):
+        with profiled() as prof:
             t0 = time.perf_counter()
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         ev = _kernel_events(prof, match)
-        if ev:
+        if len(ev) == per_call * iters:
             dev_us = sum(e.time_range.elapsed_us() for e in ev)
             return dev_us / 1e3 / iters, wall * 1e3 / iters
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    start.record()
-    for i in range(iters):
+    if not wall:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(iters)]
+    # the card spins for twice the calls' host time (at 2 GHz, at most
+    # 0.2 s: longer calls leave gaps too small to count) while the host
+    # queues them, each between its own pair of events
+    torch.cuda._sleep(int(min(2 * wall, 0.2) * 2e9))
+    for i, (a, b) in enumerate(marks):
+        a.record()
         fn(i)
-    end.record()
+        b.record()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log(f"  (the profiler recorded no CUDA kernel matching {match}: timed "
-        "with CUDA events)")
-    return start.elapsed_time(end) / iters, wall * 1e3 / iters
+    log(f"  (the profiler lost CUDA kernels matching {match} three times: "
+        "timed with CUDA events around each call, the median)")
+    per = sorted(a.elapsed_time(b) for a, b in marks)
+    return per[len(per) // 2], wall * 1e3 / iters
 
 
 def bound_ms(nbytes, *ops_at_peak):
@@ -695,9 +737,27 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                 worst = max(worst, err)
                 assert err < TOL_WO, ("KW4G", m, k, n, x_dtype, err)
                 del x, w, packed, got, want
+    for m, k, grp in ((32, 4096, 128), (64, 4096, 128), (16, 4608, 8),
+                      (16, 4608, 24), (16, 4608, 64)):
+        n = 14336
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, n), generator=g, device=dev) * 0.02
+        packed, sc = tim.quantize_weight_int4_grouped(w, grp)
+        got = tim.matmul_w4_grouped(x, packed, sc, group_size=grp)
+        want = tim.matmul_w4_grouped_torch(x, packed, sc, grp)
+        note("w4_grouped_gemm", got, want)
+        err = rel_err(got, want)
+        worst = max(worst, err)
+        assert err < TOL_WO, ("KW4G", m, k, n, grp, err)
+        assert torch.equal(tim.matmul_w4_grouped(x, packed, sc,
+                                                 group_size=grp), got), \
+            ("KW4G repeat", m, grp)
+        del x, w, packed, got, want
     log(f"KW4G w4_grouped_gemm: within {worst:.2e} of max (< {TOL_WO}) at M "
         f"in {{4096, 16}} x (K, N) in {lin_kn}, group 128 (bf16 x; f32 x "
-        "too at N=14336)")
+        "too at N=14336); at M 32 and 64 (group 128) and M 16 with groups "
+        "8, 24 and 64 (K 4608, N 14336), repeated calls giving the same "
+        "bits")
 
     wo = {"w4_gemm": (True, tim.matmul_w4, tim.matmul_w4_torch),
           "w8_gemm": (False, tim.matmul_w8, tim.matmul_w8_torch)}
@@ -742,7 +802,7 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
             rows[label]["int_mm_ms"] = ims
             del xq
         del x, w
-    for tag, m in (("prefill", 4096), ("decode", 16)):
+    for tag, m in W4G_ROWS:
         k, n = 4096, 14336
         x = randn(m, k)
         ws = [tim.quantize_weight_int4_grouped(
@@ -752,7 +812,7 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                  lambda i: tim.matmul_w4_grouped(x, *ws[i % 3],
                                                  group_size=128),
                  lambda i: tim.matmul_w4_grouped_torch(x, *ws[i % 3], 128),
-                 ["wo_gemm_kernel", "wo_reduce_kernel"],
+                 ["wo_gemm_kernel", "wo_reduce_kernel", "w4g_decode_kernel"],
                  m * k * 2 + k // 2 * n, BF16_FLOPS,
                  vec_bytes=(k // 128) * n * 4)
         del x, ws
@@ -893,16 +953,74 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
              ["act_quant_kernel", "q8_"], M * K * 4 + wq.numel(), INT8_OPS,
              out_bytes=M * wq.shape[1] * 4)
     int_mm("w8a8_fusedq[conv 3x3]", pq, wq)
-    # the int32 entry at the conv's patch matrix: torch._int_mm computes
-    # the same function, so it is this row's library call
-    gemm_row("q8_gemm[int32, conv 3x3]", "q8_gemm", pq.shape[0], pq.shape[1],
-             wq.shape[1], lambda i: tim.int8_matmul_int32(pq, wq),
-             lambda i: tim.int8_matmul_int32_torch(pq, wq), ["q8_"],
+    # the int32 entry at the conv's patch matrix, with the weight K-major
+    # as the integer conv passes it (the TMA + wgmma route); torch._int_mm
+    # computes the same function, so it is this row's library call; the
+    # N-major weight's route (the mma.sync tile) beside it
+    wk = wq.t().contiguous().t()     # (K, N), K-major
+    label = "q8_gemm[int32, conv 3x3]"
+    gemm_row(label, "q8_gemm", pq.shape[0], pq.shape[1], wq.shape[1],
+             lambda i: tim.int8_matmul_int32(pq, wk),
+             lambda i: tim.int8_matmul_int32_torch(pq, wk), ["q8_"],
              pq.numel() + wq.numel(), INT8_OPS,
              out_bytes=pq.shape[0] * wq.shape[1] * 4, vec_bytes=0)
-    rows["q8_gemm[int32, conv 3x3]"]["library_ms"], _ = timed(
-        lambda i: torch._int_mm(pq, wq), 10)
+    rows[label]["library_ms"], _ = timed(lambda i: torch._int_mm(pq, wq), 10)
+    wn = wq.contiguous()             # the quantizer's codes are K-major
+    rows[label]["nmajor_ms"], _ = timed(
+        lambda i: tim.int8_matmul_int32(pq, wn), 20, ["q8_", "FillFunctor"])
+    # the same call on the first 128 k of each patch row: one K step, so
+    # its 12.8 MB of int32 stores, not the patch reads, set its time
+    pk, wk1 = pq[:, :128], wk[:128]
+    rows[label]["k128_ms"], _ = timed(
+        lambda i: tim.int8_matmul_int32(pk, wk1), 20, ["q8_"])
     del p, pq, got, want
+
+
+def int32_conv_sweep(torch, tim, shapes):
+    """KQ8's int32 entry at every distinct conv shape (M, K, N) of a lowered
+    ResNet-50 forward, ``shapes`` -> launches in that forward: the
+    operands laid out as the integer conv lays them (patch rows padded to
+    16 bytes, the weight K-major), bit-exact against the plain version, and
+    timed beside ``torch._int_mm`` (on the same sums: K padded with zeros
+    to its multiple of 8) and the plain version. Returns the rows and the
+    forward's summed kernel and library ms (launches x ms)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out, tot_k, tot_l = [], 0.0, 0.0
+    for (m, k, n), count in sorted(shapes.items()):
+        kp = -(-k // 16) * 16
+        xb = torch.randint(-128, 128, (m, kp), dtype=torch.int8,
+                           generator=g, device="cuda")
+        xb[:, k:] = 0
+        wb = torch.zeros((n, kp), dtype=torch.int8, device="cuda")
+        wb[:, :k] = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                                  generator=g, device="cuda")
+        x, w = xb[:, :k], wb[:, :k].t()
+        got = tim.int8_matmul_int32(x, w)
+        assert torch.equal(got, tim.int8_matmul_int32_torch(x, w)), \
+            ("KQ8 int32 conv shape", m, k, n)
+        ms, _ = timed(lambda i: tim.int8_matmul_int32(x, w), 20,
+                      ["q8_", "FillFunctor"])
+        k8 = -(-k // 8) * 8
+        lib, _ = timed(lambda i: torch._int_mm(xb[:, :k8], wb[:, :k8].t()),
+                       10)
+        pms, _ = timed(lambda i: tim.int8_matmul_int32_torch(x, w), 2,
+                       warmup=1)
+        b, how = bound_ms(m * k + k * n + m * n * 4, (2 * m * n * k,
+                                                       INT8_OPS))
+        tot_k += count * ms
+        tot_l += count * lib
+        out.append(dict(shape=[m, k, n], launches=count, ms=ms,
+                        library_ms=lib, plain_ms=pms, bound_ms=b,
+                        bound_by=how))
+        log(f"  int32 conv {m} x {k} x {n}: {count} launches a forward; "
+            f"kernel {ms:.5f} ms, torch._int_mm {lib:.5f}, plain {pms:.4f}, "
+            f"bound {b:.5f} ({how}); bit-exact")
+        del xb, wb, x, w, got
+    log(f"[cnn w8a8] KQ8's int32 entry over the forward's "
+        f"{sum(shapes.values())} convs ({len(shapes)} shapes): kernel "
+        f"{tot_k:.4f} ms against torch._int_mm's {tot_l:.4f} ms (launches x "
+        "ms)")
+    return out, tot_k, tot_l
 
 
 def library_probes(torch, tim, g, rows):
@@ -928,7 +1046,7 @@ def library_probes(torch, tim, g, rows):
         except Exception as e:          # recorded: the row's library note
             row["library_note"] = f"torch._weight_int8pack_mm: {e}"[:200]
         del x, w
-    for tag, m in (("decode", 16), ("prefill", 4096)):
+    for tag, m in W4G_ROWS:
         k, n, grp = 4096, 14336, 128
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         packed, sc = tim.quantize_weight_int4_grouped(
@@ -950,13 +1068,71 @@ def library_probes(torch, tim, g, rows):
         except Exception as e:
             row["library_note"] = f"torch._weight_int4pack_mm: {e}"[:200]
         del x, packed
-    for label in ("w8_gemm[decode]", "w8_gemm[prefill]",
-                  "w4_grouped_gemm[decode]", "w4_grouped_gemm[prefill]"):
+    for label in ["w8_gemm[decode]", "w8_gemm[prefill]"] + [
+            f"w4_grouped_gemm[{tag}]" for tag, _ in W4G_ROWS]:
         r = rows[label]
         log(f"  library for {label}: "
             + (f"{r['library_ms']:.4f} ms (within {r['library_err']:.2e} of "
                "the kernel's max)" if "library_ms" in r
                else r.get("library_note", "")))
+
+
+def split_sweep(torch, tim):
+    """The evidence for the K-split policies of KQ8's K-major route and
+    KW4G's weight-streaming route: device ms of the C entries called with
+    each split count on the same inputs (the policy's choice marked),
+    outputs checked against the plain versions. Returns a dict."""
+    from aimet_tpu_torch import _build
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    stream = _build.stream_ptr(torch.device("cuda"))
+    for m, k, n in ((6272, 2304, 256), (1568, 4608, 512), (200, 4608, 512)):
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=g,
+                          device="cuda")
+        w = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g,
+                          device="cuda")
+        ref = tim.int8_matmul_int32_torch(x, w.t())
+        res = {}
+        policy = tim.q8_kmajor_splits(m, n, k)
+        for sp in sorted({1, 2, 3, 4, 6, policy}):
+            o = (torch.zeros if sp > 1 else torch.empty)(
+                (m, n), dtype=torch.int32, device="cuda")
+
+            def call(i, o=o, sp=sp):
+                if sp > 1:
+                    o.zero_()
+                _build.launch("aimet_q8_int32_kmajor", x.data_ptr(), k,
+                              w.data_ptr(), k, o.data_ptr(), m, n, k, sp,
+                              stream)
+            call(0)
+            assert torch.equal(o, ref), ("KQ8 split", m, k, n, sp)
+            res[sp], _ = timed(call, 20, ["q8_", "FillFunctor"])
+        out[f"q8_int32 {m}x{k}x{n}"] = dict(ms=res, policy=policy)
+    k, n = 4096, 14336
+    for m in (16, 32, 64):
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        wp, sc = tim.quantize_weight_int4_grouped(
+            torch.randn((k, n), generator=g, device="cuda") * 0.02, 128)
+        want = tim.matmul_w4_grouped_torch(x, wp, sc, 128)
+        res = {}
+        for sp in (1, 2, 3, 4, 6):
+            o = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+            ws = torch.empty((sp, m, n), dtype=torch.float32, device="cuda")
+
+            def call(i, o=o, ws=ws, sp=sp):
+                _build.launch("aimet_w4g_gemm", x.data_ptr(), wp.data_ptr(),
+                              sc.data_ptr(), o.data_ptr(), ws.data_ptr(), m,
+                              n, k, 128, sp, 0, 1, 1, stream)
+            call(0)
+            assert rel_err(o, want) < TOL_WO, ("KW4G split", m, sp)
+            res[sp], _ = timed(call, 20, ["w4g_decode", "wo_reduce"])
+        out[f"w4g_decode M={m} {k}x{n}"] = dict(
+            ms=res, policy=tim.w4g_decode_splits(m, n, k))
+    for label, r in out.items():
+        log(f"  splits {label}: " + ", ".join(
+            f"{sp}{'*' if sp == r['policy'] else ''} {ms:.5f}"
+            for sp, ms in r["ms"].items()) + " ms (* the policy's)")
+    return out
 
 
 @contextlib.contextmanager
@@ -1046,9 +1222,7 @@ def serve(torch, llm, cfg, mode, counters, g, decode_batches):
                 f"{diff(c0, counts())}")
             # where a decode step's time goes: device busy share and the
             # device time of each kernel, over 4 profiled steps
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profiled() as prof:
                 t0 = time.perf_counter()
                 for _ in range(4):
                     logits, caches = llm.decode(tok, caches, pos)
@@ -1219,9 +1393,7 @@ def decode_step_path(torch, qllm, ops, qw, cfg, counters, g):
     assert per_step == {"fused_decode_layer": cfg.n_layers, "w4_gemm": 2}, \
         per_step
     # device time: 4 more steps under the profiler
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for i in range(4):
             step(toks[:, -1:], P + steps + i)
@@ -1289,6 +1461,164 @@ def gqa_on_serving_caches(torch, ops, cfg, caches, last, counters, g):
         log(f"[gqa] KGQA on the w4 serving caches (B={B}, S={S}, position "
             f"{pos}), {tag} q: within {err:.3e} of its plain version's max, "
             f"{e3:.3e} of K3's context (< {tol}); launches {launches}")
+    return m, launches
+
+
+def long_cache_path(torch, qllm, ops, cfg, counters, g):
+    """Phase 3d: one decode step at a cache length whose score rows do not
+    fit in shared memory (S 16,384, position 16,000): ``QuantizedLLM`` at
+    Llama-3-8B width, heads and vocabulary with 2 layers in w4, its caches
+    filled with seeded int8 bytes and scales (no 16k prefill), decoded at a
+    shared position (KSOL) and at per-slot positions (K3 + KFL), each
+    against the same step through the plain versions on copies of the
+    caches (logits within 5e-2 of the max, every cache row but the
+    appended ones unchanged); then, on identical inputs with cache bytes
+    bit-exact, layer 1 through ``fused_decode_layer`` (KDL, flat caches)
+    against KSOL's bits and its plain version, and K3 against its plain
+    version; KGQA on layer 0's caches (bf16 and f32 q) against its plain
+    version. Returns (metrics, launches)."""
+    import dataclasses
+    tim, dattn, flay, dsol, gqa = ops
+    from aimet_tpu_torch.models.transformer import rope_freqs
+    S, pos, B = 16384, 16000, 16
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    H, KH, D, F = c2.n_heads, c2.n_kv_heads, c2.head_dim, c2.d_ff
+    qw = qllm.random_quantized_weights(c2, mode="w4", seed=6)
+    llm = qllm.QuantizedLLM.from_quantized(qw, c2, mode="w4", max_len=S)
+    caches = llm.new_caches(B)
+    for c in caches:
+        for t in (c.k, c.v):
+            t.copy_(torch.randint(-127, 128, t.shape, dtype=torch.int8,
+                                  generator=g, device="cuda"))
+        for t in (c.k_scale, c.v_scale):
+            t.copy_(torch.rand(t.shape, generator=g, device="cuda") * 0.05
+                    + 0.01)
+    copy = lambda cs: [dataclasses.replace(c, k=c.k.clone(), v=c.v.clone())
+                       for c in cs]
+    tok = torch.randint(0, c2.vocab_size, (B, 1), generator=g,
+                        device="cuda")
+    slots = pos - torch.arange(B, device="cuda", dtype=torch.int32) * 97
+    for fn in counters.values():
+        fn.launches = 0
+    m = {}
+    rows = torch.arange(B, device="cuda")
+    for tag, where in (("ksol", pos), ("k3_kfl", slots)):
+        ca, cb = copy(caches), copy(caches)
+        got = llm.decode(tok, ca, where)[0]
+        with plain_versions(qllm, ops):
+            want = llm.decode(tok, cb, where)[0]
+        torch.cuda.synchronize()
+        # every row but the one each slot appended stays as it was; the
+        # appended rows come from each path's own (kernel or plain) qkv,
+        # so they are compared by code distance, not bit for bit
+        at = torch.as_tensor(where, device="cuda").long().expand(B)
+        code_diff = 0
+        for c0, a, b in zip(caches, ca, cb):
+            for t0, ta, tb in ((c0.k, a.k, b.k), (c0.v, a.v, b.v)):
+                new_a, new_b = ta[rows, at].clone(), tb[rows, at].clone()
+                ta[rows, at], tb[rows, at] = t0[rows, at], t0[rows, at]
+                assert torch.equal(ta, t0) and torch.equal(tb, t0), \
+                    ("long cache: rows not written changed", tag)
+                code_diff = max(code_diff, (new_a.int() - new_b.int())
+                                .abs().max().item())
+        err = rel_err(got, want)
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        assert err < TOL_LOGITS, ("long cache logits", tag, err)
+        m[f"long_cache_{tag}_logits_rel_err"] = err
+        m[f"long_cache_{tag}_appended_code_diff"] = code_diff
+        where_s = (f"position {pos} (KSOL)" if tag == "ksol" else
+                   f"per-slot positions {int(slots[-1])}..{pos} (K3 + KFL)")
+        log(f"[long cache] QuantizedLLM w4, Llama-3-8B width, 2 layers, B="
+            f"{B}, max_len {S}, decode at {where_s}: rows not written "
+            f"unchanged, "
+            f"appended rows within {code_diff} codes of the plain run's, "
+            f"logits within {err:.3e} of the max (< {TOL_LOGITS})")
+        del ca, cb
+    # layer 1 alone: KDL on flat views against KSOL and the plain version
+    layer = qw["layers"][1]
+    cos, sin = rope_freqs(c2, torch.full((1,), pos, device="cuda"))
+    qkv = torch.randn((B, (H + 2 * KH) * D), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    resid = torch.randn((B, c2.d_model), generator=g, device="cuda").to(
+        torch.bfloat16)
+    c = caches[1]
+    kv3 = [(c.k.clone(), c.v.clone()) for _ in range(3)]
+    wgu, sgu = layer["w_gateup"]
+    blk = (layer["wo"], (wgu, sgu[:F]), (wgu, sgu[F:]), layer["w_down"],
+           layer["mlp_norm"])
+    kdl_kw = dict(eps=c2.norm_eps, block_g=1024, up_block_offset=F // 1024,
+                  n_f=F, n_heads=H, n_kv_heads=KH)
+    flat = lambda t: t.view(B, S, KH * D)
+    kdl = flay.fused_decode_layer(qkv, resid, flat(kv3[0][0]),
+                                  flat(kv3[0][1]), c.k_scale, c.v_scale, pos,
+                                  cos, sin, *blk, **kdl_kw)[0]
+    plain = flay.fused_decode_layer_torch(
+        qkv, resid, flat(kv3[1][0]), flat(kv3[1][1]), c.k_scale, c.v_scale,
+        pos, cos, sin, *blk, **kdl_kw)[0]
+    sol = dsol.sol_decode_layer(
+        qkv, resid, kv3[2][0], kv3[2][1], c.k_scale, c.v_scale, pos, cos,
+        sin, layer["wo"], layer["w_gateup"], layer["w_down"],
+        layer["mlp_norm"], eps=c2.norm_eps, n_heads=H, n_kv_heads=KH)[0]
+    torch.cuda.synchronize()
+    assert all(torch.equal(kv3[0][i], kv3[j][i]) for i in (0, 1)
+               for j in (1, 2)), "long cache KDL cache bytes"
+    assert torch.equal(kdl, sol), "long cache: KDL against KSOL"
+    err = rel_err(kdl, plain)
+    assert err < TOL_ATTN, ("long cache KDL", err)
+    m["long_cache_kdl_rel_err"] = err
+    log(f"[long cache] KDL fused_decode_layer (layer 1, flat caches, S={S}, "
+        f"position {pos}): KSOL's bits and cache bytes, within {err:.3e} of "
+        f"its plain version's max (< {TOL_ATTN})")
+    # KGQA on layer 0's caches after the steps above
+    c = caches[0]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((B, KH, H // KH, D), generator=g,
+                        device="cuda").to(dtype)
+        _, _, err = check_gqa(torch, gqa, q, c.k, c.v, c.k_scale, c.v_scale,
+                              pos)
+        worst = max(worst, err)
+    m["long_cache_gqa_rel_err"] = worst
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    log(f"[long cache] KGQA at S={S}, position {pos}: within {worst:.3e} of "
+        f"its plain version's max (f32 q < {TOL_GQA_F32}, bf16 q one bf16 "
+        f"ulp a prob); launches {launches}")
+    # K3 alone on identical inputs: cache bytes bit-exact
+    a = [qkv, cos.expand(B, -1), sin.expand(B, -1), kv3[0][0], kv3[0][1],
+         c.k_scale, c.v_scale, slots]
+    b_ = [t.clone() for t in a]
+    out3 = dattn.fused_decode_attention(*a, n_heads=H, n_kv_heads=KH)[0]
+    ref3 = dattn.fused_decode_attention_torch(*b_, n_heads=H,
+                                              n_kv_heads=KH)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(a[3], b_[3]) and torch.equal(a[4], b_[4]), \
+        "long cache K3 cache bytes"
+    err = rel_err(out3, ref3)
+    assert err < TOL_ATTN, ("long cache K3", err)
+    m["long_cache_k3_rel_err"] = err
+    log(f"[long cache] K3 at S={S}, per-slot positions {int(slots[-1])}.."
+        f"{pos}: cache bytes bit-exact, within {err:.3e} of the plain "
+        f"version's max (< {TOL_ATTN})")
+    del b_, out3, ref3
+    # device time of K3, KGQA and KSOL at this cache length (B 16)
+    a[7] = torch.full((B,), pos, device="cuda", dtype=torch.int32)
+    m["long_cache_k3_ms"], _ = timed(lambda i: dattn.fused_decode_attention(
+        *a, n_heads=H, n_kv_heads=KH), 10, ["decode_attention_kernel"])
+    q = torch.randn((B, KH, H // KH, D), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    m["long_cache_gqa_ms"], _ = timed(lambda i: gqa.fused_gqa_decode_attention(
+        q, c.k, c.v, c.k_scale, c.v_scale, pos), 10, ["gqa_attention_kernel"])
+    m["long_cache_ksol_ms"], _ = timed(lambda i: dsol.sol_decode_layer(
+        qkv, resid, kv3[2][0], kv3[2][1], c.k_scale, c.v_scale, pos, cos,
+        sin, layer["wo"], layer["w_gateup"], layer["w_down"],
+        layer["mlp_norm"], eps=c2.norm_eps, n_heads=H, n_kv_heads=KH), 10,
+        ["fused_layer_kernel"])
+    log(f"[long cache] device ms at B={B}, S={S}, position {pos}: K3 "
+        f"{m['long_cache_k3_ms']:.4f}, KGQA (bf16 q) "
+        f"{m['long_cache_gqa_ms']:.4f}, KSOL (one layer) "
+        f"{m['long_cache_ksol_ms']:.4f}")
+    del caches, kv3, llm, qw
+    torch.cuda.empty_cache()
     return m, launches
 
 
@@ -1419,9 +1749,7 @@ def lowering(torch, tim, counters, g):
             launches[k] += v
         assert counts == expect(n_lin), (mode, counts)
         assert torch.isfinite(out).all() and out.shape == float_logits.shape
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             low(params, x)
             torch.cuda.synchronize()
         by_name = {}
@@ -1459,6 +1787,59 @@ def lowering(torch, tim, counters, g):
     del sim, sim4, model, float_logits, params
     torch.cuda.empty_cache()
     return metrics, launches
+
+
+def lowering_block8(torch, tim, counters, g):
+    """Phase 5b: a blockwise 4-bit linear with block 8 (not a multiple of
+    16) through lower_to_int and its forward on the card: a float
+    Llama-3-8B at full width with 2 layers, calibrated (sqnr, 2 batches of
+    2 x 256 tokens), every layer linear made blockwise with block 8, lowered
+    in w8 (layer linears -> KW4G, lm_head -> KW8: activations stay float
+    between the ops, as in a W4A16 deployment; a static-INT8 lm_head's
+    input codes would flip on the kernels' last-bit differences), one
+    forward of 2 x 256 tokens with the launch counts set to 0 just before
+    and read just after, against the same forward through the plain
+    versions (logits within 1e-2 of the max). Returns (metrics,
+    launches)."""
+    import dataclasses
+    from aimet_tpu_torch import QuantizationSimModel, lower_to_int
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.quantsim import lowering as lw
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    model = float_llama(torch, cfg, seed=7)
+    toks = lambda: torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                                 device="cuda")
+    calib = [toks() for _ in range(2)]
+    sim = QuantizationSimModel(model, (calib[0],))
+    sim.compute_encodings(None, calib)
+    lin = sim.graph.ops_of_type("linear")
+    for op in lin[:-1]:
+        sim.set_param_blockwise(None, op.param_products["kernel"].param_path,
+                                8)
+    low = lower_to_int(sim, None, mode="w8")
+    modes = list(low.op_modes.values())
+    assert modes.count("w4_grouped") == len(lin) - 1, low.op_modes
+    x = toks()
+    params = sim.params
+    low(params, x)                                  # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    out = low(params, x)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    assert launches == {"w4_grouped_gemm": len(lin) - 1, "w8_gemm": 1}, \
+        launches
+    with plain_lowering(lw, tim):
+        plain = low(params, x)
+    err = rel_err(out, plain)
+    assert torch.isfinite(out).all() and err < TOL_WO, ("block 8", err)
+    log(f"[lower block 8] Llama-3-8B width, 2 layers: {len(lin) - 1} "
+        f"blockwise linears (block 8) lowered to KW4G, lm_head to KW8; "
+        f"forward of 2 x 256 tokens: launches {launches}; logits within "
+        f"{err:.3e} of the plain versions' max (< {TOL_WO})")
+    del sim, low, model, out, plain, params
+    torch.cuda.empty_cache()
+    return {"lower_block8_logits_rel_err": err}, launches
 
 
 def resnet_inputs(torch, g, n, batch=32):
@@ -1554,7 +1935,6 @@ def forward_stats(torch, fn, counters):
     """One forward with the launch counts set to 0 just before and read
     just after; then its device ms (profiler, by kernel) and host ms.
     Returns (out, counts, host_ms, device_ms, top kernels)."""
-    from torch.profiler import ProfilerActivity, profile
     fn()                                   # warm-up (and retrace)
     for c in counters.values():
         c.launches = 0
@@ -1564,8 +1944,7 @@ def forward_stats(torch, fn, counters):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t) * 1e3
     counts = {k: c.launches for k, c in counters.items() if c.launches}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
@@ -1587,8 +1966,25 @@ def vs_float(out, ref):
             .mean().item()}
 
 
+@contextlib.contextmanager
+def int32_shapes(tic, shapes):
+    """Count the integer conv's calls of KQ8's int32 entry by (M, K, N)."""
+    saved = tic.int8_matmul_int32
+
+    def record(x, w):
+        key = (x.shape[0], x.shape[1], w.shape[1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return saved(x, w)
+
+    tic.int8_matmul_int32 = record
+    try:
+        yield
+    finally:
+        tic.int8_matmul_int32 = saved
+
+
 def lower_cnn(torch, tim, counters, model, x, calib, ref, params, grids,
-              config):
+              config, conv_shapes=None):
     """ResNet-50 through QuantizationSimModel (sqnr on ``calib``) and
     lower_to_int in each of CNN_MODES, with the parameter grids of
     ``config`` (None: the default, per tensor). Returns (metrics, launches
@@ -1629,6 +2025,9 @@ def lower_cnn(torch, tim, counters, model, x, calib, ref, params, grids,
             launches[k] += v
         assert counts == expect(n_conv), (mode, counts)
         assert torch.isfinite(out).all() and out.shape == ref.shape
+        if mode == "w8a8" and conv_shapes is not None:
+            with int32_shapes(tic, conv_shapes):
+                low(params, x)
         with plain_lowering(lw, tim), plain_ops(tim, tic):
             plain = low(params, x)
         m = {"lowered": len(low.lowered_ops),
@@ -1696,13 +2095,19 @@ def cnn(torch, tim, counters, g):
         f"{time.time() - t:.1f} s")
 
     params = {k: v.detach() for k, v in model.named_parameters()}
+    shapes = {}
     for grids, config in (("per_tensor", None),
                           ("per_channel",
                            QuantSimConfig.per_channel_default())):
         m, counts = lower_cnn(torch, tim, counters, model, x, calib, ref,
-                              params, grids, config)
+                              params, grids, config,
+                              shapes if grids == "per_tensor" else None)
         metrics.update(m)
         add(counts)
+    sweep, tot_k, tot_l = int32_conv_sweep(torch, tim, shapes)
+    metrics.update(resnet50_int32_convs=sweep,
+                   resnet50_int32_kernel_ms=tot_k,
+                   resnet50_int32_library_ms=tot_l)
     n_conv = sum(isinstance(mod, Conv) for mod in model.modules())
 
     # the dynamic full-INT8 ops API: every conv through conv2d_w8a8
@@ -1808,6 +2213,7 @@ def main() -> int:
 
     # --- 2. kernels against their plain versions
     rows = check_kernels(torch, ops)
+    splits = split_sweep(torch, tim)
     for name, r in rows.items():
         log(f"  {name:24s} {r['shape']}: kernel {r['ms']:.4f} ms on the "
             f"device ({r['call_ms']:.4f} ms per wrapper call), plain "
@@ -1817,7 +2223,7 @@ def main() -> int:
     # --- 3 and 4. the main path of each mode at Llama-3-8B widths
     cfg = TransformerConfig.llama3_8b()
     g = torch.Generator(device="cuda").manual_seed(2)
-    metrics, launches = {}, {k: 0 for k in counters}
+    metrics, launches = {"splits": splits}, {k: 0 for k in counters}
 
     def add_path(path, counts):
         for k, v in counts.items():
@@ -1863,6 +2269,11 @@ def main() -> int:
             del caches
             torch.cuda.empty_cache()
             log(f"[decode step, gqa] phases took {time.time() - t:.1f} s")
+            t = time.time()
+            m, counts = long_cache_path(torch, qllm, ops, cfg, counters, g)
+            add_path("long_cache", counts)
+            metrics.update(m)
+            log(f"[long cache] phase took {time.time() - t:.1f} s")
     del qw
 
     # --- 5. quantsim calibration and true-INT lowering
@@ -1872,6 +2283,12 @@ def main() -> int:
     for k, v in counts.items():
         launches[k] += v
     log(f"[lower] phase took {time.time() - t:.1f} s")
+    t = time.time()
+    m, counts = lowering_block8(torch, tim, counters, g)
+    metrics.update(m)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"[lower block 8] phase took {time.time() - t:.1f} s")
 
     # --- 6. CNNs: ResNet-50 lowered per mode and through the ops API,
     # MobileNetV2 in w8a8
@@ -1894,8 +2311,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
-            **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err")
-               if k in r}))
+            **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err",
+                                 "nmajor_ms", "k128_ms") if k in r}))
     # the order of the kernels' redesign: first those slower than one
     # PyTorch call for the same function, then launches x (ms - bound) at
     # each kernel's cheapest timed shape (its decode shape where it has one)

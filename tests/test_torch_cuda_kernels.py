@@ -15,7 +15,12 @@ repeated calls give the same bits. KDL (``fused_decode_layer``) gives
 KSOL's bits on the same inputs, and KFL the same bits with gate and up
 separate or concatenated. KGQA: f32 q within 1e-4 of the max (f32 sums of
 1024 rows in another order); bf16 q within one bf16 ulp of every prob
-(v_scale * sum_s ulp(p_s) |v_s|) plus that.
+(v_scale * sum_s ulp(p_s) |v_s|) plus that. KQ8's int32 entry is
+bit-exact on both routes (a K-major transposed-view weight: TMA + wgmma;
+an N-major one: the mma.sync tile), at conv-patch K including the stem's
+147; KW4G takes group sizes that are not multiples of 16 (8, 24) within
+the same 1e-2; K3, KGQA and KSOL keep their tolerances and bit-exact
+cache bytes at S = 16,384, whose score rows do not fit in shared memory.
 """
 import pytest
 import torch
@@ -468,3 +473,135 @@ def test_gqa_attention_kernel_matches_plain(gen, dtype, pos):
         assert ((got - want).abs() <= bound).all()
     assert torch.equal(fused_gqa_decode_attention(q, kc, vc, ks, vs, pos),
                        got)
+
+
+def _kmajor(w_nk, pad=False):
+    """(N, K) int8 -> the (K, N) transposed view the integer conv passes;
+    ``pad``: rows padded to a multiple of 16 bytes first, as the conv does
+    for K = 147."""
+    if pad:
+        n, k = w_nk.shape
+        buf = torch.zeros((n, -(-k // 16) * 16), dtype=torch.int8,
+                          device=w_nk.device)
+        buf[:, :k] = w_nk
+        w_nk = buf[:, :k]
+    return w_nk.t()
+
+
+@pytest.mark.parametrize("k", [147, 576, 1152])
+@pytest.mark.parametrize("n", [64, 128, 2048])
+@pytest.mark.parametrize("layout", ["kmajor", "nmajor"])
+def test_q8_int32_entry_matches_plain_bit_for_bit(gen, k, n, layout):
+    """KQ8's int32 entry at conv-patch K (147: ResNet-50's stem, padded
+    rows), with a K-major transposed-view weight (TMA + wgmma route) or a
+    contiguous N-major one (the mma.sync tile), ragged M."""
+    m = 1000
+    kp = -(-k // 16) * 16
+    xbuf = torch.randint(-128, 128, (m, kp), dtype=torch.int8,
+                         generator=gen, device="cuda")
+    x = xbuf[:, :k]                              # padded rows, as im2col's
+    w_nk = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=gen,
+                         device="cuda")
+    w = (_kmajor(w_nk, pad=k % 16 != 0) if layout == "kmajor"
+         else w_nk.t().contiguous())
+    before = tim.matmul_q8.launches
+    got = tim.int8_matmul_int32(x, w)
+    assert tim.matmul_q8.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, tim.int8_matmul_int32_torch(x, w))
+
+
+@pytest.mark.parametrize("m,k,n", [(25088, 1152, 128), (401408, 147, 64),
+                                   (1568, 4608, 512), (200, 4608, 512)])
+def test_q8_int32_kmajor_at_resnet50_shapes(gen, m, k, n):
+    """The K-major route at whole ResNet-50 conv shapes (32 images: more
+    tiles than SMs, and layer4's 52 tiles, unsplit) and at a small-M call
+    of 8 tiles (split K, integer atomics); repeated calls give the same
+    bits."""
+    kp = -(-k // 16) * 16
+    x = torch.randint(-128, 128, (m, kp), dtype=torch.int8, generator=gen,
+                      device="cuda")[:, :k]
+    w_nk = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=gen,
+                         device="cuda")
+    w = _kmajor(w_nk, pad=k % 16 != 0)
+    got = tim.int8_matmul_int32(x, w)
+    assert torch.equal(got, tim.int8_matmul_int32_torch(x, w))
+    assert torch.equal(tim.int8_matmul_int32(x, w), got)
+
+
+@pytest.mark.parametrize("group", [8, 16, 24, 128])
+@pytest.mark.parametrize("m", [16, 37, 300])
+def test_w4_grouped_kernel_takes_any_group(gen, group, m):
+    """KW4G at group sizes that are not multiples of 16 (8 meets two
+    groups in a 16-wide k slice, 24 straddles slices) as well as 16 and
+    128, on the decode route (M 16, 37) and the tile route (M 300)."""
+    k, n = 768, 1024
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    packed, scales = tim.quantize_weight_int4_grouped(w, group)
+    before = tim.matmul_w4_grouped.launches
+    got = tim.matmul_w4_grouped(x, packed, scales, group_size=group)
+    assert tim.matmul_w4_grouped.launches == before + 1
+    want = tim.matmul_w4_grouped_torch(x, packed, scales, group)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert _rel(got, want) < 1e-2
+    assert torch.equal(tim.matmul_w4_grouped(x, packed, scales,
+                                             group_size=group), got)
+
+
+_LONG_S, _LONG_POS = 16384, 16000
+
+
+def test_decode_attention_kernel_at_long_cache(gen):
+    """K3 at S = 16,384 (past the 12,352 whose score rows fit in shared
+    memory at Llama-3-8B heads): KV bytes bit-exact after the append,
+    output within 2e-2 of the max."""
+    b, h, kh, d = 4, 32, 8, 128
+    qkv, _, kc, vc, ks, vs, cos, sin = _layer_inputs(gen, b, _LONG_S, h, kh,
+                                                     d, _LONG_POS)
+    pos = torch.full((b,), _LONG_POS, dtype=torch.int32, device="cuda")
+    pos[1] = _LONG_S - 1
+    kc2, vc2 = kc.clone(), vc.clone()
+    out, _, _ = fused_decode_attention(qkv, cos, sin, kc, vc, ks, vs, pos,
+                                       n_heads=h, n_kv_heads=kh)
+    ref, _, _ = fused_decode_attention_torch(qkv, cos, sin, kc2, vc2, ks, vs,
+                                             pos, n_heads=h, n_kv_heads=kh)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    assert _rel(out, ref) < 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gqa_attention_kernel_at_long_cache(gen, dtype):
+    b, kh, rep, d = 2, 8, 4, 128
+    _, _, kc, vc, ks, vs, _, _ = _layer_inputs(gen, b, _LONG_S, kh * rep,
+                                               kh, d, 0)
+    q = torch.randn((b, kh, rep, d), generator=gen, device="cuda").to(dtype)
+    got = fused_gqa_decode_attention(q, kc, vc, ks, vs, _LONG_POS)
+    want = fused_gqa_decode_attention_torch(q, kc, vc, ks, vs, _LONG_POS)
+    if dtype == torch.float32:
+        assert _rel(got, want) < 1e-4
+    else:
+        bound = _gqa_flip_bound(q, kc, vc, ks, vs, _LONG_POS) \
+            + 1e-4 * want.abs().max()
+        assert ((got - want).abs() <= bound).all()
+
+
+def test_sol_decode_layer_kernel_at_long_cache(gen):
+    """KSOL at S = 16,384 (past the 13,376 its 8 warps take in shared
+    memory at Llama-3-8B heads): cache bytes bit-exact, output within 2e-2
+    of the max."""
+    b, h, kh, d, f = 4, 32, 8, 128, 5632
+    qkv, resid, kc, vc, ks, vs, cos, sin = _layer_inputs(
+        gen, b, _LONG_S, h, kh, d, _LONG_POS)
+    kw = _block(gen, h * d, h * d, f, (h + 2 * kh) * d)
+    kc2, vc2 = kc.clone(), vc.clone()
+    got = sol_decode_layer(qkv, resid, kc, vc, ks, vs, _LONG_POS, cos, sin,
+                           n_heads=h, n_kv_heads=kh, **kw)
+    want = sol_decode_layer_torch(qkv, resid, kc2, vc2, ks, vs, _LONG_POS,
+                                  cos, sin, n_heads=h, n_kv_heads=kh, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    for g, w in zip(got[:2], want[:2]):
+        assert _rel(g, w) < 2e-2

@@ -17,7 +17,8 @@ from aimet_tpu.models.transformer import rope_freqs
 from aimet_tpu.ops.kv_cache import init_quantized_kv_cache, prefill_kv
 from aimet_tpu.serving.quantized_llm import _attention_from_qkv
 from aimet_tpu_torch.ops.decode_attention_fused import (
-    fused_decode_attention, fused_decode_attention_torch)
+    attention_kernel_shape_ok, fused_decode_attention,
+    fused_decode_attention_torch, score_workspace, scores_fit)
 
 
 def _t(a):
@@ -90,3 +91,18 @@ def test_position_outside_cache_writes_nothing():
     assert not kc.any() and not vc.any()
     assert torch.isfinite(ao).all()
 
+
+
+def test_attention_kernels_take_any_cache_length():
+    """At Llama-3-8B heads (32 / 8, D 128) the kernels take S = 16,384: the
+    score rows outgrow shared memory past 12,352 (16 warps) and 13,376 (8
+    warps) and go to a workspace; the head limits still raise."""
+    attention_kernel_shape_ok(32, 8, 128)
+    assert scores_fit(4, 128, 12352, 16) and not scores_fit(4, 128, 12353, 16)
+    assert scores_fit(4, 128, 13376, 8) and not scores_fit(4, 128, 13377, 8)
+    assert score_workspace(2, 8, 4, 128, 1024, 16, "cpu") is None
+    ws = score_workspace(2, 8, 4, 128, 16384, 16, "cpu")
+    assert ws.shape == (2, 8, 4, 16384) and ws.dtype == torch.float32
+    for h, kh, d in ((72, 8, 128), (32, 8, 256), (32, 8, 130)):
+        with pytest.raises(ValueError):
+            attention_kernel_shape_ok(h, kh, d)

@@ -114,6 +114,33 @@ def test_conv_int_core_sums_bit_exact(strides, padding, groups, lhs, rhs,
     np.testing.assert_array_equal(_nhwc(got), want)
 
 
+def test_conv_int_core_stem_kmajor_bit_exact():
+    """ResNet-50's stem (7 x 7 / 2, 3 -> 64: K = 147, not a multiple of
+    16): the patch rows padded to 160 bytes and the K-major weight view
+    give the JAX package's int32 sums bit for bit."""
+    rs = np.random.RandomState(7)
+    xq = _int8(rs, (2, 20, 20, 3))
+    wq = _int8(rs, (7, 7, 3, 64))
+    kw = dict(strides=(2, 2), padding=((3, 3), (3, 3)), fill=-3)
+    want = np.asarray(jic.conv_int_core(jnp.asarray(xq), jnp.asarray(wq),
+                                        **kw))
+    got = tic.conv_int_core(_nchw(xq), _oihw(wq), **kw)
+    np.testing.assert_array_equal(_nhwc(got), want)
+    p, _ = tic._int_patches(_nchw(xq), (7, 7), (2, 2), None)
+    assert p.shape[1] == 147 and p.stride(0) == 160
+    wk = tic._weight_kmajor(_oihw(wq))
+    assert wk.shape == (147, 64) and wk.stride() == (1, 160)
+
+
+def test_conv_weight_kmajor_is_a_view_when_k_is_aligned():
+    """At K % 16 == 0 the K-major weight is the OIHW tensor itself,
+    transposed: no per-call copy."""
+    w = torch.randint(-127, 128, (128, 128, 3, 3), dtype=torch.int8)
+    wk = tic._weight_kmajor(w)
+    assert wk.data_ptr() == w.data_ptr() and wk.stride() == (1, 1152)
+    assert torch.equal(wk, tic._weight_2d(w))
+
+
 def _static_args(rs, shape, groups, co):
     x = (rs.rand(*shape).astype(np.float32) * 4 - 1)
     wq = rs.randint(-127, 128, (3, 3, shape[-1] // groups, co)).astype(

@@ -121,6 +121,24 @@ def test_tiny_grouped_int4_lowering_matches_jax(tiny, lpbq):
     _check(jl, tl, want, tl(ts.params, to_torch(tok)))
 
 
+def test_tiny_grouped_int4_lowering_block_8_matches_jax(tiny):
+    """Blockwise 4-bit layer linears with block 8, a group size that is
+    not a multiple of 16 (the JAX package takes its XLA route; the port's
+    KW4G takes every group size dividing K/2)."""
+    sims, variables, tok = tiny
+    js, ts = (_copy_sim(s) for s in sims[8])
+    for op in ts.graph.ops_of_type("linear")[:-1]:
+        name = op.param_products["kernel"].param_path
+        ts.set_param_blockwise(None, name, 8)
+        jname = "['params']" + "".join(f"['{p}']" for p in name.split("."))
+        js.set_param_blockwise(variables, jname, 8)
+    jl = jax_lower(js, variables, mode="w8a8", use_pallas=True)
+    tl = lower_to_int(ts, None, mode="w8a8")
+    assert list(tl.op_modes.values()).count("w4_grouped") == 14
+    want = np.asarray(jl(variables, jnp.asarray(tok)))
+    _check(jl, tl, want, tl(ts.params, to_torch(tok)))
+
+
 @pytest.fixture(scope="module")
 def mlp():
     """Both packages' sims of the MLP at param bitwidths 8 and 4, each
@@ -210,6 +228,23 @@ def test_grouped_int4_plain_matches_jax(m, k, n, group):
         want = jim.matmul_w4_grouped(jnp.asarray(x), jp, js, group_size=group,
                                      acc_scales=acc_scales)
         assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("group", [8, 24])
+def test_grouped_int4_small_groups_match_xla(group):
+    """Group sizes that are not multiples of 16, against the JAX package's
+    ``matmul_w4_grouped_xla``."""
+    m, k, n = 16, 48 * 8, 96
+    rng = np.random.RandomState(group)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    x = rng.randn(m, k).astype(np.float32)
+    jp, js = jim.quantize_weight_int4_grouped(jnp.asarray(w), group)
+    tp, ts = tim.quantize_weight_int4_grouped(torch.from_numpy(w), group)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    got = tim.matmul_w4_grouped(torch.from_numpy(x), tp, ts,
+                                group_size=group).numpy()
+    want = jim.matmul_w4_grouped_xla(jnp.asarray(x), jp, js, group)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_conv_lowering_is_not_ported_yet():
