@@ -56,6 +56,10 @@ SIGNATURES = {
     # x, w, sw, out, ws, M, N, K, splits, x_is_f32, out_is_bf16, stream
     "aimet_w4_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
     "aimet_w8_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
+    # x, w, sw, out, ws, cnt, M, N, K, blocks, ws_values, cnt_values,
+    # out_is_bf16, stream
+    "aimet_w8_decode_gemm": [_VP] * 6 + [_I] * 4
+    + [ctypes.c_longlong, _I, _I, _VP],
     # x, w, gs, out, ws, M, N, K, group, splits, x_is_f32, out_is_bf16,
     # decode, stream
     "aimet_w4g_gemm": [_VP] * 5 + [_I] * 8 + [_VP],

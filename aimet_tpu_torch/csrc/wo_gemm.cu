@@ -54,9 +54,19 @@
 // (the planes' groups differ, the warps' planes do not) and folds it with
 // the group's scales, read once a group into registers, when the group
 // changes. The planes meet through shared memory in a fixed order.
+//
+// KW8 with a bf16 x of at most 64 rows (decode M) takes the decode
+// weight-streaming route instead (w8_decode_kernel, decode_gemm.cuh): one
+// block an SM, a producer warp keeping copies of 64 weight rows x 256
+// columns in flight into a shared-memory ring, the M tile 16..64 rows,
+// every block an equal share of the weight bytes. A slice that one
+// block holds whole goes straight to out; the pieces of a slice split
+// across blocks go to a workspace, and the block that brings the last one
+// (an atomic count a slice, put back to 0 by that block) adds them in K
+// order and writes out: one launch, the same bits on every run.
 #include <algorithm>
 
-#include "gemm_tiles.cuh"
+#include "decode_gemm.cuh"
 
 namespace {
 
@@ -151,18 +161,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// bf16x2 of two nibbles, one in bits 0-3 and one in bits 16-19 of v: the
-// value n - 8 (lo: (p & 15) - 8), or with kSigned the two's-complement
-// nibble (hi: p >> 4), exact: 0x4300 | n is the bf16 128 + n.
-template <bool kSigned>
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v) {
-  uint32_t r = (v & 0x000F000Fu) | 0x43004300u;
-  if (kSigned) r ^= 0x00080008u;
-  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&r);
-  h = __hsub2(h, __floats2bfloat162_rn(136.0f, 136.0f));
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // out = sum_g gs[g, n] * (sum_{k in g} x[m, k] W[k, n]) over packed rows
@@ -277,11 +275,11 @@ w4g_decode_kernel(const uint16_t* __restrict__ x,
         const uint32_t p01 = __byte_perm(wv[0], wv[1], sel);
         const uint32_t p23 = __byte_perm(wv[2], wv[3], sel);
         if (half) {
-          b[c][0] = nibbles_bf16x2<true>(p01 >> 4);
-          b[c][1] = nibbles_bf16x2<true>(p23 >> 4);
+          b[c][0] = aimet::dec::nibbles_bf16x2<true>(p01 >> 4);
+          b[c][1] = aimet::dec::nibbles_bf16x2<true>(p23 >> 4);
         } else {
-          b[c][0] = nibbles_bf16x2<false>(p01);
-          b[c][1] = nibbles_bf16x2<false>(p23);
+          b[c][0] = aimet::dec::nibbles_bf16x2<false>(p01);
+          b[c][1] = aimet::dec::nibbles_bf16x2<false>(p23);
         }
       }
     };
@@ -465,6 +463,101 @@ int run_w4g_decode(const void* x, const void* w, const void* gs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- KW8 at decode M
+// out = (x @ W) * sw for bf16 x (M <= 64), int8 W (K, N); see the note at
+// the top. cnt: one int a slice, 0 on entry and on exit.
+template <typename OutT>
+__global__ void __launch_bounds__(aimet::dec::kThreads, 1)
+w8_decode_kernel(const int8_t* __restrict__ w,
+                 const __grid_constant__ CUtensorMap map_x,
+                 const float* __restrict__ sw, OutT* __restrict__ out,
+                 float* __restrict__ ws, int* __restrict__ cnt, int M, int N,
+                 int K) {
+  namespace dec = aimet::dec;
+  constexpr int kW = dec::kW;
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  int* flag = reinterpret_cast<int*>(dsmem + 512);
+  const int mt = (M + 15) / 16;
+  dec::Ring ring = dec::make_ring<dec::kW8Bf16>(dsmem, mt);
+  __syncthreads();
+  const dec::Geo g(M, K, N, 1, gridDim.x);
+  const dec::Operand op{w, nullptr, N, &map_x, 0};
+  dec::stream_gemm<dec::kW8Bf16>(
+      op, g, mt, ring, [&](const dec::Piece& p, const auto& acc) {
+        const int n0 = p.j * kW, ncols = min(kW, N - n0);
+        const int b0 = g.first_block(p.j), b1 = g.last_block(p.j);
+        if (b0 == b1) {                      // the slice whole: to out
+          const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+          const int t = lane & 3, gq = lane >> 2;
+          constexpr int kMT = sizeof(acc) / sizeof(acc[0]);
+#pragma unroll
+          for (int mb = 0; mb < kMT; ++mb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int m = 16 * mb + gq + 8 * (e >> 1);
+              const int c = warp * 32 + 8 * t + 4 * (e & 1);
+              if (m >= M || c >= ncols) continue;
+              OutT* o = out + (size_t)m * N + n0 + c;
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                o[i] = aimet::from_f32<OutT>(acc[mb][i][e] * sw[n0 + c + i]);
+            }
+          return;
+        }
+        dec::store_piece(ws + (size_t)(p.j + blockIdx.x) * M * kW, acc, M,
+                         ncols);
+        // the consumers' barrier, then one thread's fence, release the
+        // piece (as row_done in fused_layer.cu)
+        dec::consumer_sync();
+        if (threadIdx.x == 0) {
+          __threadfence();
+          const bool last = atomicAdd(&cnt[p.j], 1) == b1 - b0;
+          if (last) {
+            cnt[p.j] = 0;                    // ready for the next call
+            __threadfence();
+          }
+          *flag = last;
+        }
+        dec::consumer_sync();
+        if (!*flag) return;
+        // 4 columns a thread at a time: ncols is a multiple of 16
+        for (int i = 4 * threadIdx.x; i < M * ncols;
+             i += 4 * 32 * dec::kConsumerWarps) {
+          const int m = i / ncols, c = i % ncols;
+          const float4 v = dec::slice_sum4<float>(ws, g, p.j, m, c);
+          OutT* o = out + (size_t)m * N + n0 + c;
+          const float* s4 = sw + n0 + c;
+          o[0] = aimet::from_f32<OutT>(v.x * s4[0]);
+          o[1] = aimet::from_f32<OutT>(v.y * s4[1]);
+          o[2] = aimet::from_f32<OutT>(v.z * s4[2]);
+          o[3] = aimet::from_f32<OutT>(v.w * s4[3]);
+        }
+      });
+}
+
+template <typename OutT>
+int run_w8_decode(const void* x, const void* w, const void* sw, void* out,
+                  void* ws, void* cnt, int M, int N, int K, int blocks,
+                  cudaStream_t s) {
+  namespace dec = aimet::dec;
+  CUtensorMap mx;
+  if (!dec::x_map<dec::kW8Bf16>(&mx, x, M, K, (M + 15) / 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = w8_decode_kernel<OutT>;
+  static bool ready = false;                 // the smem limit, once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dec::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  kern<<<blocks, dec::kThreads, dec::kSmemBytes, s>>>(
+      static_cast<const int8_t*>(w), mx, static_cast<const float*>(sw),
+      static_cast<OutT*>(out),
+      static_cast<float*>(ws), static_cast<int*>(cnt), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
 int run(const void* x, const void* w, const void* sw, void* out, void* ws,
         int M, int N, int K, int group, int splits, cudaStream_t s) {
@@ -542,6 +635,32 @@ extern "C" int aimet_w8_gemm(const void* x, const void* w, const void* sw,
                              void* stream) {
   return dispatch<false, false>(x, w, sw, out, ws, M, N, K, 0, splits,
                                 x_is_f32, out_is_bf16, stream);
+}
+
+// KW8's decode route: x (M, K) bf16 with 1 <= M <= 64, w (K, N) int8, K
+// and N multiples of 16, x and w 16-byte aligned; a grid of `blocks`
+// blocks (the SMs) streaming slices of 256 columns. ws holds ws_values
+// f32 and cnt cnt_values ints, all 0 (and left 0): refused when short of
+// what the split (decode_gemm.cuh, Geo) needs, a slot of M x 256 for each
+// (slice, block) meeting and a count a slice.
+extern "C" int aimet_w8_decode_gemm(const void* x, const void* w,
+                                    const void* sw, void* out, void* ws,
+                                    void* cnt, int M, int N, int K,
+                                    int blocks, long long ws_values,
+                                    int cnt_values, int out_is_bf16,
+                                    void* stream) {
+  namespace dec = aimet::dec;
+  if (M <= 0 || M > 16 * dec::kMaxMT || K <= 0 || N <= 0 || K % 16 ||
+      N % 16 || blocks <= 0 || !aimet::aligned16(x) || !aimet::aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dec::Geo g(M, K, N, 1, blocks);
+  if (ws_values < g.ws_values() || cnt_values < g.nslices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_is_bf16 ? run_w8_decode<__nv_bfloat16>(x, w, sw, out, ws, cnt,
+                                                    M, N, K, blocks, s)
+                     : run_w8_decode<float>(x, w, sw, out, ws, cnt, M, N, K,
+                                            blocks, s);
 }
 
 // As aimet_w4_gemm with group scales gs (K/group, N) f32 in place of sw;

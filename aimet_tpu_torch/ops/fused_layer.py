@@ -36,17 +36,29 @@ from .._device import on_cuda
 from .decode_attention_fused import (attention_kernel_shape_ok,
                                      fused_decode_attention_torch, positions,
                                      scalar_position, score_workspace)
-from .int_matmul import (_used_splits, matmul_w4_torch, matmul_w4a8_torch)
+from .int_matmul import (DECODE_WIDTH, decode_plan, matmul_w4_torch,
+                         matmul_w4a8_torch)
 from .kv_cache import reciprocal
 
 MAX_ROWS = 64          # rows (decode slots) the kernels take in one launch
-_TILE_N = 128
+_WARPS = 9             # warps a block of the kernel (8 consumers, 1 producer)
+# A (N_STAMPS,) int64 CUDA tensor, or None: when set, every launch of the
+# whole-layer kernel writes block 0's %globaltimer into it (the phase split
+# that chip_smoke.py prints): at kernel start (slot 0), after each
+# grid-wide barrier, in STAMP_GEMMS after a GEMM phase, in STAMP_ATTENTION
+# and STAMP_INT8_ROWS after phase 0 and its output's row quantization,
+# in the other slots after an epilogue, and at its end (slot 11). None on
+# every main-path launch.
+N_STAMPS = 12
+STAMP_ATTENTION, STAMP_INT8_ROWS, STAMP_GEMMS = 1, 2, (3, 5, 8, 10)
+STAMPS: Optional[torch.Tensor] = None
 _PTRS = ("attn_out", "resid", "mlp_gamma", "attn_gamma", "out", "qkv_next",
          "wo", "so", "wg", "sg", "wu", "su", "wd", "sd", "wq", "sq", "ao",
-         "y", "xbuf", "xq", "sx", "part", "qkv", "cosb", "sinb", "kc", "vc",
-         "ks", "vs", "iks", "ivs", "pos", "scores")
-_INTS = ("M", "A", "D", "F", "Nq", "ld_gu", "split_a", "split_b", "split_c",
-         "split_d", "S", "H", "KH", "HD")
+         "y", "xbuf", "xq", "sx", "part", "cnt", "rowpart", "qkv", "cosb",
+         "sinb", "kc", "vc", "ks", "vs", "iks", "ivs", "pos", "scores",
+         "stamps")
+_INTS = ("M", "A", "D", "F", "Nq", "ld_gu", "S", "H", "KH", "HD", "part_n",
+         "rowpart_n")
 
 
 class _Args(ctypes.Structure):
@@ -321,7 +333,35 @@ def _gate_up_strides(gate, up) -> int:
     if wg.stride(0) != wu.stride(0):
         raise ValueError(f"gate and up must share a row stride, got "
                          f"{wg.stride(0)} and {wu.stride(0)}")
+    if wg.stride(0) % 16 or wg.data_ptr() % 16 or wu.data_ptr() % 16:
+        raise ValueError("gate and up must start 16-byte aligned with a row "
+                         "stride a multiple of 16 (the kernel's 16-byte "
+                         "copies)")
     return wg.stride(0)
+
+
+def layer_shapes_ok(A: int, D: int, F: int, Nq: int) -> bool:
+    """Whether the whole-layer kernels take these widths: A (the attention
+    output), D and F multiples of 32, Nq (the next layer's QKV, 0 for
+    none) a multiple of 16 (the decode streaming routine's 16-byte
+    copies of split-half rows)."""
+    return A % 32 == 0 and D % 32 == 0 and F % 32 == 0 and Nq % 16 == 0
+
+
+def layer_workspace(M: int, A: int, D: int, F: int, Nq: int,
+                    blocks: int) -> Tuple[int, int]:
+    """Workspace of one launch of the whole-layer kernel on a grid of
+    ``blocks``: (f32 / int32 partial sums, the largest GEMM phase's;
+    f32 row partials of RMSNorm's sums of squares, M x the epilogue items
+    of a row, 4 x DECODE_WIDTH columns each). The kernel's C entry refuses
+    smaller ones."""
+    plans = [decode_plan(M, D, A // 2, blocks),
+             decode_plan(M, F, D // 2, blocks, halves=2),
+             decode_plan(M, D, F // 2, blocks)]
+    if Nq:
+        plans.append(decode_plan(M, Nq, D // 2, blocks))
+    return (max(p.ws_values for p in plans),
+            M * -(-D // (4 * DECODE_WIDTH)))
 
 
 def launch_attention_layer(qkv, resid, k_cache, v_cache, k_scale, v_scale,
@@ -345,7 +385,7 @@ def launch_attention_layer(qkv, resid, k_cache, v_cache, k_scale, v_scale,
                  sinb=rope(sin), kc=k_cache, vc=v_cache, ks=ks, vs=vs,
                  iks=reciprocal(ks), ivs=reciprocal(vs),
                  pos=positions(cache_index, B, qkv.device))
-    ws = score_workspace(B, KH, n_heads // KH, D, S, 8, qkv.device)
+    ws = score_workspace(B, KH, n_heads // KH, D, S, _WARPS, qkv.device)
     if ws is not None:                    # S too long for shared memory
         extra["scores"] = ws
     return launch_layer(
@@ -372,6 +412,10 @@ def launch_layer(extra: dict, resid, wo_pair, gate, up, down_pair,
     if resid.dtype != torch.bfloat16:
         raise TypeError(f"the fused layer kernels take bfloat16 "
                         f"activations, got {resid.dtype}")
+    Nq = 0 if next_qkv is None else next_qkv[0][0].shape[1]
+    if not layer_shapes_ok(A, D, F, Nq):
+        raise ValueError(f"the fused layer kernels take A, D, F multiples "
+                         f"of 32 and Nq of 16, got {A}, {D}, {F}, {Nq}")
     dev = resid.device
     bf = torch.bfloat16
     keep = []                             # operands alive until the launch
@@ -392,11 +436,9 @@ def launch_layer(extra: dict, resid, wo_pair, gate, up, down_pair,
     args.ld_gu = _gate_up_strides(gate, up)
     args.wg, args.wu = gate[0].data_ptr(), up[0].data_ptr()
     args.sg, args.su = ptr(gate[1], torch.float32), ptr(up[1], torch.float32)
-    Nq = 0
     qkv_next = None
     if next_qkv is not None:
         (wq, sq), attn_gamma = next_qkv
-        Nq = wq.shape[1]
         args.wq, args.sq = ptr(wq, torch.int8), ptr(sq, torch.float32)
         args.attn_gamma = ptr(attn_gamma, bf)
         qkv_next = torch.empty((M, Nq), dtype=bf, device=dev)
@@ -411,16 +453,13 @@ def launch_layer(extra: dict, resid, wo_pair, gate, up, down_pair,
                                0 if "scores" in extra else attn["S"])
                               if attn else (1, 0, 0)))
     grid = _grid(dev.index or 0, is_attn, int(int8), smem)
-    step = 64 if int8 else 32   # packed rows a K step (gemm_tiles.cuh)
-    splits = []
-    for K, N in ((A, D), (D, 2 * F), (F, D), (D, max(Nq, 1))):
-        steps = -(-(K // 2) // step)
-        tiles = -(-N // _TILE_N)
-        splits.append(_used_splits(
-            steps, max(1, min(grid // tiles, steps // 2))))
-    part_n = max(s * N for s, N in zip(splits, (D, 2 * F, D, Nq)))
-    args.part = ptr(torch.empty((M * part_n,), dtype=torch.float32,
+    args.part_n, args.rowpart_n = layer_workspace(M, A, D, F, Nq, grid)
+    args.part = ptr(torch.empty((args.part_n,), dtype=torch.float32,
                                 device=dev), torch.float32)
+    args.rowpart = ptr(torch.empty((args.rowpart_n,), dtype=torch.float32,
+                                   device=dev), torch.float32)
+    args.cnt = ptr(torch.empty((3 * M,), dtype=torch.int32, device=dev),
+                   torch.int32)
     args.y = ptr(torch.empty((M, D), dtype=bf, device=dev), bf)
     args.xbuf = ptr(torch.empty((M, max(D, F)), dtype=bf, device=dev), bf)
     if int8:
@@ -434,8 +473,9 @@ def launch_layer(extra: dict, resid, wo_pair, gate, up, down_pair,
             setattr(args, name, attn[name])
         args.sqrt_d = attn["sqrt_d"]
     args.M, args.A, args.D, args.F, args.Nq = M, A, D, F, Nq
-    args.split_a, args.split_b, args.split_c, args.split_d = splits
     args.eps = eps
+    if STAMPS is not None:
+        args.stamps = STAMPS.data_ptr()
     _build.launch("aimet_fused_layer", ctypes.addressof(args), is_attn,
                   int(int8), grid, smem, _build.stream_ptr(dev))
     return out, qkv_next

@@ -30,7 +30,8 @@ path quantize a bf16 input in bf16, which gives different codes.)
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -308,6 +309,8 @@ def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
     x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
     w_scale = w_scale.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if fn is matmul_w8 and w8_decode_route(M, N, K, x.dtype):
+        return _launch_w8_decode(x, w, w_scale, out)
     decode = group is not None and w4g_decode_route(M, N, K, x.dtype)
     if decode:
         splits = w4g_decode_splits(M, N, K)
@@ -346,13 +349,88 @@ def matmul_w8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     """Weight-only INT8: x (M, K) @ int8 codes (K, N) with per-column
     scales (N,) f32. On CUDA tensors (x bf16 or f32, as for
     :func:`matmul_w4`) it launches kernel KW8 (``csrc/wo_gemm.cu``) at every
-    M; on CPU tensors it takes :func:`matmul_w8_torch`."""
+    M: a bf16 x of at most 64 rows with K and N multiples of 16 takes its
+    decode weight-streaming route (:func:`w8_decode_route`,
+    :func:`decode_plan`, one block an SM), the rest its block tile. On CPU
+    tensors it takes :func:`matmul_w8_torch`."""
     return _weight_only("aimet_w8_gemm", x, w_q, w_scale, out_dtype, False,
                         matmul_w8)
 
 
 matmul_w4.launches = 0
 matmul_w8.launches = 0
+
+
+class DecodePlan(NamedTuple):
+    """How the decode weight-streaming routine (``csrc/decode_gemm.cuh``,
+    ``Geo``) cuts one GEMM: slices of DECODE_WIDTH columns, stages of
+    DECODE_STAGE_ROWS weight rows, ``blocks`` contiguous equal ranges of
+    the (slice, stage) units. ``ws_values``: the f32 partial sums it needs,
+    a slot of M x DECODE_WIDTH for each (slice, block) meeting (the C
+    entries refuse a shorter workspace)."""
+    blocks: int
+    slices: int
+    steps: int
+    ws_values: int
+
+
+DECODE_WIDTH = 256         # columns a slice of the decode routine
+DECODE_STAGE_ROWS = 64     # weight rows a stage of the decode routine
+
+
+def decode_plan(M: int, N: int, rows: int, sms: int = _SMS,
+                halves: int = 1) -> DecodePlan:
+    """The cut of a GEMM of M rows of x by ``halves`` weights of ``rows`` x
+    ``N`` on ``sms`` blocks: every block at least two stages, so at most
+    total / 2 blocks."""
+    slices = halves * -(-N // DECODE_WIDTH)
+    steps = -(-rows // DECODE_STAGE_ROWS)
+    blocks = min(sms, max(1, slices * steps // 2))
+    return DecodePlan(blocks, slices, steps,
+                      (slices + blocks - 1) * M * DECODE_WIDTH)
+
+
+def w8_decode_route(M: int, N: int, K: int, x_dtype) -> bool:
+    """Whether KW8 takes its decode weight-streaming route: a bf16 x of
+    1..64 rows, K and N multiples of 16."""
+    return (x_dtype == torch.bfloat16 and 1 <= M <= MAX_DECODE_ROWS
+            and K % 16 == 0 and N % 16 == 0)
+
+
+_COUNTERS = {}
+
+
+def _zeroed_counters(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` int32 slice counters, 0, for the current stream of ``device``
+    (a kernel leaves them 0; launches on one stream do not overlap)."""
+    key = (device.index, _build.stream_ptr(device))
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _launch_w8_decode(x, w, w_scale, out):
+    """KW8's decode route on contiguous, aligned CUDA operands."""
+    M, K = x.shape
+    N = w.shape[1]
+    plan = decode_plan(M, N, K, _sm_count(x.device))
+    ws = torch.empty((plan.ws_values,), dtype=torch.float32,
+                     device=x.device)
+    cnt = _zeroed_counters(x.device, plan.slices)
+    matmul_w8.launches += 1
+    _build.launch("aimet_w8_decode_gemm", x.data_ptr(), w.data_ptr(),
+                  w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  cnt.data_ptr(), M, N, K, plan.blocks, ws.numel(),
+                  cnt.numel(), int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(x.device))
+    return out
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,8 @@ package. Decode mirrors the JAX package's dispatch
 any launch:
 
 - INT4 modes with at most 64 rows on a model with d_model and d_ff of at
-  least 1024 take the whole-layer kernels: at a scalar ``cache_index`` one
+  least 1024, at widths the kernels take (``layer_shapes_ok``: multiples
+  of 32), take the whole-layer kernels: at a scalar ``cache_index`` one
   ``sol_decode_layer`` per layer (KSOL; true W4A8 in ``w4a8`` mode), with
   per-slot positions in ``w4`` mode ``fused_decode_attention`` (K3) +
   ``fused_wo_mlp`` (KFL) with the next layer's QKV; layer 0's QKV and the
@@ -43,7 +44,7 @@ from ..models.transformer import TransformerConfig, apply_rope, rope_freqs
 from ..ops._common import div_ieee
 from ..ops.decode_attention_fused import fused_decode_attention
 from ..ops.decode_layer_sol import sol_decode_layer
-from ..ops.fused_layer import MAX_ROWS, fused_wo_mlp
+from ..ops.fused_layer import MAX_ROWS, fused_wo_mlp, layer_shapes_ok
 from ..ops.int_matmul import (matmul_w4, matmul_w4a8, matmul_w8,
                               quantize_weight_int4,
                               quantize_weight_per_channel)
@@ -217,8 +218,11 @@ def _prefill_attention(cfg, qkv, cos, sin, mask, cache, prompt_lengths):
 def _fused_decode_ok(cfg: TransformerConfig, rows: int, mode: str) -> bool:
     """Whether a decode step takes the whole-layer kernels (see the module
     docstring)."""
+    H, KH, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     return (mode in ("w4", "w4a8") and rows <= MAX_ROWS
-            and cfg.d_model >= 1024 and cfg.d_ff >= 1024)
+            and cfg.d_model >= 1024 and cfg.d_ff >= 1024
+            and layer_shapes_ok(H * HD, cfg.d_model, cfg.d_ff,
+                                (H + 2 * KH) * HD))
 
 
 def _fused_decode_layers(qw, cfg, x, caches, pos, cos, sin, mode,

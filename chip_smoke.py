@@ -154,6 +154,11 @@ CNN_MODES = {
     "w4a8": ("w4a8", 4, lambda c: {"q8_gemm": c, "act_quant": 1,
                                    "w4a8_gemm": 1}),
 }
+# KW8's decode route, timed at 4096 x 28672 besides M = 16 (row "decode")
+W8_DECODE_ROWS = (1, 32, 64)
+# KSOL (w4, next QKV) at Llama-3-8B widths, S = 1024, position 700: the
+# rows a launch takes besides 16
+SOL_ROWS = (1, 32, 64)
 # KW4G's timed rows: (tag, M) at 4096 x 14336, group 128
 W4G_ROWS = (("prefill", 4096), ("decode", 16), ("decode M=32", 32),
             ("decode M=64", 64))
@@ -275,6 +280,41 @@ def bound_ms(nbytes, *ops_at_peak):
     t_ops = sum(n / peak for n, peak in ops_at_peak)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def phase_split(torch, flay, call, runs=10):
+    """Where the whole-layer kernel's time goes: ``call(i)`` launches it
+    once with ``fused_layer.STAMPS`` set, so block 0 writes %globaltimer at
+    kernel start, after each grid-wide barrier and at its end. Returns the
+    median over ``runs`` launches, in ms, of phase 0 (attention), the int8
+    row quantization of its output, the GEMM phases and the epilogues
+    (each span ends at the barrier after it), and their total."""
+    st = torch.zeros(flay.N_STAMPS, dtype=torch.int64, device="cuda")
+    spans = {"attention": [], "int8 rows": [], "GEMM phases": [],
+             "epilogues": [], "total": []}
+    flay.STAMPS = st
+    try:
+        for i in range(runs + 2):
+            st.zero_()
+            call(i)
+            torch.cuda.synchronize()
+            if i < 2:                       # warm-up
+                continue
+            t = st.tolist()
+            hit = [j for j in range(len(t)) if t[j]]
+            run = dict.fromkeys(spans, 0.0)
+            for a, b in zip(hit, hit[1:]):
+                key = ("attention" if b == flay.STAMP_ATTENTION
+                       else "int8 rows" if b == flay.STAMP_INT8_ROWS
+                       else "GEMM phases" if b in flay.STAMP_GEMMS
+                       else "epilogues")
+                run[key] += (t[b] - t[a]) / 1e6
+            run["total"] = (t[hit[-1]] - t[hit[0]]) / 1e6
+            for k in spans:
+                spans[k].append(run[k])
+    finally:
+        flay.STAMPS = None
+    return {k: sorted(v)[len(v) // 2] for k, v in spans.items()}
 
 
 def rel_err(got, want):
@@ -402,9 +442,30 @@ def check_kernels(torch, ops):
             gemm_row(f"{name}[{tag}]", name, m, k, n,
                      lambda i: fn(x, ws[i % 3], sw),
                      lambda i: plain(x, ws[i % 3], sw),
-                     ["wo_gemm_kernel", "wo_reduce_kernel"],
+                     ["wo_gemm_kernel", "wo_reduce_kernel", "w8_decode"],
                      m * k * 2 + ws[0].numel(), BF16_FLOPS)
         del ws, xq, x
+    # KW8's decode route (the w8 serving decode) at every M tile
+    k, n = 4096, 28672
+    ws = [codes(k, n) for _ in range(3)]
+    sw = scales(k, n)
+    for m in W8_DECODE_ROWS:
+        x = randn(m, k)
+        got = tim.matmul_w8(x, ws[0], sw)
+        want = tim.matmul_w8_torch(x, ws[0], sw)
+        note("w8_gemm", got, want)
+        err = rel_err(got, want)
+        assert err < TOL_WO, ("KW8 decode route", m, err)
+        assert torch.equal(tim.matmul_w8(x, ws[0], sw), got), \
+            ("KW8 decode route", m, "repeat")
+        log(f"w8_gemm decode route at M={m}, K={k}, N={n}: within "
+            f"{err:.2e} of max (< {TOL_WO}), repeated calls the same bits")
+        del got, want
+        gemm_row(f"w8_gemm[decode M={m}]", "w8_gemm", m, k, n,
+                 lambda i: tim.matmul_w8(x, ws[i % 3], sw),
+                 lambda i: tim.matmul_w8_torch(x, ws[i % 3], sw),
+                 ["w8_decode"], m * k * 2 + ws[0].numel(), BF16_FLOPS)
+    del ws, x
 
     # --- K3: decode attention at B=16, S=1024, H=32, KH=8, D=128
     B, S, H, KH, D = 16, 1024, 32, 8, 128
@@ -502,7 +563,10 @@ def check_kernels(torch, ops):
         rows[label] = dict(kernel="fused_wo_mlp",
                            shape=f"M={B} A={A} D={Dm} F={F}"
                            + f" Nq={Nq}" * nxt, ms=ms, call_ms=call,
-                           plain_ms=pms, bound_ms=b, bound_by=how)
+                           plain_ms=pms, bound_ms=b, bound_by=how,
+                           phases=phase_split(
+                               torch, flay, lambda i: flay.fused_wo_mlp(
+                                   ao, resid, **kw[i % 2])))
 
     from aimet_tpu_torch.models.transformer import (TransformerConfig,
                                                     rope_freqs)
@@ -575,7 +639,55 @@ def check_kernels(torch, ops):
             kernel="sol_decode_layer",
             shape=f"B={B} S={S} position {pos} H={H} KH={KH} D={Dm} F={F} "
             f"Nq={Nq}, int8_dots={int8_dots}", ms=ms, call_ms=call,
-            plain_ms=pms, bound_ms=b, bound_by=how)
+            plain_ms=pms, bound_ms=b, bound_by=how,
+            phases=phase_split(torch, flay, sol))
+    # KSOL (w4, next QKV) at the decode streaming routine's other M tiles
+    for m in SOL_ROWS:
+        pm = torch.full((m,), pos, device=dev, dtype=torch.int32)
+        cm, sm = rope_freqs(TransformerConfig.llama3_8b(), pm)
+        rm = randn(m, Dm)
+        msets = [(randn(m, (H + 2 * KH) * D),
+                  torch.randint(-127, 128, (m, S, KH, D), dtype=torch.int8,
+                                generator=g, device=dev),
+                  torch.randint(-127, 128, (m, S, KH, D), dtype=torch.int8,
+                                generator=g, device=dev),
+                  torch.rand((m, KH), generator=g, device=dev) * 0.05 + 0.01,
+                  torch.rand((m, KH), generator=g, device=dev) * 0.05 + 0.01)
+                 for _ in range(2)]
+
+        def solm(i, fn=dsol.sol_decode_layer, caches=None):
+            q_, kc_, vc_, ks_, vs_ = msets[i % 2]
+            kc_, vc_ = caches or (kc_, vc_)
+            return fn(q_, rm, kc_, vc_, ks_, vs_, pos, cm, sm, **lw[i % 2],
+                      n_heads=H, n_kv_heads=KH)
+        c1 = [t.clone() for t in msets[0][1:3]]
+        c2 = [t.clone() for t in msets[0][1:3]]
+        got, want = solm(0, caches=c1), solm(0, dsol.sol_decode_layer_torch,
+                                            caches=c2)
+        assert torch.equal(c1[0], c2[0]) and torch.equal(c1[1], c2[1]), \
+            ("KSOL cache bytes", m)
+        err = max(rel_err(a_, b_) for a_, b_ in zip(got[:2], want[:2]))
+        for a_, b_ in zip(got[:2], want[:2]):
+            note("sol_decode_layer", a_, b_)
+        assert err < TOL_ATTN, ("KSOL", m, err)
+        log(f"KSOL sol_decode_layer at B={m} (next_qkv): cache bytes "
+            f"bit-exact, within {err:.3e} of max (< {TOL_ATTN})")
+        del c1, c2, got, want
+        ms, call = timed(solm, 20, ["fused_layer_kernel"])
+        pms, _ = timed(lambda i: solm(i, dsol.sol_decode_layer_torch), 3)
+        livem = m * (pos + 1)
+        kvm = (2 * livem * KH * D + m * (H + 2 * KH) * D * 2
+               + 2 * m * D // 2 * 4 + 4 * m * KH * 4)
+        b, how = bound_ms(wbytes + qbytes + kvm + 2 * m * Dm * 2
+                          + m * Nq * 2,
+                          (gemm_ops * m // B + 2 * m * Dm * Nq, BF16_FLOPS),
+                          (4 * livem * H * D, F32_FLOPS))
+        rows[f"sol_decode_layer[w4 B={m}]"] = dict(
+            kernel="sol_decode_layer",
+            shape=f"B={m} S={S} position {pos} H={H} KH={KH} D={Dm} F={F} "
+            f"Nq={Nq}, int8_dots=False", ms=ms, call_ms=call, plain_ms=pms,
+            bound_ms=b, bound_by=how)
+        del msets
     for nxt, tag, site in ((False, "last", 457), (True, "next_qkv", 502)):
         def kdl(i, fn=flay.fused_decode_layer):
             s_ = sets[i % 4]
@@ -594,7 +706,8 @@ def check_kernels(torch, ops):
             replaces=f"aimet_tpu/ops/fused_layer.py:{site}",
             shape=f"B={B} S={S} position {pos} H={H} KH={KH} D={Dm} F={F}"
             + f" Nq={Nq}" * nxt + ", flat caches, gate|up one array",
-            ms=ms, call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how)
+            ms=ms, call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how,
+            phases=phase_split(torch, flay, kdl))
     check_gqa_kernel(torch, gqa, g, rows, note, attn_inputs, pos)
     del sets, lw
     check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
@@ -1024,12 +1137,14 @@ def int32_conv_sweep(torch, tim, shapes):
 
 
 def library_probes(torch, tim, g, rows):
-    """The library column of KW8 and KW4G: whether PyTorch's weight-only
-    int8 and int4 matmuls (torch._weight_int8pack_mm,
+    """The library column of KW8, KW4 and KW4G: whether PyTorch's
+    weight-only int8 and int4 matmuls (torch._weight_int8pack_mm,
     torch._weight_int4pack_mm) run on this card, and their time at the
-    rows' shapes where one computes the row's function."""
+    rows' shapes where one computes the row's function (KW4's per-column
+    scale as group scales of 128)."""
     dev = "cuda"
-    for tag, m in (("decode", 16), ("prefill", 4096)):
+    for tag, m in (("decode", 16), ("prefill", 4096)) + tuple(
+            (f"decode M={m}", m) for m in W8_DECODE_ROWS):
         k, n = 4096, 28672
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
@@ -1068,7 +1183,31 @@ def library_probes(torch, tim, g, rows):
         except Exception as e:
             row["library_note"] = f"torch._weight_int4pack_mm: {e}"[:200]
         del x, packed
+    for tag, m in (("decode", 16), ("prefill", 4096)):
+        # KW4: tinygemm with the column scale repeated over groups of 128
+        # (the scale rounded to bf16, the kernel keeps it f32) and zeros 0
+        k, n = 4096, 28672
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        packed, sc = tim.quantize_weight_int4(
+            torch.randn((k, n), generator=g, device=dev) * 0.02)
+        row = rows[f"w4_gemm[{tag}]"]
+        try:
+            u = (tim.unpack_int4(packed).to(torch.int32) + 8).t()
+            u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            wt = torch._convert_weight_to_int4pack(u8.contiguous(), 8)
+            sz = torch.stack([sc.expand(k // 128, n),
+                              torch.zeros((k // 128, n), device=dev)],
+                             -1).to(torch.bfloat16).contiguous()
+            got = torch._weight_int4pack_mm(x, wt, 128, sz)
+            row["library_err"] = rel_err(got, tim.matmul_w4(x, packed, sc))
+            row["library_ms"], _ = timed(
+                lambda i: torch._weight_int4pack_mm(x, wt, 128, sz), 10)
+        except Exception as e:
+            row["library_note"] = f"torch._weight_int4pack_mm: {e}"[:200]
+        del x, packed
     for label in ["w8_gemm[decode]", "w8_gemm[prefill]"] + [
+            f"w8_gemm[decode M={m}]" for m in W8_DECODE_ROWS] + [
+            "w4_gemm[decode]", "w4_gemm[prefill]"] + [
             f"w4_grouped_gemm[{tag}]" for tag, _ in W4G_ROWS]:
         r = rows[label]
         log(f"  library for {label}: "
@@ -2169,6 +2308,150 @@ def cnn(torch, tim, counters, g):
     return metrics, launches
 
 
+# Variants of the whole-layer kernel for ``--layer-variants``: name ->
+# (text, replacement) pairs applied to csrc/fused_layer.cu: the kAhead
+# weight stages of the next GEMM phase that the producer issues during
+# each epilogue, none or more than the build's 2.
+LAYER_VARIANTS = {
+    "as built": (),
+    "kAhead 0": (("constexpr int kAhead = 2;", "constexpr int kAhead = 0;"),),
+    "kAhead 4": (("constexpr int kAhead = 2;", "constexpr int kAhead = 4;"),),
+}
+
+
+def variant_libraries(_build):
+    """Builds csrc/fused_layer.cu once for each LAYER_VARIANTS entry (one
+    nvcc each, all started together) under the git-ignored build root;
+    returns name -> ctypes library holding the whole-layer kernel's C
+    entries."""
+    import ctypes
+    import shutil
+    src = (_build.CSRC / "fused_layer.cu").read_text()
+    nvcc = _build.find_nvcc()
+    procs = {}
+    for i, (name, subs) in enumerate(LAYER_VARIANTS.items()):
+        text = src
+        for old, new in subs:
+            assert text.count(old) == 1, ("variant", name, old)
+            text = text.replace(old, new)
+        d = _build.BUILD_ROOT / "variants" / str(i)
+        d.mkdir(parents=True, exist_ok=True)
+        for h in _build.CSRC.glob("*.cuh"):
+            shutil.copy(h, d)
+        (d / "fused_layer.cu").write_text(text)
+        procs[name] = (d / "lib.so", subprocess.Popen(
+            [nvcc, *_build.CFLAGS, "-shared", str(d / "fused_layer.cu"),
+             "-o", str(d / "lib.so")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, p) in procs.items():
+        out, _ = p.communicate()
+        assert p.returncode == 0, ("variant build", name, out[-4000:])
+        lib = ctypes.CDLL(str(path))
+        for fn in ("aimet_fused_layer_smem", "aimet_fused_layer_grid",
+                   "aimet_fused_layer"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def layer_variants() -> int:
+    """``python3 chip_smoke.py --layer-variants``: KSOL (w4 and w4a8, row
+    13's shape: B 16, S 1024, position 700, next QKV) and KFL (next QKV)
+    built as they are and with other early weight issues
+    (LAYER_VARIANTS): device ms (median of 20 launches) and the phase
+    split of each, in two rounds (the second in reverse order) so the
+    spread between runs shows; every variant's outputs equal to the
+    build's bit for bit."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    rope_freqs)
+    from aimet_tpu_torch.ops import decode_layer_sol as dsol
+    from aimet_tpu_torch.ops import fused_layer as flay
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t = time.time()
+    libs = variant_libraries(_build)
+    log(f"{smi}; {len(libs)} variants built in {time.time() - t:.1f} s")
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, H, KH, D, Dm, F, pos = 16, 1024, 32, 8, 128, 4096, 14336, 700
+    A, Nq = H * D, (H + 2 * KH) * D
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def codes(r, n):
+        return torch.randint(-128, 128, (r, n), dtype=torch.int8,
+                             generator=g, device=dev)
+
+    def scales(k, n):
+        return (torch.rand((n,), generator=g, device=dev) + 0.5) * 0.02 \
+            / k ** 0.5
+
+    ones = torch.ones(Dm, dtype=torch.bfloat16, device=dev)
+    lw = [dict(wo_pair=(codes(A // 2, Dm), scales(A, Dm)),
+               gateup_pair=(codes(Dm // 2, 2 * F), scales(Dm, 2 * F)),
+               down_pair=(codes(F // 2, Dm), scales(F, Dm)),
+               mlp_gamma=ones,
+               next_qkv=((codes(Dm // 2, Nq), scales(Dm, Nq)), ones))
+          for _ in range(2)]                  # 2 x 109 MB > L2
+    jw = [jax_form(w) for w in lw]
+    resid, ao = randn(B, Dm), randn(B, A)
+    sets = [(randn(B, Nq),
+             *(torch.randint(-127, 128, (B, S, KH, D), dtype=torch.int8,
+                             generator=g, device=dev) for _ in range(2)),
+             *(torch.rand((B, KH), generator=g, device=dev) * 0.05 + 0.01
+               for _ in range(2)))
+            for _ in range(4)]
+    cos, sin = rope_freqs(TransformerConfig.llama3_8b(),
+                          torch.full((B,), pos, device=dev))
+
+    def ksol(int8_dots):
+        def call(i):
+            q, kc, vc, ks, vs = sets[i % 4]
+            return dsol.sol_decode_layer(q, resid, kc, vc, ks, vs, pos, cos,
+                                         sin, **lw[i % 2], n_heads=H,
+                                         n_kv_heads=KH, int8_dots=int8_dots)
+        return call
+
+    cases = {"KSOL w4": ksol(False), "KSOL w4a8": ksol(True),
+             "KFL next QKV": lambda i: flay.fused_wo_mlp(ao, resid,
+                                                         **jw[i % 2])}
+    built, ref, res = _build.library, {}, {}
+    try:
+        for rnd, order in enumerate((list(libs), list(libs)[::-1])):
+            for name in order:
+                _build.library = lambda lib=libs[name]: lib
+                for case, call in cases.items():
+                    out = [t_ for t_ in call(0) if t_ is not None]
+                    torch.cuda.synchronize()
+                    for a_, b_ in zip(out, ref.setdefault(case, out)):
+                        assert torch.equal(a_, b_), ("variant bits", name,
+                                                     case)
+                    ms, _ = timed(call, 20, ["fused_layer_kernel"])
+                    ph = phase_split(torch, flay, call)
+                    res.setdefault(case, {}).setdefault(name, []).append(
+                        dict(ms=ms, **ph))
+                    log(f"round {rnd + 1} {case:13s} {name:17s} {ms:.5f} ms;"
+                        " split " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in ph.items()))
+    finally:
+        _build.library = built
+    log("every variant's outputs equal to the build's, bit for bit")
+    log(smi)
+    log(json.dumps({"layer_variants": res, "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2219,6 +2502,10 @@ def main() -> int:
             f"device ({r['call_ms']:.4f} ms per wrapper call), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+        if "phases" in r:
+            log(f"  {'':24s} phase split (block 0's %globaltimer, median "
+                "of 10 launches, ms): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in r["phases"].items()))
 
     # --- 3 and 4. the main path of each mode at Llama-3-8B widths
     cfg = TransformerConfig.llama3_8b()
@@ -2339,4 +2626,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(layer_variants() if sys.argv[1:] == ["--layer-variants"]
+             else main())

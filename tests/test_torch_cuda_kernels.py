@@ -21,6 +21,10 @@ an N-major one: the mma.sync tile), at conv-patch K including the stem's
 147; KW4G takes group sizes that are not multiples of 16 (8, 24) within
 the same 1e-2; K3, KGQA and KSOL keep their tolerances and bit-exact
 cache bytes at S = 16,384, whose score rows do not fit in shared memory.
+KW8's decode weight-streaming route (bf16 x, M <= 64) keeps KW8's 1e-2 at
+M = 1, 16, 17, 32, 64 on N and K that fill no whole slice or stage, and
+the whole-layer kernels (KSOL, KDL, KFL) keep theirs at M = 1, 16, 33, 64
+with KDL = KSOL bit for bit and repeated launches bit-identical.
 """
 import pytest
 import torch
@@ -589,7 +593,7 @@ def test_gqa_attention_kernel_at_long_cache(gen, dtype):
 
 
 def test_sol_decode_layer_kernel_at_long_cache(gen):
-    """KSOL at S = 16,384 (past the 13,376 its 8 warps take in shared
+    """KSOL at S = 16,384 (past the 13,248 its 9 warps take in shared
     memory at Llama-3-8B heads): cache bytes bit-exact, output within 2e-2
     of the max."""
     b, h, kh, d, f = 4, 32, 8, 128, 5632
@@ -604,4 +608,89 @@ def test_sol_decode_layer_kernel_at_long_cache(gen):
     torch.cuda.synchronize()
     assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
     for g, w in zip(got[:2], want[:2]):
+        assert _rel(g, w) < 2e-2
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 64])
+def test_w8_decode_route_matches_plain(gen, m, out_dtype):
+    """KW8's decode weight-streaming route (bf16 x, M <= 64) at every M
+    tile, on N and K that are multiples of 16 but of no slice or stage
+    (1296 = 5 x 256 + 16 columns, 1040 = 16 x 64 + 16 rows): within 1e-2
+    of the plain version's max, the same bits on repeated calls."""
+    k, n = 1040, 1296
+    assert tim.w8_decode_route(m, n, k, torch.bfloat16)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    before = tim.matmul_w8.launches
+    got = tim.matmul_w8(x, w, scale, out_dtype)
+    assert tim.matmul_w8.launches == before + 1
+    want = tim.matmul_w8_torch(x, w, scale, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert _rel(got, want) < 1e-2
+    for _ in range(3):
+        assert torch.equal(tim.matmul_w8(x, w, scale, out_dtype), got)
+
+
+@pytest.mark.parametrize("m", [1, 16, 33, 64])
+def test_w8_decode_route_at_llama_widths(gen, m):
+    """KW8's decode route at the w8 serving shapes (W_qkv and W_down of
+    Llama-3-8B): slices split across blocks, summed by the block that
+    brings the last piece."""
+    for k, n in ((4096, 6144), (14336, 4096)):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = torch.randint(-128, 128, (k, n), dtype=torch.int8,
+                          generator=gen, device="cuda")
+        scale = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+        got = tim.matmul_w8(x, w, scale)
+        assert _rel(got, tim.matmul_w8_torch(x, w, scale)) < 1e-2
+        assert torch.equal(tim.matmul_w8(x, w, scale), got)
+
+
+@pytest.mark.parametrize("int8_dots,next_qkv", [
+    (False, False), (False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("m", [1, 16, 33, 64])
+def test_whole_layer_kernels_at_every_row_count(gen, m, int8_dots,
+                                                next_qkv):
+    """KSOL, KDL and KFL at M = 1, 16, 33 and 64 (every M tile of the
+    decode streaming routine): within 2e-2 of their plain versions (6e-2
+    with int8 dots), cache bytes bit-exact, KDL = KSOL bit for bit, and
+    the same bits on a repeated launch."""
+    s, h, kh, d, f, pos = 256, 16, 4, 128, 5632, 200
+    qkv, resid, kc, vc, ks, vs, cos, sin = _layer_inputs(gen, m, s, h, kh,
+                                                         d, pos)
+    blk = _block(gen, h * d, h * d, f, (h + 2 * kh) * d if next_qkv else 0)
+    kw = dict(n_heads=h, n_kv_heads=kh)
+    caches = [(kc.clone(), vc.clone()) for _ in range(4)]
+    got = sol_decode_layer(qkv, resid, *caches[0], ks, vs, pos, cos, sin,
+                           int8_dots=int8_dots, **kw, **blk)
+    again = sol_decode_layer(qkv, resid, *caches[1], ks, vs, pos, cos, sin,
+                             int8_dots=int8_dots, **kw, **blk)
+    want = sol_decode_layer_torch(qkv, resid, *caches[2], ks, vs, pos, cos,
+                                  sin, int8_dots=int8_dots, **kw, **blk)
+    torch.cuda.synchronize()
+    n_out = 2 if next_qkv else 1
+    for c in caches[1:3]:
+        assert torch.equal(caches[0][0], c[0]) and torch.equal(
+            caches[0][1], c[1])
+    for g, a, w in zip(got[:n_out], again[:n_out], want[:n_out]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g, w) < (6e-2 if int8_dots else 2e-2)
+        assert torch.equal(g, a)
+    if int8_dots:
+        return
+    kdl = fused_decode_layer(qkv, resid, *caches[3], ks, vs, pos, cos, sin,
+                             **kw, **_jax_form(blk))
+    for g, o in zip(kdl[:n_out], got[:n_out]):
+        assert torch.equal(g, o)
+    ao = torch.randn((m, h * d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    fkw = _jax_form(blk)
+    fl = fused_wo_mlp(ao, resid, **fkw)
+    fw = fused_wo_mlp_torch(ao, resid, **fkw)
+    fl, fw = (fl, fw) if next_qkv else ((fl,), (fw,))
+    for g, w in zip(fl, fw):
         assert _rel(g, w) < 2e-2

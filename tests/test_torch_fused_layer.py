@@ -324,3 +324,54 @@ def test_fused_decode_layer_two_layer_chain():
         bound = mix * d.reshape(B, KH, HD).max(-1) / np.asarray(scale) + 1
         assert (np.abs(p[:, POS] - j[:, POS]).max(-1) <= bound).all()
     assert _relmax(px, jx) < 2e-2, _relmax(px, jx)
+
+
+@pytest.mark.parametrize("m", [1, 16, 33, 64])
+def test_whole_layer_workspace_sizes(m):
+    """The wrapper's workspaces for one launch at Llama-3-8B widths on 132
+    blocks: partial sums for the largest GEMM phase's slots (slice + block
+    of every piece, M x 256 values each), row partials for the epilogue
+    items of a row (1024 columns each)."""
+    from aimet_tpu_torch.ops import fused_layer as flay
+    from aimet_tpu_torch.ops.int_matmul import decode_plan
+    A, D, F, nq = 4096, 4096, 14336, 6144
+    part, rowpart = flay.layer_workspace(m, A, D, F, nq, 132)
+    need = 0
+    for n, rows, halves in ((D, A // 2, 1), (F, D // 2, 2), (D, F // 2, 1),
+                            (nq, D // 2, 1)):
+        plan = decode_plan(m, n, rows, 132, halves)
+        total = plan.slices * plan.steps
+        # the highest slot: block b's last unit lies in slice j, slot j + b
+        top = max(b + ((b + 1) * total // plan.blocks - 1) // plan.steps
+                  for b in range(plan.blocks))
+        assert (top + 1) * m * 256 == plan.ws_values
+        need = max(need, plan.ws_values)
+    assert part == need
+    assert rowpart == m * (D // 1024)
+    # without the next QKV the largest phase is the same (gate|up)
+    assert flay.layer_workspace(m, A, D, F, 0, 132) == (part, rowpart)
+
+
+@pytest.mark.parametrize("a,d,f,nq,ok", [
+    (4096, 4096, 14336, 6144, True),
+    (4096, 4096, 14336, 0, True),          # last layer: no next QKV
+    (1024, 1024, 1040, 1536, False),       # d_ff not a multiple of 32
+    (1040, 1024, 1024, 1552, False),
+    (1024, 1024, 1024, 1544, False),       # Nq not a multiple of 16
+])
+def test_layer_shapes_ok(a, d, f, nq, ok):
+    from aimet_tpu_torch.ops import fused_layer as flay
+    assert flay.layer_shapes_ok(a, d, f, nq) is ok
+
+
+@pytest.mark.parametrize("d_ff,fused", [(1024, True), (1040, False)])
+def test_serving_takes_the_whole_layer_kernels_only_at_their_widths(
+        d_ff, fused):
+    """A w4 decode step takes the whole-layer kernels only at widths the
+    kernels take; at d_ff = 1040 it runs per op instead of raising."""
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.serving import quantized_llm as qllm
+    cfg = TransformerConfig(vocab_size=256, d_model=1024, n_layers=1,
+                            n_heads=8, n_kv_heads=2, d_ff=d_ff)
+    assert qllm._fused_decode_ok(cfg, 16, "w4") is fused
+    assert qllm._fused_decode_ok(cfg, 16, "w4a8") is fused

@@ -86,6 +86,86 @@ def test_decode_splits_fill_the_card_at_decode_only():
     assert tim.decode_splits(16, 4096, 3) == 1      # >= 2 steps a split
 
 
+@pytest.mark.parametrize("m,n,k,dtype,want", [
+    (1, 4096, 4096, torch.bfloat16, True),
+    (64, 28672, 4096, torch.bfloat16, True),
+    (65, 4096, 4096, torch.bfloat16, False),     # prefill M: the tile
+    (0, 4096, 4096, torch.bfloat16, False),
+    (16, 4096, 4096, torch.float32, False),      # f32 x: the tile
+    (16, 4104, 4096, torch.bfloat16, False),     # N % 16
+    (16, 4096, 4104, torch.bfloat16, False),     # K % 16
+    (16, 1296, 1040, torch.bfloat16, True),
+])
+def test_w8_decode_route_edges(m, n, k, dtype, want):
+    assert tim.w8_decode_route(m, n, k, dtype) is want
+
+
+def _pieces(plan, b):
+    """Block b's pieces under a decode plan, as ``decode_gemm.cuh``'s
+    ``for_pieces`` walks them: (slice, first stage, end stage), in order."""
+    total = plan.slices * plan.steps
+    u, u1 = b * total // plan.blocks, (b + 1) * total // plan.blocks
+    out = []
+    while u < u1:
+        j = u // plan.steps
+        ue = min(u1, (j + 1) * plan.steps)
+        out.append((j, u - j * plan.steps, ue - j * plan.steps))
+        u = ue
+    return out
+
+
+def _plan_bytes(plan, n, rows):
+    """Weight bytes each block of a decode plan streams (int8 rows of n
+    columns, slices of 256)."""
+    out = []
+    for b in range(plan.blocks):
+        total = 0
+        for j, s0, s1 in _pieces(plan, b):
+            cols = min(256, n - j * 256)
+            total += cols * (min(s1 * 64, rows) - s0 * 64)
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (28672, 4096),
+                                 (4096, 14336), (128256, 4096),
+                                 (1296, 1040)])
+def test_w8_decode_plan_shares_bytes_evenly(n, k):
+    """Over 132 SMs every block streams the same weight bytes, within one
+    stage (64 rows x the slice) and the narrower last slice; each block at
+    least two stages; pieces cover every (slice, stage) unit once, and the
+    workspace slots (slice + block) are distinct and within its size."""
+    m = 16
+    plan = tim.decode_plan(m, n, k, 132)
+    assert plan.slices == -(-n // 256) and plan.steps == -(-k // 64)
+    assert plan.blocks == min(132, plan.slices * plan.steps // 2)
+    seen, slots = [], set()
+    for b in range(plan.blocks):
+        pieces = _pieces(plan, b)
+        assert sum(s1 - s0 for _, s0, s1 in pieces) >= 2
+        for j, s0, s1 in pieces:
+            seen += [(j, s) for s in range(s0, s1)]
+            assert j + b not in slots
+            slots.add(j + b)
+    assert sorted(seen) == [(j, s) for j in range(plan.slices)
+                            for s in range(plan.steps)]
+    assert (max(slots) + 1) * m * 256 <= plan.ws_values
+    got = _plan_bytes(plan, n, k)
+    assert sum(got) == n * k
+    assert max(got) - min(got) <= 2 * 64 * 256
+
+
+def test_w8_decode_plan_at_small_shapes():
+    # fewer than 2 x 132 stages: fewer blocks, two stages each at least
+    plan = tim.decode_plan(16, 512, 1024, 132)
+    assert plan.slices == 2 and plan.steps == 16 and plan.blocks == 16
+    # N below one slice: one slice of 256 columns (the kernel masks the
+    # columns past N), one block
+    plan = tim.decode_plan(1, 128, 16, 132)
+    assert (plan.slices, plan.steps, plan.blocks) == (1, 1, 1)
+    assert plan.ws_values == 1 * 256
+
+
 def test_weight_only_rejects_bad_shapes():
     x = torch.zeros(4, 10)
     with pytest.raises(ValueError):
