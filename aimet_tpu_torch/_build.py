@@ -46,9 +46,15 @@ SIGNATURES = {
     # xq, sx, wp, sw, out, ws, M, N, K2, splits, out_is_bf16, stream
     "aimet_w4a8_gemm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                         _VP],
-    # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out, scores,
-    # B, S, H, KH, D, sqrt_d, io_is_bf16, stream
-    "aimet_decode_attention": [_VP] * 12 + [_I] * 5 + [_F, _I, _VP],
+    # xq, sx, wp, sw, out, ws, cnt, M, N, K2, blocks, ws_values,
+    # cnt_values, out_is_bf16, stream
+    "aimet_w4a8_decode_gemm": [_VP] * 7 + [_I] * 4
+    + [ctypes.c_longlong, _I, _I, _VP],
+    # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out, ws, cnt,
+    # B, S, H, KH, D, chunk, ws_values, cnt_values, sqrt_d, io_is_bf16,
+    # stream
+    "aimet_decode_attention": [_VP] * 13 + [_I] * 6
+    + [ctypes.c_longlong, _I, _F, _I, _VP],
     # q, kc, vc, ks, vs, pos, out, scores, B, S, KH, rep, D, sqrt_d,
     # q_is_bf16, stream
     "aimet_gqa_attention": [_VP] * 5 + [_I, _VP, _VP] + [_I] * 5

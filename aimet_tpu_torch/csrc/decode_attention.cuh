@@ -1,9 +1,19 @@
-// The one-token GQA decode attention of K3 (decode_attention.cu) as a
-// block-level device function, shared by K3 and by phase 0 of the
-// whole-layer decode kernels KSOL / KDL (fused_layer.cu); its scores,
-// softmax and context (attend) are also KGQA's (gqa_attention.cu). See
-// decode_attention.cu for what it computes and why it is laid out this
-// way.
+// One-token GQA decode attention as a block-level device function, one
+// block a (batch row, kv head): phase 0 of the whole-layer decode kernels
+// KSOL / KDL (fused_layer.cu); its scores, softmax and context (attend) are
+// also KGQA's (gqa_attention.cu). K3 (decode_attention.cu) computes the
+// same function split across blocks (split_attention.cuh) and uses only
+// rope_at from here. What it computes is described in decode_attention.cu.
+//
+// Design: the rep query heads of one kv head share every K/V byte they read
+// (GQA reuse in registers); for the scores and for the context the warps
+// take cache rows in turn, a lane 4 bytes of a row, so a warp reads a
+// whole 128-byte row at once, and each warp issues the loads of 8 rows
+// before it uses any. The score rows sit in shared memory while they fit
+// (S <= 12,352 at rep 4, D 128, with 16 warps); for a longer cache the
+// caller passes a (B, KH, rep, S) f32 workspace and the rows live there,
+// with the same arithmetic, so every cache length is taken. Splitting S
+// across blocks as K3 does is open for these callers.
 #pragma once
 #include "common.cuh"
 

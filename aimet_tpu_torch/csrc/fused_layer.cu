@@ -15,8 +15,9 @@
 //
 // For M <= 64 rows (one token per decode slot), all weights split-half
 // INT4 with per-column f32 scales and bf16 activations:
-//   0 (KSOL)  ao = decode attention of K3 (decode_attention.cuh): rope,
-//             INT8-KV quantize and in-place append, GQA over the cache
+//   0 (KSOL)  ao = decode attention (decode_attention.cuh, K3's function
+//             one block a (row, kv head)): rope, INT8-KV quantize and
+//             in-place append, GQA over the cache
 //   A         y   = bf16(ao @ W_o) + resid
 //   B         h   = bf16(silu(g) * u),  g = rmsnorm(y, mlp_gamma) @ W_gate,
 //                                       u = rmsnorm(y, mlp_gamma) @ W_up

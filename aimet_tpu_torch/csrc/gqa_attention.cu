@@ -20,8 +20,8 @@
 //      points);
 //   5. each prob divided by the row's sum and rounded to T;
 //   6. the context from the int8 V rows in f32, times v_scale; f32 out.
-// Steps 2-6 are K3's (decode_attention.cuh: attend), with the probs
-// rounded as step 5 says. A negative position masks every row: the
+// Steps 2-6 are attend's (decode_attention.cuh, KSOL's phase 0), with
+// the probs rounded as step 5 says. A negative position masks every row: the
 // softmax of S equal scores averages the S rows uniformly, as the
 // reference's does. A position >= S attends over all S rows.
 //

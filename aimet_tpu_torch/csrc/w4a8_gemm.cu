@@ -12,23 +12,29 @@
 // layout (int_matmul.py:85-105): packed byte p of row r holds
 // W[r] + 8 in its low nibble and W[r + K/2] (signed) in its high nibble.
 // The nibbles are unpacked to signed int8 in registers (lo = (p & 15) - 8,
-// hi = p >> 4, arithmetic) on their way into shared memory; Hopper's MMA
-// takes no int4.
+// hi = p >> 4, arithmetic); Hopper's MMA takes no int4.
 //
 // Bound on the H100: at prefill (M >= a few hundred) the int8 tensor-core
-// rate (1,979 TOP/s dense); at decode (M = 16..32) the packed weight bytes
-// (K/2 x N at 3.35 TB/s).
-// Design: a simple tiled kernel on mma.sync.m16n8k32.s8.s8.s32 (the block
-// tile aimet::s8_tile of gemm_tiles.cuh, shared with the whole-layer
-// kernel). A block owns a 64 x 128 output tile and walks its K range 64
-// packed rows (128 k values) at a time.
-// For the decode shapes, where the M x N grid alone cannot fill 132 SMs,
-// the K range is split across blocks and the exact int32 partial sums are
-// combined with integer atomics (order-independent, so the result stays
-// bit-exact), followed by a small epilogue kernel. A TMA + wgmma pipeline
-// is later work.
+// rate (1,979 TOP/s dense); at decode (M <= 64) the packed weight bytes
+// (K/2 x N at 3.35 TB/s). Two routes, chosen from the shape alone
+// (ops/int_matmul.py, w4a8_decode_route):
+// - decode M (1 <= M <= 64, K/2 and N multiples of 16): w4a8_decode_kernel,
+//   the decode weight-streaming routine of decode_gemm.cuh in its kW4Int8
+//   kind (the one KSOL's w4a8 phases run): one block an SM, each streaming
+//   an equal share of the packed weight bytes through a cp.async ring, x by
+//   TMA, exact int32 sums; a slice split across blocks is added in block
+//   order by the last block to finish its piece (slice counters left 0);
+// - every other shape: a simple tiled kernel on mma.sync.m16n8k32.s8.s8.s32
+//   (the block tile aimet::s8_tile of gemm_tiles.cuh). A block owns a
+//   64 x 128 output tile and walks its K range 64 packed rows at a time.
+//   Where the M x N grid alone cannot fill 132 SMs (ragged small shapes
+//   the decode route refuses), the K range is split across blocks and the
+//   int32 partial sums are combined with integer atomics into a zeroed
+//   (M, N) buffer (order-independent, so bit-exact), then a small epilogue
+//   kernel. A TMA + wgmma tile for prefill M is later work.
 #include <algorithm>
 
+#include "decode_gemm.cuh"
 #include "gemm_tiles.cuh"
 
 namespace {
@@ -113,6 +119,107 @@ int run(const int8_t* xq, const float* sx, const int8_t* wp, const float* sw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------- K2 at decode M
+// The same function on the decode weight-streaming routine (kW4Int8): x
+// (M <= 64, K = 2 K2 int8 values a row) by TMA, the packed weights by
+// cp.async. A slice held by one block goes straight to out; else each
+// piece's int32 sums go to workspace slot (slice + block) and the last
+// block of the slice adds them in block order. cnt: one int a slice, 0 on
+// entry and on exit.
+template <typename OutT>
+__global__ void __launch_bounds__(aimet::dec::kThreads, 1)
+w4a8_decode_kernel(const int8_t* __restrict__ wp,
+                   const __grid_constant__ CUtensorMap map_x,
+                   const float* __restrict__ sx, const float* __restrict__ sw,
+                   OutT* __restrict__ out, int* __restrict__ ws,
+                   int* __restrict__ cnt, int M, int N, int K2) {
+  namespace dec = aimet::dec;
+  constexpr int kW = dec::kW;
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  int* flag = reinterpret_cast<int*>(dsmem + 512);
+  const int mt = (M + 15) / 16;
+  dec::Ring ring = dec::make_ring<dec::kW4Int8>(dsmem, mt);
+  __syncthreads();
+  const dec::Geo g(M, K2, N, 1, gridDim.x);
+  const dec::Operand op{wp, nullptr, N, &map_x, K2};
+  dec::stream_gemm<dec::kW4Int8>(
+      op, g, mt, ring, [&](const dec::Piece& p, const auto& acc) {
+        const int n0 = p.j * kW, ncols = min(kW, N - n0);
+        const int b0 = g.first_block(p.j), b1 = g.last_block(p.j);
+        if (b0 == b1) {                      // the slice whole: to out
+          const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+          const int t = lane & 3, gq = lane >> 2;
+          constexpr int kMT = sizeof(acc) / sizeof(acc[0]);
+#pragma unroll
+          for (int mb = 0; mb < kMT; ++mb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int m = 16 * mb + gq + 8 * (e >> 1);
+              const int c = warp * 32 + 8 * t + 4 * (e & 1);
+              if (m >= M || c >= ncols) continue;
+              OutT* o = out + (size_t)m * N + n0 + c;
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                store_out(o + i, epilogue(acc[mb][i][e], sx[m],
+                                          sw[n0 + c + i]));
+            }
+          return;
+        }
+        dec::store_piece(ws + (size_t)(p.j + blockIdx.x) * M * kW, acc, M,
+                         ncols);
+        // the consumers' barrier, then one thread's fence, release the
+        // piece (as w8_decode_kernel in wo_gemm.cu)
+        dec::consumer_sync();
+        if (threadIdx.x == 0) {
+          __threadfence();
+          const bool last = atomicAdd(&cnt[p.j], 1) == b1 - b0;
+          if (last) {
+            cnt[p.j] = 0;                    // ready for the next call
+            __threadfence();
+          }
+          *flag = last;
+        }
+        dec::consumer_sync();
+        if (!*flag) return;
+        // 4 columns a thread at a time: ncols is a multiple of 16
+        for (int i = 4 * threadIdx.x; i < M * ncols;
+             i += 4 * 32 * dec::kConsumerWarps) {
+          const int m = i / ncols, c = i % ncols;
+          const int4 v = dec::slice_sum4<int>(ws, g, p.j, m, c);
+          OutT* o = out + (size_t)m * N + n0 + c;
+          const float* s4 = sw + n0 + c;
+          const float sxm = sx[m];
+          store_out(o + 0, epilogue(v.x, sxm, s4[0]));
+          store_out(o + 1, epilogue(v.y, sxm, s4[1]));
+          store_out(o + 2, epilogue(v.z, sxm, s4[2]));
+          store_out(o + 3, epilogue(v.w, sxm, s4[3]));
+        }
+      });
+}
+
+template <typename OutT>
+int run_decode(const void* xq, const void* sx, const void* wp,
+               const void* sw, void* out, void* ws, void* cnt, int M, int N,
+               int K2, int blocks, cudaStream_t s) {
+  namespace dec = aimet::dec;
+  CUtensorMap mx;
+  if (!dec::x_map<dec::kW4Int8>(&mx, xq, M, 2 * K2, (M + 15) / 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = w4a8_decode_kernel<OutT>;
+  static bool ready = false;                 // the smem limit, once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dec::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  kern<<<blocks, dec::kThreads, dec::kSmemBytes, s>>>(
+      static_cast<const int8_t*>(wp), mx, static_cast<const float*>(sx),
+      static_cast<const float*>(sw), static_cast<OutT*>(out),
+      static_cast<int*>(ws), static_cast<int*>(cnt), M, N, K2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // `ws` is an (M, N) int32 buffer of zeros, read only when splits > 1.
@@ -132,4 +239,31 @@ extern "C" int aimet_w4a8_gemm(const void* xq, const void* sx, const void* wp,
                K2, splits, s);
   return run(x, sxp, w, swp, static_cast<float*>(out), wsp, M, N, K2, splits,
              s);
+}
+
+// K2's decode route: xq (M, 2 K2) int8 with 1 <= M <= 64, wp (K2, N)
+// split-half INT4, K2 and N multiples of 16, xq and wp 16-byte aligned; a
+// grid of `blocks` blocks (the SMs) streaming slices of 256 columns. ws
+// holds ws_values int32 and cnt cnt_values ints, all 0 (and left 0):
+// refused when short of what the split (decode_gemm.cuh, Geo) needs.
+extern "C" int aimet_w4a8_decode_gemm(const void* xq, const void* sx,
+                                      const void* wp, const void* sw,
+                                      void* out, void* ws, void* cnt, int M,
+                                      int N, int K2, int blocks,
+                                      long long ws_values, int cnt_values,
+                                      int out_is_bf16, void* stream) {
+  namespace dec = aimet::dec;
+  if (M <= 0 || M > 16 * dec::kMaxMT || K2 <= 0 || N <= 0 || K2 % 16 ||
+      N % 16 || blocks <= 0 || !aimet::aligned16(xq) ||
+      !aimet::aligned16(wp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dec::Geo g(M, K2, N, 1, blocks);
+  if (ws_values < g.ws_values() || cnt_values < g.nslices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_is_bf16
+             ? run_decode<__nv_bfloat16>(xq, sx, wp, sw, out, ws, cnt, M, N,
+                                         K2, blocks, s)
+             : run_decode<float>(xq, sx, wp, sw, out, ws, cnt, M, N, K2,
+                                 blocks, s);
 }

@@ -2,9 +2,15 @@
 row in place — counterpart of ``aimet_tpu/ops/decode_attention_fused.py``.
 
 On a CUDA tensor ``fused_decode_attention`` launches kernel K3
-(``csrc/decode_attention.cu``); on a CPU tensor it takes the plain version
+(``csrc/decode_attention.cu``), which splits each row's cache across
+blocks (:func:`split_chunk`); on a CPU tensor it takes the plain version
 ``fused_decode_attention_torch``, which follows the JAX package's XLA decode
 path (``serving/quantized_llm._attention_from_qkv``) op for op.
+
+``attention_kernel_shape_ok``, ``scores_fit`` and ``score_workspace``
+serve the kernels that keep one block a (row, kv head): KSOL / KDL
+(``ops/decode_layer_sol.py``, ``ops/fused_layer.py``) and KGQA
+(``ops/decode_attention.py``).
 
 Unlike the TPU kernel, positions may differ per row (continuous batching),
 and none of the TPU's layout constraints (D % 128, S % 32, batch groups)
@@ -20,12 +26,13 @@ from .. import _build
 from .._device import on_cuda
 from ..models.transformer import apply_rope
 from ._common import div_ieee
+from .int_matmul import _SMS, _zeroed_counters
 from .kv_cache import QuantizedKVCache, append_kv, reciprocal
 
 _MAX_REP = 8
 _MAX_D = 128
-_WARPS = 16
 _SMEM_LIMIT = 227 * 1024
+_RECORD_HEAD = 16      # floats of a K3 chunk record before its context
 
 
 def positions(cache_index, batch: int, device) -> torch.Tensor:
@@ -80,6 +87,22 @@ def score_workspace(B: int, KH: int, rep: int, D: int, S: int, warps: int,
     return torch.empty((B, KH, rep, S), dtype=torch.float32, device=device)
 
 
+def split_chunk(B: int, KH: int, S: int, sms: int = _SMS) -> int:
+    """K3's chunk, the cache rows one block takes (the kernel takes any
+    multiple of 32 up to 256): 128, the fastest of 32, 64, 128 and 256 at
+    B = 16 and 32 with S = 1024 and at B = 16 with S = 16,384 in
+    ``chip_smoke.py``'s sweep; 64 where 128 would leave fewer blocks than
+    SMs (B = 1 at S = 1024). It depends on the shapes alone: the positions
+    stay on the device."""
+    return 64 if B * KH * -(-S // 128) < sms else 128
+
+
+def split_record_floats(rep: int, D: int) -> int:
+    """f32 values of one chunk's record in K3's workspace: its max and sum
+    for 8 heads, then its unnormalised context (rep, D)."""
+    return _RECORD_HEAD + rep * D
+
+
 def fused_decode_attention_torch(qkv, cos, sin, k_cache, v_cache, k_scale,
                                  v_scale, cache_index, *, n_heads: int,
                                  n_kv_heads: int):
@@ -123,7 +146,15 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     position outside [0, S) writes nothing (see ``csrc/decode_attention.cu``
     for what it attends over).
 
-    Returns (attn_mix (B, H D) in qkv's dtype, k_cache, v_cache)."""
+    Returns (attn_mix (B, H D) in qkv's dtype, k_cache, v_cache).
+
+    K3 runs a block for each chunk of :func:`split_chunk` cache rows of a
+    (row, kv head), whatever the positions; blocks past a row's position
+    exit, the last one of a (row, kv head) merges the chunks' records (an
+    f32 workspace of :func:`split_record_floats` a chunk) in chunk order.
+    KV bytes are bit-exact against the plain version, the output within
+    2e-2 of its max (int8 tensor-core dots on two-plane int8 queries and
+    probabilities, f32 softmax statistics)."""
     B = qkv.shape[0]
     if k_cache.dim() != 4:
         raise ValueError("caches must be (B, S, KH, D)")
@@ -153,14 +184,18 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     iks, ivs = reciprocal(ks), reciprocal(vs)
     pos = positions(cache_index, B, qkv.device)
     out = torch.empty((B, H * D), dtype=qkv.dtype, device=qkv.device)
-    ws = score_workspace(B, KH, H // KH, D, S, _WARPS, qkv.device)
+    chunk = split_chunk(B, KH, S)
+    ws = torch.empty((B * KH * -(-S // chunk)
+                      * split_record_floats(H // KH, D),),
+                     dtype=torch.float32, device=qkv.device)
+    cnt = _zeroed_counters(qkv.device, B * KH)
     fused_decode_attention.launches += 1
     _build.launch(
         "aimet_decode_attention", qkv.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), iks.data_ptr(), ivs.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-        B, S, H, KH, D,
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+        B, S, H, KH, D, chunk, ws.numel(), cnt.numel(),
         float(np.float32(np.sqrt(D))), int(qkv.dtype == torch.bfloat16),
         _build.stream_ptr(qkv.device))
     return out, k_cache, v_cache

@@ -191,7 +191,11 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
     """GEMM on per-row quantized activations: x_q (M, K) int8, x_scale (M,)
     f32, split-half INT4 weights (K//2, N) int8, w_scale (N,) f32 ->
     (M, N) ``out_dtype``. On a CUDA tensor it launches kernel K2
-    (``csrc/w4a8_gemm.cu``); on a CPU tensor it takes ``w4a8_gemm_torch``."""
+    (``csrc/w4a8_gemm.cu``): at decode M with aligned shapes
+    (:func:`w4a8_decode_route`) its weight-streaming route, one block an SM
+    planned by :func:`decode_plan`; else its block tile, splitting K by
+    :func:`decode_splits` into a zeroed int32 buffer. Both are bit-exact.
+    On a CPU tensor it takes ``w4a8_gemm_torch``."""
     M, K = x_q.shape
     K2, N = w_packed.shape
     if K != 2 * K2 or x_scale.shape != (M,) or w_scale.shape != (N,):
@@ -213,6 +217,8 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
                      for t in (x_q, w_packed))
     x_scale, w_scale = x_scale.contiguous(), w_scale.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    if w4a8_decode_route(M, N, K2):
+        return _launch_w4a8_decode(x_q, x_scale, w_packed, w_scale, out)
     splits = decode_splits(M, N, -(-K2 // _TILE_P))
     ws = (torch.zeros((M, N), dtype=torch.int32, device=x_q.device)
           if splits > 1 else out)
@@ -226,6 +232,30 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 
 w4a8_gemm.launches = 0
+
+
+def w4a8_decode_route(M: int, N: int, K2: int) -> bool:
+    """Whether K2 takes its decode weight-streaming route: 1..64 rows of x,
+    K/2 packed weight rows and N columns multiples of 16."""
+    return 1 <= M <= MAX_DECODE_ROWS and K2 % 16 == 0 and N % 16 == 0
+
+
+def _launch_w4a8_decode(x_q, x_scale, w_packed, w_scale, out):
+    """K2's decode route on contiguous, aligned CUDA operands."""
+    M = x_q.shape[0]
+    K2, N = w_packed.shape
+    plan = decode_plan(M, N, K2, _sm_count(x_q.device))
+    ws = torch.empty((plan.ws_values,), dtype=torch.int32,
+                     device=x_q.device)
+    cnt = _zeroed_counters(x_q.device, plan.slices)
+    w4a8_gemm.launches += 1
+    _build.launch("aimet_w4a8_decode_gemm", x_q.data_ptr(),
+                  x_scale.data_ptr(), w_packed.data_ptr(),
+                  w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  cnt.data_ptr(), M, N, K2, plan.blocks, ws.numel(),
+                  cnt.numel(), int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(x_q.device))
+    return out
 
 
 def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
@@ -365,9 +395,9 @@ class DecodePlan(NamedTuple):
     """How the decode weight-streaming routine (``csrc/decode_gemm.cuh``,
     ``Geo``) cuts one GEMM: slices of DECODE_WIDTH columns, stages of
     DECODE_STAGE_ROWS weight rows, ``blocks`` contiguous equal ranges of
-    the (slice, stage) units. ``ws_values``: the f32 partial sums it needs,
-    a slot of M x DECODE_WIDTH for each (slice, block) meeting (the C
-    entries refuse a shorter workspace)."""
+    the (slice, stage) units. ``ws_values``: the partial sums it needs
+    (f32; int32 for K2), a slot of M x DECODE_WIDTH for each (slice, block)
+    meeting (the C entries refuse a shorter workspace)."""
     blocks: int
     slices: int
     steps: int

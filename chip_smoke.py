@@ -6,6 +6,8 @@ calibrated in quantsim and lowered to the integer kernels in every
 lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-slice     # K2 / K3 and the per-slot step
+    python3 chip_smoke.py --layer-variants   # the whole-layer kernel's variants
 
 1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
    ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
@@ -23,7 +25,9 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    q within one bf16 ulp a prob; KW4 and KW8 on f32 x as well, the f32
    ``lm_head`` of a lowered model), and times kernel, plain version, the
    bound the card's peaks set and, beside the int8 GEMMs,
-   ``torch._int_mm``; it holds the im2col convs ``conv2d_w8`` (KW8) and
+   ``torch._int_mm``; K2 at decode M (1, 16, 32, 64 at 4096 x 28672 and
+   the padded ``lm_head``, bit-exact before timing) and K3 at B = 16, 32
+   and 1 with S = 1024 and at S = 16,384 (with a sweep of its chunk); it holds the im2col convs ``conv2d_w8`` (KW8) and
    ``conv2d_w4`` (KW4) at ResNet-50 conv shapes within KW8's and KW4's
    share; it probes ``torch._weight_int8pack_mm`` and
    ``torch._weight_int4pack_mm`` for KW8's and KW4G's library column;
@@ -32,7 +36,8 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    each path with the launch counts set to 0 just before it and read just
    after; every kernel of that path must have launched:
    - ``w4``: a prefill of 8 x 512, 32 decode steps at batch 16 and 32
-     (scalar position: KW4 + KSOL), one step at per-slot positions and 32
+     (scalar position: KW4 + KSOL), steps at per-slot positions (launches
+     counted, 4 profiled: device ms by kernel, busy share) and 32
      requests through ``ContinuousBatcher(num_slots=16, step_chunk=4)``
      (KW4 + K3 + KFL);
    - ``w4a8`` on the same weights: the same phases (decode through KSOL
@@ -81,6 +86,11 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
 
 Any failed phase exits non-zero. Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
+
+``--decode-slice`` runs only K2's decode rows, K3's rows and the per-slot
+step's profile in each mode (``decode_slice``), with APIs a tree from
+before K2's decode route and K3's split also has: copied into such a tree,
+it measures that tree with the same code.
 """
 from __future__ import annotations
 
@@ -154,6 +164,20 @@ CNN_MODES = {
     "w4a8": ("w4a8", 4, lambda c: {"q8_gemm": c, "act_quant": 1,
                                    "w4a8_gemm": 1}),
 }
+# K2 at decode M: (M, K, N) at W_gate|up of Llama-3-8B, then its lm_head at
+# the padded vocabulary width (serving pads it to a multiple of 4096)
+K2_DECODE_SHAPES = ((16, 4096, 28672), (1, 4096, 28672), (32, 4096, 28672),
+                    (64, 4096, 28672), (16, 4096, 131072))
+K2_KERNELS = ["w4a8_gemm_kernel", "w4a8_epilogue_kernel",
+              "w4a8_decode_kernel"]
+# K3: (label, B, S, positions) — the per-slot step's shape (PERF.md row
+# 14), batch 32, one row, and the long cache (positions 15,985..16,000:
+# S - 384 - b)
+K3_SHAPES = (("B=16 S=1024", 16, 1024, "mixed"),
+             ("B=32 S=1024", 32, 1024, "mixed"),
+             ("B=1 S=1024", 1, 1024, "mixed"),
+             ("B=16 S=16384", 16, 16384, "long"))
+K3_KERNELS = ["decode_attention_kernel", "split_attention_kernel"]
 # KW8's decode route, timed at 4096 x 28672 besides M = 16 (row "decode")
 W8_DECODE_ROWS = (1, 32, 64)
 # KSOL (w4, next QKV) at Llama-3-8B widths, S = 1024, position 700: the
@@ -317,6 +341,187 @@ def phase_split(torch, flay, call, runs=10):
     return {k: sorted(v)[len(v) // 2] for k, v in spans.items()}
 
 
+def gemm_timer(rows):
+    """gemm_row(label, kernel, m, k, n, launch, plain, match, in_bytes,
+    peak, out_bytes=None, vec_bytes=None): times ``launch(i)`` (the CUDA
+    kernels named by ``match``) and ``plain(i)`` into ``rows[label]`` with
+    the bound of the GEMM's bytes and operations. in_bytes: the
+    activations' and the weight codes' bytes; the output is bf16 and one
+    f32 scale a column is read unless ``out_bytes`` / ``vec_bytes`` say
+    otherwise."""
+    def gemm_row(label, kernel, m, k, n, launch, plain, match, in_bytes,
+                 peak, out_bytes=None, vec_bytes=None):
+        ms, call = timed(launch, 20, match)
+        pms, _ = timed(plain, 3, warmup=1)
+        out_bytes = m * n * 2 if out_bytes is None else out_bytes
+        vec_bytes = n * 4 if vec_bytes is None else vec_bytes
+        b, how = bound_ms(in_bytes + vec_bytes + out_bytes,
+                          (2 * m * n * k, peak))
+        rows[label] = dict(kernel=kernel, shape=f"M={m} K={k} N={n}", ms=ms,
+                           call_ms=call, plain_ms=pms, bound_ms=b,
+                           bound_by=how)
+    return gemm_row
+
+
+def k2_decode_rows(torch, tim, g, gemm_row, note):
+    """K2 at decode M (its weight-streaming route on this tree, the split-K
+    tile before): at each (M, K, N) of K2_DECODE_SHAPES held bit-exact
+    against its plain version (and on a repeated call), then timed with 3
+    weight copies rotated so the weights stream from HBM."""
+    for m, k, n in K2_DECODE_SHAPES:
+        ws = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 0.02 \
+            / k ** 0.5
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        xq, sx = tim.quantize_activation_per_row(x)
+        got = tim.w4a8_gemm(xq, sx, ws[0], sw, torch.bfloat16)
+        want = tim.w4a8_gemm_torch(xq, sx, ws[0], sw, torch.bfloat16)
+        note("w4a8_gemm", got, want)
+        assert torch.equal(got, want), ("K2 decode", m, k, n)
+        assert torch.equal(tim.w4a8_gemm(xq, sx, ws[0], sw, torch.bfloat16),
+                           got), ("K2 decode", m, k, n, "repeat")
+        log(f"K2 w4a8_gemm at M={m}, K={k}, N={n}: bit-exact, repeated "
+            "calls the same bits")
+        label = ("w4a8_gemm[decode]" if (m, n) == (16, 28672) else
+                 f"w4a8_gemm[decode M={m}]" if n == 28672 else
+                 f"w4a8_gemm[lm_head M={m}]")
+        gemm_row(label, "w4a8_gemm", m, k, n,
+                 lambda i: tim.w4a8_gemm(xq, sx, ws[i % 3], sw,
+                                         torch.bfloat16),
+                 lambda i: tim.w4a8_gemm_torch(xq, sx, ws[i % 3], sw,
+                                               torch.bfloat16),
+                 K2_KERNELS, m * k + m * 4 + k // 2 * n, INT8_OPS)
+        del ws, got, want
+
+
+def attn_inputs(torch, g, B, S, pos, H=32, KH=8, D=128):
+    """Decode-attention inputs at Llama-3-8B heads: random int8 caches
+    (B, S, KH, D) and scales, a bf16 qkv row, rope rows at ``pos``."""
+    kc = torch.randint(-127, 128, (B, S, KH, D), dtype=torch.int8,
+                       generator=g, device="cuda")
+    vc = torch.randint(-127, 128, (B, S, KH, D), dtype=torch.int8,
+                       generator=g, device="cuda")
+    ks = torch.rand((B, KH), generator=g, device="cuda") * 0.05 + 0.01
+    vs = torch.rand((B, KH), generator=g, device="cuda") * 0.05 + 0.01
+    qkv = torch.randn((B, (H + 2 * KH) * D), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    ang = pos.float()[:, None] * torch.rand(D // 2, generator=g,
+                                            device="cuda")
+    return [qkv, torch.cos(ang), torch.sin(ang), kc, vc, ks, vs, pos]
+
+
+def k3_rows(torch, dattn, g, rows, note):
+    """K3 at the shapes of K3_SHAPES: held against its plain version (cache
+    bytes bit-exact, output within TOL_ATTN of the max), then timed, with 4
+    input sets at S = 1024 so the caches stream from HBM; returns the
+    chunk sweep (ms by chunk and shape) where the tree splits the cache."""
+    H, KH, D = 32, 8, 128
+    sweep = {}
+    for label, B, S, kind in K3_SHAPES:
+        if kind == "mixed":
+            pos = torch.randint(0, S, (B,), generator=g, device="cuda",
+                                dtype=torch.int32)
+            pos[0], pos[-1] = 0, S - 1
+        else:
+            pos = (S - 384 - torch.arange(B, device="cuda",
+                                          dtype=torch.int32))
+        nsets = 4 if S <= 1024 else 1
+        sets = [attn_inputs(torch, g, B, S, pos) for _ in range(nsets)]
+        b_ = [t.clone() for t in sets[0]]
+        out, _, _ = dattn.fused_decode_attention(*sets[0], n_heads=H,
+                                                 n_kv_heads=KH)
+        ref, _, _ = dattn.fused_decode_attention_torch(*b_, n_heads=H,
+                                                       n_kv_heads=KH)
+        note("decode_attention", out, ref)
+        assert torch.equal(sets[0][3], b_[3]) and \
+            torch.equal(sets[0][4], b_[4]), ("K3 cache bytes", label)
+        err = rel_err(out, ref)
+        assert err < TOL_ATTN, ("K3", label, err)
+        again, _, _ = dattn.fused_decode_attention(*sets[0], n_heads=H,
+                                                   n_kv_heads=KH)
+        assert torch.equal(again, out), ("K3 repeat", label)
+        log(f"K3 decode_attention at {label}: cache bytes bit-exact, "
+            f"max rel err {err:.3e} < {TOL_ATTN}, repeated launches the "
+            "same bits")
+        del b_, out, ref, again
+
+        def k3(i, fn=dattn.fused_decode_attention):
+            return fn(*sets[i % nsets], n_heads=H, n_kv_heads=KH)
+        ms, call = timed(k3, 40 if S <= 1024 else 10, K3_KERNELS)
+        pms, _ = timed(lambda i: k3(i, dattn.fused_decode_attention_torch),
+                       10 if S <= 1024 else 2)
+        live = int((pos.clamp(max=S - 1) + 1).sum())
+        nbytes = (B * (H + 2 * KH) * D * 2 + 2 * B * D // 2 * 4
+                  + 2 * live * KH * D + 4 * B * KH * 4 + 2 * B * KH * D
+                  + B * H * D * 2)
+        b, how = bound_ms(nbytes, (4 * live * H * D, F32_FLOPS))
+        name = "decode_attention" + ("" if label == K3_SHAPES[0][0]
+                                     else f"[{label}]")
+        rows[name] = dict(
+            kernel="decode_attention",
+            shape=f"B={B} S={S} H={H} KH={KH} D={D} {kind} positions "
+            f"({live} live rows)", ms=ms, call_ms=call, plain_ms=pms,
+            bound_ms=b, bound_by=how)
+        if hasattr(dattn, "split_chunk"):          # the split kernel
+            rows[name]["chunk"] = dattn.split_chunk(B, KH, S)
+            chosen = dattn.split_chunk
+            try:
+                for c in (32, 64, 128, 256):
+                    dattn.split_chunk = lambda *a, c=c: c
+                    sweep[f"{label} C={c}"], _ = timed(k3, 20, K3_KERNELS)
+            finally:
+                dattn.split_chunk = chosen
+            log(f"K3 chunk sweep at {label} (device ms): " + ", ".join(
+                f"{k.split()[-1]} {v:.5f}" for k, v in sweep.items()
+                if k.startswith(label)))
+        del sets
+    return sweep
+
+
+def profile_steps(torch, step, n=4):
+    """Where a decode step's time goes: ``step()`` n times under the
+    profiler. Returns (host ms a step, device busy share, device ms a step,
+    {kernel: device ms a step})."""
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in _kernel_events(prof):
+        key = e.name.replace("(anonymous namespace)::", "")
+        key = key.removeprefix("void ").split("<")[0].split("(")[0]
+        by_name[key] = by_name.get(key, 0.0) + \
+            e.time_range.elapsed_us() / (1e3 * n)
+    dev = sum(by_name.values())
+    return wall * 1e3 / n, dev / (wall * 1e3 / n), dev, by_name
+
+
+def slot_step_profile(torch, llm, mode, tok, caches, slots, metrics, b):
+    """Profiles 4 decode steps at per-slot positions (the batcher's step)
+    and logs them; returns (tok, caches, slots) after them."""
+    state = [tok, caches, slots]
+
+    def step():
+        logits, state[1] = llm.decode(state[0], state[1], state[2])
+        state[0] = logits[:, -1].argmax(-1)[:, None]
+        state[2] = state[2] + 1
+    step()                                         # warm-up
+    wall, busy, dev, by_name = profile_steps(torch, step)
+    metrics[f"slot_b{b}_ms_step"] = wall
+    metrics[f"slot_b{b}_device_ms_step"] = dev
+    metrics[f"slot_b{b}_device_busy"] = busy
+    metrics[f"slot_b{b}_kernels"] = by_name
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{mode}] per-slot decode step at batch {b} profile: {wall:.2f} "
+        f"ms/step on the host clock, {dev:.3f} device ms/step, busy "
+        f"{busy:.3f}; device ms/step by kernel: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in top))
+    return state
+
+
 def rel_err(got, want):
     """max |got - want| / max |want|."""
     return ((got.float() - want.float()).abs().max()
@@ -408,34 +613,21 @@ def check_kernels(torch, ops):
             f"{{16, 4096}} x (K, N) in {kn}; ragged (37, 144) x (144, 1000) "
             f"{err:.2e}; repeated decode calls give the same bits")
 
-    def gemm_row(label, kernel, m, k, n, launch, plain, match, in_bytes,
-                 peak, out_bytes=None, vec_bytes=None):
-        """in_bytes: the activations' and the weight codes' bytes; the
-        output is bf16 and one f32 scale a column is read unless
-        ``out_bytes`` / ``vec_bytes`` say otherwise."""
-        ms, call = timed(launch, 20, match)
-        pms, _ = timed(plain, 3, warmup=1)
-        out_bytes = m * n * 2 if out_bytes is None else out_bytes
-        vec_bytes = n * 4 if vec_bytes is None else vec_bytes
-        b, how = bound_ms(in_bytes + vec_bytes + out_bytes,
-                          (2 * m * n * k, peak))
-        rows[label] = dict(kernel=kernel, shape=f"M={m} K={k} N={n}", ms=ms,
-                           call_ms=call, plain_ms=pms, bound_ms=b,
-                           bound_by=how)
-
+    gemm_row = gemm_timer(rows)
+    k2_decode_rows(torch, tim, g, gemm_row, note)
     for m, tag in ((16, "decode"), (4096, "prefill")):
         k, n = 4096, 28672
         # rotate 3 weight copies so the decode weights stream from HBM
         ws = [codes(k // 2, n) for _ in range(3)]
         sw = scales(k, n)
         xq, sx = tim.quantize_activation_per_row(randn(m, k))
-        gemm_row(f"w4a8_gemm[{tag}]", "w4a8_gemm", m, k, n,
-                 lambda i: tim.w4a8_gemm(xq, sx, ws[i % 3], sw,
-                                         torch.bfloat16),
-                 lambda i: tim.w4a8_gemm_torch(xq, sx, ws[i % 3], sw,
-                                               torch.bfloat16),
-                 ["w4a8_gemm_kernel", "w4a8_epilogue_kernel"],
-                 m * k + m * 4 + k // 2 * n, INT8_OPS)
+        if m > 16:                       # K2 at decode M: k2_decode_rows
+            gemm_row(f"w4a8_gemm[{tag}]", "w4a8_gemm", m, k, n,
+                     lambda i: tim.w4a8_gemm(xq, sx, ws[i % 3], sw,
+                                             torch.bfloat16),
+                     lambda i: tim.w4a8_gemm_torch(xq, sx, ws[i % 3], sw,
+                                                   torch.bfloat16),
+                     K2_KERNELS, m * k + m * 4 + k // 2 * n, INT8_OPS)
         x = randn(m, k)
         for name, (w4, fn, plain) in wo.items():
             ws = [codes(k // 2 if w4 else k, n) for _ in range(3)]
@@ -467,58 +659,12 @@ def check_kernels(torch, ops):
                  ["w8_decode"], m * k * 2 + ws[0].numel(), BF16_FLOPS)
     del ws, x
 
-    # --- K3: decode attention at B=16, S=1024, H=32, KH=8, D=128
+    # --- K3 at the per-slot step's shape, batch 32 and the long cache
+    chunk_sweep = k3_rows(torch, dattn, g, rows, note)
     B, S, H, KH, D = 16, 1024, 32, 8, 128
 
-    def attn_inputs(pos):
-        kc = torch.randint(-127, 128, (B, S, KH, D), dtype=torch.int8,
-                           generator=g, device=dev)
-        vc = torch.randint(-127, 128, (B, S, KH, D), dtype=torch.int8,
-                           generator=g, device=dev)
-        ks = torch.rand((B, KH), generator=g, device=dev) * 0.05 + 0.01
-        vs = torch.rand((B, KH), generator=g, device=dev) * 0.05 + 0.01
-        qkv = randn(B, (H + 2 * KH) * D)
-        ang = pos.float()[:, None] * torch.rand(D // 2, generator=g,
-                                                device=dev)
-        return [qkv, torch.cos(ang), torch.sin(ang), kc, vc, ks, vs, pos]
-
-    mixed = torch.randint(0, S, (B,), generator=g, device=dev,
-                          dtype=torch.int32)
-    mixed[0], mixed[-1] = 0, S - 1
-    for name, pos in (("scalar 700", torch.full((B,), 700, device=dev,
-                                                dtype=torch.int32)),
-                      ("mixed", mixed)):
-        a = attn_inputs(pos)
-        b_ = [t.clone() for t in a]
-        out, _, _ = dattn.fused_decode_attention(*a, n_heads=H,
-                                                 n_kv_heads=KH)
-        ref, _, _ = dattn.fused_decode_attention_torch(*b_, n_heads=H,
-                                                       n_kv_heads=KH)
-        note("decode_attention", out, ref)
-        assert torch.equal(a[3], b_[3]) and torch.equal(a[4], b_[4]), \
-            ("K3 cache bytes", name)
-        err = rel_err(out, ref)
-        assert err < TOL_ATTN, ("K3", name, err)
-        log(f"K3 decode_attention ({name} positions): cache bytes "
-            f"bit-exact, attn max rel err {err:.3e} < {TOL_ATTN}")
-    # timing: 4 input sets (4 x 33.5 MB of cache) so reads come from HBM
-    sets = [attn_inputs(mixed) for _ in range(4)]
-    ms, call = timed(lambda i: dattn.fused_decode_attention(
-        *sets[i % 4], n_heads=H, n_kv_heads=KH), 40,
-        ["decode_attention_kernel"])
-    pms, _ = timed(lambda i: dattn.fused_decode_attention_torch(
-        *sets[i % 4], n_heads=H, n_kv_heads=KH), 10)
-    live = int((mixed.clamp(max=S - 1) + 1).sum())
-    nbytes = (B * (H + 2 * KH) * D * 2 + 2 * B * D // 2 * 4
-              + 2 * live * KH * D + 4 * B * KH * 4 + 2 * B * KH * D
-              + B * H * D * 2)
-    b, how = bound_ms(nbytes, (4 * live * H * D, F32_FLOPS))
-    rows["decode_attention"] = dict(
-        kernel="decode_attention",
-        shape=f"B={B} S={S} H={H} KH={KH} D={D} mixed positions "
-        f"({live} live rows)", ms=ms, call_ms=call, plain_ms=pms,
-        bound_ms=b, bound_by=how)
-    del sets
+    def attn_inputs_(pos):
+        return attn_inputs(torch, g, B, S, pos)
 
     # --- KFL and KSOL at Llama-3-8B layer shapes, M = B = 16
     A, Dm, F, Nq = H * D, 4096, 14336, (H + 2 * KH) * D
@@ -575,8 +721,8 @@ def check_kernels(torch, ops):
                           torch.full((B,), pos, device=dev))
     for int8_dots in (False, True):
         for nxt in (False, True):
-            a = attn_inputs(torch.full((B,), pos, device=dev,
-                                       dtype=torch.int32))
+            a = attn_inputs_(torch.full((B,), pos, device=dev,
+                                        dtype=torch.int32))
             qkv, kc, vc, ks, vs = a[0], a[3], a[4], a[5], a[6]
             kc2, vc2 = kc.clone(), vc.clone()
             kc3, vc3 = kc.clone().view(B, S, -1), vc.clone().view(B, S, -1)
@@ -617,8 +763,8 @@ def check_kernels(torch, ops):
                 f"so within {err:.3e} of the plain version's max")
         del a, kc, vc, kc2, vc2, kc3, vc3
     # timing with the next layer's QKV: 4 cache sets, 2 weight sets
-    sets = [attn_inputs(torch.full((B,), pos, device=dev, dtype=torch.int32))
-            for _ in range(4)]
+    sets = [attn_inputs_(torch.full((B,), pos, device=dev,
+                                    dtype=torch.int32)) for _ in range(4)]
     live = B * (pos + 1)
     kv_bytes = (2 * live * KH * D + B * (H + 2 * KH) * D * 2
                 + 2 * B * D // 2 * 4 + 4 * B * KH * 4)
@@ -708,7 +854,7 @@ def check_kernels(torch, ops):
             + f" Nq={Nq}" * nxt + ", flat caches, gate|up one array",
             ms=ms, call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how,
             phases=phase_split(torch, flay, kdl))
-    check_gqa_kernel(torch, gqa, g, rows, note, attn_inputs, pos)
+    check_gqa_kernel(torch, gqa, g, rows, note, attn_inputs_, pos)
     del sets, lw
     check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                            gemm_row)
@@ -717,7 +863,7 @@ def check_kernels(torch, ops):
     for r in rows.values():
         r["max_abs_err"] = errs[r["kernel"]]
         r.setdefault("library_ms", None)
-    return rows
+    return rows, chunk_sweep
 
 
 def jax_form(w):
@@ -1360,29 +1506,27 @@ def serve(torch, llm, cfg, mode, counters, g, decode_batches):
             log(f"[{mode}] launches per step at per-slot positions "
                 f"{diff(c0, counts())}")
             # where a decode step's time goes: device busy share and the
-            # device time of each kernel, over 4 profiled steps
-            with profiled() as prof:
-                t0 = time.perf_counter()
-                for _ in range(4):
-                    logits, caches = llm.decode(tok, caches, pos)
-                    tok = logits[:, -1].argmax(-1)[:, None]
-                    pos += 1
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            by_name = {}
-            for e in _kernel_events(prof):
-                key = e.name.replace("(anonymous namespace)::", "")
-                key = key.removeprefix("void ").split("<")[0].split("(")[0]
-                by_name[key] = by_name.get(key, 0.0) + \
-                    e.time_range.elapsed_us() / 4e3
-            busy = sum(by_name.values()) / (wall * 1e3 / 4)
-            metrics[f"decode_b{b}_device_ms_step"] = sum(by_name.values())
+            # device time of each kernel, over 4 profiled steps at a scalar
+            # position, then 4 at per-slot positions
+            state = [tok, caches, pos]
+
+            def step():
+                logits, state[1] = llm.decode(state[0], state[1], state[2])
+                state[0] = logits[:, -1].argmax(-1)[:, None]
+                state[2] += 1
+            wall, busy, dev, by_name = profile_steps(torch, step)
+            tok, caches, pos = state
+            metrics[f"decode_b{b}_device_ms_step"] = dev
             metrics[f"decode_b{b}_device_busy"] = busy
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            log(f"[{mode}] decode batch {b} profile: {wall * 1e3 / 4:.2f} "
+            log(f"[{mode}] decode batch {b} profile: {wall:.2f} "
                 f"ms/step on the host clock, device busy {busy:.3f}; device "
                 "ms/step by kernel: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in top))
+            tok, caches, _ = slot_step_profile(
+                torch, llm, mode, tok, caches,
+                torch.arange(b, device="cuda", dtype=torch.int32) + pos,
+                metrics, b)
         del caches, logits
 
     batcher = ContinuousBatcher(llm, num_slots=16, step_chunk=4)
@@ -1742,7 +1886,7 @@ def long_cache_path(torch, qllm, ops, cfg, counters, g):
     # device time of K3, KGQA and KSOL at this cache length (B 16)
     a[7] = torch.full((B,), pos, device="cuda", dtype=torch.int32)
     m["long_cache_k3_ms"], _ = timed(lambda i: dattn.fused_decode_attention(
-        *a, n_heads=H, n_kv_heads=KH), 10, ["decode_attention_kernel"])
+        *a, n_heads=H, n_kv_heads=KH), 10, K3_KERNELS)
     q = torch.randn((B, KH, H // KH, D), generator=g,
                     device="cuda").to(torch.bfloat16)
     m["long_cache_gqa_ms"], _ = timed(lambda i: gqa.fused_gqa_decode_attention(
@@ -2452,6 +2596,72 @@ def layer_variants() -> int:
     return 0
 
 
+def decode_slice() -> int:
+    """``python3 chip_smoke.py --decode-slice``: the two kernels of the
+    batcher's per-slot decode step and the step itself, on whatever tree
+    holds this script (so a parent commit can be measured with the same
+    code): K2 at decode M (K2_DECODE_SHAPES) and K3 (K3_SHAPES) held
+    against their plain versions and timed, then Llama-3-8B (32 layers) in
+    w4, w4a8 and w8 at batch 16: a 512-token prefill and 4 profiled steps at
+    per-slot positions. Prints one JSON line of the numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.ops import decode_attention_fused as dattn
+    from aimet_tpu_torch.ops import int_matmul as tim
+    from aimet_tpu_torch.serving import quantized_llm as qllm
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"decode slice of {ROOT}: torch {torch.__version__}; {smi}")
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows, errs = {}, {"w4a8_gemm": 0.0, "decode_attention": 0.0}
+
+    def note(name, a, b):
+        errs[name] = max(errs[name], (a.float() - b.float()).abs().max()
+                         .item())
+    k2_decode_rows(torch, tim, g, gemm_timer(rows), note)
+    sweep = k3_rows(torch, dattn, g, rows, note)
+    for name, r in rows.items():
+        log(f"  {name:28s} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    cfg = TransformerConfig.llama3_8b()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    metrics = {}
+    for mode in ("w4", "w4a8", "w8"):
+        if mode != "w4a8":
+            qw = qllm.random_quantized_weights(cfg, mode=mode, seed=0)
+        llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode=mode,
+                                               max_len=1024)
+        toks = torch.randint(0, cfg.vocab_size, (16, 512), generator=g,
+                             device="cuda")
+        logits, caches = llm.prefill(toks, llm.new_caches(16))
+        tok = logits[:, -1].argmax(-1)[:, None]
+        del logits
+        m = {}
+        slot_step_profile(torch, llm, mode, tok, caches,
+                          torch.arange(16, device="cuda", dtype=torch.int32)
+                          + 512, m, 16)
+        metrics[mode] = m
+        del llm, caches
+        torch.cuda.empty_cache()
+    log(json.dumps({"decode_slice": {"root": ROOT, "card": smi,
+                                     "rows": rows, "errs": errs,
+                                     "k3_chunk_sweep": sweep,
+                                     "slot_step": metrics}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2495,7 +2705,7 @@ def main() -> int:
     _build.library()
 
     # --- 2. kernels against their plain versions
-    rows = check_kernels(torch, ops)
+    rows, chunk_sweep = check_kernels(torch, ops)
     splits = split_sweep(torch, tim)
     for name, r in rows.items():
         log(f"  {name:24s} {r['shape']}: kernel {r['ms']:.4f} ms on the "
@@ -2510,7 +2720,8 @@ def main() -> int:
     # --- 3 and 4. the main path of each mode at Llama-3-8B widths
     cfg = TransformerConfig.llama3_8b()
     g = torch.Generator(device="cuda").manual_seed(2)
-    metrics, launches = {"splits": splits}, {k: 0 for k in counters}
+    metrics, launches = ({"splits": splits, "k3_chunk_sweep": chunk_sweep},
+                         {k: 0 for k in counters})
 
     def add_path(path, counts):
         for k, v in counts.items():
@@ -2599,7 +2810,7 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"],
             **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err",
-                                 "nmajor_ms", "k128_ms") if k in r}))
+                                 "nmajor_ms", "k128_ms", "chunk") if k in r}))
     # the order of the kernels' redesign: first those slower than one
     # PyTorch call for the same function, then launches x (ms - bound) at
     # each kernel's cheapest timed shape (its decode shape where it has one)
@@ -2627,4 +2838,5 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit(layer_variants() if sys.argv[1:] == ["--layer-variants"]
+             else decode_slice() if sys.argv[1:] == ["--decode-slice"]
              else main())

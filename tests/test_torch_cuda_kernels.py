@@ -24,7 +24,11 @@ cache bytes at S = 16,384, whose score rows do not fit in shared memory.
 KW8's decode weight-streaming route (bf16 x, M <= 64) keeps KW8's 1e-2 at
 M = 1, 16, 17, 32, 64 on N and K that fill no whole slice or stage, and
 the whole-layer kernels (KSOL, KDL, KFL) keep theirs at M = 1, 16, 33, 64
-with KDL = KSOL bit for bit and repeated launches bit-identical.
+with KDL = KSOL bit for bit and repeated launches bit-identical. K2's
+decode route is bit-exact at the same M and ragged widths, and at the
+``lm_head``'s; K3 split across blocks keeps bit-exact cache bytes and 2e-2
+at rep 1, 4, 8, D 40, 64, 128, every position kind, B = 1 and S = 16,384,
+with repeated launches bit-identical.
 """
 import pytest
 import torch
@@ -694,3 +698,112 @@ def test_whole_layer_kernels_at_every_row_count(gen, m, int8_dots,
     fl, fw = (fl, fw) if next_qkv else ((fl,), (fw,))
     for g, w in zip(fl, fw):
         assert _rel(g, w) < 2e-2
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 17, 32, 64])
+def test_w4a8_decode_route_matches_plain(gen, m, out_dtype):
+    """K2's decode weight-streaming route at every M tile, on N and K/2
+    that are multiples of 16 but of no slice or stage (1296 = 5 x 256 + 16
+    columns, 528 = 8 x 64 + 16 packed rows): bit-exact against the plain
+    version, the same bits on repeated calls."""
+    k2, n = 528, 1296
+    assert tim.w4a8_decode_route(m, n, k2)
+    x = torch.randn((m, 2 * k2), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randint(-128, 128, (k2, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+    xq, sx = tim.quantize_activation_per_row(x)
+    before = tim.w4a8_gemm.launches
+    got = tim.w4a8_gemm(xq, sx, w, sw, out_dtype)
+    assert tim.w4a8_gemm.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, tim.w4a8_gemm_torch(xq, sx, w, sw, out_dtype))
+    for _ in range(3):
+        assert torch.equal(tim.w4a8_gemm(xq, sx, w, sw, out_dtype), got)
+
+
+@pytest.mark.parametrize("m,k2,n", [
+    (16, 2048, 131072),      # lm_head at its padded vocabulary width
+    (16, 7168, 4096),        # W_down: slices split across blocks
+    (64, 2048, 6144),        # W_qkv at the largest M tile
+])
+def test_w4a8_decode_route_at_llama_widths(gen, m, k2, n):
+    x = torch.randn((m, 2 * k2), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randint(-128, 128, (k2, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+    got = tim.matmul_w4a8(x, w, sw)
+    assert torch.equal(got, tim.matmul_w4a8_torch(x, w, sw))
+    assert torch.equal(tim.matmul_w4a8(x, w, sw), got)
+
+
+def _k3_case(gen, b, s, h, kh, d, pos, dtype=torch.bfloat16):
+    """K3 and its plain version on the same inputs: KV bytes bit-exact,
+    the output within 2e-2 of the max, a repeated launch (the row already
+    appended) the same bits. Returns the relative error."""
+    qkv, _, kc, vc, ks, vs, _, _ = _layer_inputs(gen, b, s, h, kh, d, 0)
+    qkv = qkv.to(dtype)
+    ang = pos.clamp(0, s).float()[:, None] * torch.rand(
+        d // 2, generator=gen, device="cuda")
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = fused_decode_attention.launches
+    out, _, _ = fused_decode_attention(qkv, cos, sin, kc, vc, ks, vs, pos,
+                                       n_heads=h, n_kv_heads=kh)
+    assert fused_decode_attention.launches == before + 1
+    ref, _, _ = fused_decode_attention_torch(qkv, cos, sin, kc2, vc2, ks, vs,
+                                             pos, n_heads=h, n_kv_heads=kh)
+    again, _, _ = fused_decode_attention(qkv, cos, sin, kc, vc, ks, vs, pos,
+                                         n_heads=h, n_kv_heads=kh)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kc2) and torch.equal(vc, vc2)
+    assert out.dtype == dtype and torch.equal(out, again)
+    err = _rel(out, ref)
+    assert err < 2e-2, err
+    return err
+
+
+@pytest.mark.parametrize("h,kh,d", [(8, 8, 128), (32, 8, 128), (64, 8, 128),
+                                    (32, 8, 64), (16, 2, 64), (8, 2, 40)],
+                         ids=["rep1", "rep4", "rep8", "rep4-d64",
+                              "rep8-d64", "rep4-d40"])
+def test_split_attention_every_rep_and_head_dim(gen, h, kh, d):
+    """rep 1, 4 and 8 at D 128 and 64, and D 40 (4-byte copies: rows of D
+    % 16 != 0 bytes; dims padded to 64 for the MMAs)."""
+    b, s = 4, 1000                    # S not a multiple of any chunk
+    pos = torch.tensor([999, 0, 511, 640], dtype=torch.int32, device="cuda")
+    _k3_case(gen, b, s, h, kh, d, pos)
+
+
+@pytest.mark.parametrize("kind", ["scalar", "mixed", "outside", "negative"])
+def test_split_attention_position_kinds(gen, kind):
+    """Every position kind at B = 16, S = 1024 (the batcher's per-slot
+    step): one position for every row, per-slot positions, positions >= S
+    (nothing written, all rows attended) and negative ones (every row
+    masked: the uniform average)."""
+    b, s = 16, 1024
+    if kind == "scalar":
+        pos = torch.full((b,), 700, dtype=torch.int32, device="cuda")
+    else:
+        pos = torch.randint(0, s, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        pos[0], pos[-1] = 0, s - 1
+        if kind == "outside":
+            pos[1], pos[2] = s, s + 7
+        if kind == "negative":
+            pos[1], pos[2] = -1, -5
+    _k3_case(gen, b, s, 32, 8, 128, pos)
+
+
+@pytest.mark.parametrize("b,s,dtype", [(1, 1024, torch.bfloat16),
+                                       (1, 16384, torch.float32),
+                                       (16, 16384, torch.bfloat16)])
+def test_split_attention_one_row_and_long_cache(gen, b, s, dtype):
+    """K3 at B = 1 (the fewest blocks) and at S = 16,384 (the most chunks),
+    f32 and bf16 qkv."""
+    pos = torch.full((b,), s - 384, dtype=torch.int32, device="cuda")
+    pos[-1] = s - 1
+    _k3_case(gen, b, s, 32, 8, 128, pos, dtype)

@@ -119,3 +119,60 @@ def test_matmul_w4a8_rejects_bad_shapes():
         tim.matmul_w4a8(x, torch.zeros(4, 8, dtype=torch.int8),
                         torch.ones(8))
 
+
+
+@pytest.mark.parametrize("m,n,k2,want", [
+    (16, 28672, 2048, True),          # decode: W_gate|up
+    (1, 6144, 2048, True),
+    (64, 131072, 2048, True),         # lm_head at its padded width
+    (65, 4096, 2048, False),          # prefill M: the tile
+    (0, 4096, 2048, False),
+    (16, 1000, 72, False),            # ragged: N % 16
+    (37, 1008, 72, False),            # K/2 % 16
+    (17, 1296, 528, True),            # no whole slice or stage
+])
+def test_w4a8_decode_route_edges(m, n, k2, want):
+    assert tim.w4a8_decode_route(m, n, k2) is want
+
+
+def _block_pieces(plan, b):
+    """Block b's pieces under a decode plan, as ``decode_gemm.cuh``'s
+    ``for_pieces`` walks them: (slice, first stage, end stage)."""
+    total = plan.slices * plan.steps
+    u, u1 = b * total // plan.blocks, (b + 1) * total // plan.blocks
+    out = []
+    while u < u1:
+        j = u // plan.steps
+        ue = min(u1, (j + 1) * plan.steps)
+        out.append((j, u - j * plan.steps, ue - j * plan.steps))
+        u = ue
+    return out
+
+
+@pytest.mark.parametrize("n,k2", [(6144, 2048), (4096, 2048), (28672, 2048),
+                                  (4096, 7168), (131072, 2048), (1296, 528)])
+def test_w4a8_decode_plan_shares_weight_bytes_evenly(n, k2):
+    """K2's decode route cuts the packed (K/2, N) weight as KW8's cuts its
+    int8 one: over 132 SMs every block streams the same packed bytes within
+    one stage (64 rows x a slice) and the narrower last slice, at least two
+    stages each; the pieces cover every (slice, stage) unit once and their
+    int32 workspace slots (slice + block) are distinct and within it."""
+    m = 16
+    plan = tim.decode_plan(m, n, k2, 132)
+    assert plan.slices == -(-n // 256) and plan.steps == -(-k2 // 64)
+    seen, slots, got = [], set(), []
+    for b in range(plan.blocks):
+        pieces = _block_pieces(plan, b)
+        assert sum(s1 - s0 for _, s0, s1 in pieces) >= 2
+        nbytes = 0
+        for j, s0, s1 in pieces:
+            seen += [(j, s) for s in range(s0, s1)]
+            assert j + b not in slots
+            slots.add(j + b)
+            nbytes += min(256, n - 256 * j) * (min(64 * s1, k2) - 64 * s0)
+        got.append(nbytes)
+    assert sorted(seen) == [(j, s) for j in range(plan.slices)
+                            for s in range(plan.steps)]
+    assert (max(slots) + 1) * m * 256 <= plan.ws_values
+    assert sum(got) == n * k2
+    assert max(got) - min(got) <= 2 * 64 * 256
