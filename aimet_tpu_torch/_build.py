@@ -66,6 +66,10 @@ SIGNATURES = {
     # out_is_bf16, stream
     "aimet_w8_decode_gemm": [_VP] * 6 + [_I] * 4
     + [ctypes.c_longlong, _I, _I, _VP],
+    "aimet_w4_decode_gemm": [_VP] * 6 + [_I] * 4
+    + [ctypes.c_longlong, _I, _I, _VP],
+    # x, w, sw, out, ws, M, N, K, x_is_f32, out_is_bf16, ws_bytes, stream
+    "aimet_w4_tile_gemm": [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong, _VP],
     # x, w, gs, out, ws, M, N, K, group, splits, x_is_f32, out_is_bf16,
     # decode, stream
     "aimet_w4g_gemm": [_VP] * 5 + [_I] * 8 + [_VP],

@@ -1,6 +1,7 @@
 // The decode weight-streaming GEMM: a block-level device routine shared by
-// KW8's decode route (wo_gemm.cu, w8_decode_kernel) and the GEMM phases of
-// the whole-layer decode kernel (fused_layer.cu: KFL, KSOL, KDL).
+// KW8's and KW4's decode routes (wo_gemm.cu, wo_decode_kernel), K2's
+// (w4a8_gemm.cu, w4a8_decode_kernel) and the GEMM phases of the
+// whole-layer decode kernel (fused_layer.cu: KFL, KSOL, KDL).
 //
 // It computes x (M <= 64 rows) @ W, partial sums over a range of W's rows,
 // for three weight formats:
@@ -71,6 +72,7 @@
 #include <type_traits>
 
 #include "gemm_tiles.cuh"
+#include "tma_wgmma.cuh"
 
 namespace aimet {
 namespace dec {
@@ -185,38 +187,11 @@ struct Ring {
   int pre;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-// spins until the phase of parity `parity` completes; more than ~2^32
-// clocks (seconds: a broken pipeline) traps rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 32)) __trap();
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
+// the mbarrier, TMA and tensor-map helpers are tma_wgmma.cuh's; other
+// kernels reach these two as dec::
+using aimet::fence_proxy_async;
+using aimet::smem_addr;
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
@@ -228,31 +203,6 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// the box at (column c, row r) of map into dst, counted by bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c, int r, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-// orders this thread's generic-proxy writes (global and shared) before
-// later async-proxy (bulk copy) accesses; put before a barrier after which
-// bulk copies read what the thread wrote, or overwrite shared memory it
-// used
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
 }
 // the consumer warps' own barrier (the producer does not take part)
 __device__ __forceinline__ void consumer_sync() {
@@ -665,55 +615,15 @@ __device__ __forceinline__ typename Vec4<Acc>::T slice_sum4(
 }
 
 // ------------------------------------------------------------ host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A rows x cols matrix of esize-byte elements, rows ld bytes apart, in
-// boxes of box_rows x box_bytes (128 or 64, swizzled as many bytes).
-inline bool encode_2d(CUtensorMap* map, const void* p, int esize, int rows,
-                      int cols, long long ld, int box_rows, int box_bytes) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || p == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld};
-  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / esize),
-                             (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map,
-            esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                       : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-            2, const_cast<void*>(p), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 // the x map of an (m, k) activation matrix of kKind's x type, for M
 // tiles of mt m16 blocks
 template <int kKind>
 bool x_map(CUtensorMap* map, const void* x, int m, int k, int mt) {
   constexpr int e = Fmt<kKind>::kXBytes;
-  return encode_2d(map, x, e, m, k, (long long)k * e, 16 * mt,
-                   Fmt<kKind>::kXRow);
+  return encode_2d(map,
+                   e == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   e, x, m, k, (long long)k * e, 16 * mt, Fmt<kKind>::kXRow);
 }
 
 }  // namespace dec

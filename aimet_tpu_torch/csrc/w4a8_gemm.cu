@@ -168,7 +168,7 @@ w4a8_decode_kernel(const int8_t* __restrict__ wp,
         dec::store_piece(ws + (size_t)(p.j + blockIdx.x) * M * kW, acc, M,
                          ncols);
         // the consumers' barrier, then one thread's fence, release the
-        // piece (as w8_decode_kernel in wo_gemm.cu)
+        // piece (as wo_decode_kernel in wo_gemm.cu)
         dec::consumer_sync();
         if (threadIdx.x == 0) {
           __threadfence();

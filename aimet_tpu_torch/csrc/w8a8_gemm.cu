@@ -40,6 +40,7 @@
 #include <type_traits>
 
 #include "gemm_tiles.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -168,102 +169,22 @@ int gemm(const int8_t* xq, const int8_t* w, const float* sx, const float* sw,
 
 constexpr int kQ8BK = 128;                 // bytes (k values) a stage
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-// spins until the phase of parity `parity` completes; a wait of more than
-// ~2^32 clocks (seconds: a broken pipeline) traps rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1ll << 32)) __trap();
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// a (box rows x 128 bytes) tile at (k, row) into dst, counted by bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int k, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint32_t a = smem_u32(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-// a (64 rows x 32 int32) shared tile, 128-byte swizzled, to (col, row) of
-// the output; completion tracked by the issuing thread's bulk group
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(col), "r"(row)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// the bulk stores issued so far have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// shared-memory writes of this thread visible to the TMA unit
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// barrier `id` of the 128 threads of one warpgroup
-__device__ __forceinline__ void warpgroup_bar(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
+using aimet::bulk_commit;
+using aimet::bulk_wait_all;
+using aimet::bulk_wait_read;
+using aimet::encode_2d;
+using aimet::fence_proxy_async_shared;
+using aimet::mbar_arrive;
+using aimet::mbar_arrive_expect_tx;
+using aimet::mbar_init;
+using aimet::mbar_wait;
+using aimet::sw128_desc;
+using aimet::tma_load;
+using aimet::tma_store;
+using aimet::warpgroup_bar;
+using aimet::wgmma_commit;
+using aimet::wgmma_fence;
+using aimet::wgmma_wait;
 
 // d += A . B for one warpgroup: A 64 x 32 and B N x 32 int8, both K-major
 // in shared memory (descriptors da, db), exact int32 sums (the scale-d
@@ -394,7 +315,7 @@ q8_tma_kernel(const __grid_constant__ CUtensorMap map_a,
       const int k_end = min(ksteps, (split + 1) * per_split);
       for (int ks = split * per_split; ks < k_end; ++ks) {
         mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], kStageBytes);
+        mbar_arrive_expect_tx(&full[stage], kStageBytes);
         tma_load(sa + stage * BM * kQ8BK, &map_a, ks * kQ8BK, m0,
                  &full[stage]);
         tma_load(sb + stage * BN * kQ8BK, &map_b, ks * kQ8BK, n0,
@@ -460,7 +381,7 @@ q8_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                                    chunk * 16 + 8 * (lane % 2)) =
               make_int2(acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1]);
         }
-      fence_async_shared();
+      fence_proxy_async_shared();
       warpgroup_bar(1 + cw);
       if (t == 0) {
 #pragma unroll
@@ -494,53 +415,18 @@ q8_tma_kernel(const __grid_constant__ CUtensorMap map_a,
   if (tma_out && threadIdx.x % 128 == 0) bulk_wait_all();
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a rows x cols matrix of `type`, rows ld bytes apart, in 128-byte
-// swizzled boxes of box_rows x (128 bytes)
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int esize,
-               const void* p, int rows, int cols, int ld, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(p), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BM, int BN>
 int run_q8_tma(const void* xq, int lda, const void* w, int ldb, int* out,
                int M, int N, int K, int splits, int sms, cudaStream_t s) {
   CUtensorMap ma, mb, mo;
   // the TMA store needs 16-byte aligned output rows; split K adds atomically
   const bool tma_out = N % 4 == 0 && splits == 1;
-  if (!encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K, lda, BM) ||
-      !encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K, ldb, BN) ||
+  if (!encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K, lda, BM,
+                 128) ||
+      !encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, K, ldb, BN,
+                 128) ||
       (tma_out && !encode_2d(&mo, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, out, M,
-                             N, N * 4, 64)))
+                             N, N * 4, 64, 128)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!tma_out) mo = mb;                     // unused
   auto kern = q8_tma_kernel<BM, BN>;

@@ -26,14 +26,24 @@
 // Bound on the H100: at decode M (16..64) the weight bytes (K/2 x N for
 // INT4, K x N for int8, at 3.35 TB/s); at prefill M the bf16 tensor-core
 // rate (989 TFLOP/s dense).
-// Design: the block tile aimet::bf_tile (gemm_tiles.cuh) on
-// mma.sync.m16n8k16.bf16 with f32 accumulators, a 64 x 128 output tile a
-// block. Where M x N tiles cannot fill 132 SMs (decode) the weight rows
-// are split across blocks (the wrapper's decode_splits policy). Float
-// partial sums are not order-free, so each split writes its own slice of
-// a (splits, M, N) f32 workspace and an epilogue kernel adds the slices
-// in split order: repeated calls give the same bits. A TMA + wgmma
-// pipeline is later work.
+// Routes, picked by the wrapper (ops/int_matmul.py) from the shapes alone:
+// - decode M (bf16 x, M <= 64; K, for INT4 K/2, and N multiples of 16):
+//   KW8 and KW4 stream their weights through the decode routine
+//   (wo_decode_kernel below), KW4G through its own ring
+//   (w4g_decode_kernel);
+// - KW4 at prefill M (M > 64, operands TMA can map, at least 24 output
+//   tiles of 128 x 256): the persistent TMA + wgmma tile of
+//   wgmma_wo_tile.cuh, INT4 unpacked in registers as wgmma's A operand,
+//   no split K;
+// - the rest (KW8 and KW4G at prefill M, KW4 with fewer tiles, ragged
+//   shapes): the block tile
+//   aimet::bf_tile (gemm_tiles.cuh) on mma.sync.m16n8k16.bf16 with f32
+//   accumulators, a 64 x 128 output tile a block. Where M x N tiles cannot
+//   fill 132 SMs the weight rows are split across blocks (the wrapper's
+//   decode_splits policy). Float partial sums are not order-free, so each
+//   split writes its own slice of a (splits, M, N) f32 workspace and an
+//   epilogue kernel adds the slices in split order: repeated calls give
+//   the same bits.
 //
 // KW4G takes any group dividing K/2. In the tile, a group of 16 or a
 // multiple covers whole 16-wide k slices; a smaller or straddling one
@@ -55,18 +65,19 @@
 // the group's scales, read once a group into registers, when the group
 // changes. The planes meet through shared memory in a fixed order.
 //
-// KW8 with a bf16 x of at most 64 rows (decode M) takes the decode
-// weight-streaming route instead (w8_decode_kernel, decode_gemm.cuh): one
-// block an SM, a producer warp keeping copies of 64 weight rows x 256
-// columns in flight into a shared-memory ring, the M tile 16..64 rows,
-// every block an equal share of the weight bytes. A slice that one
-// block holds whole goes straight to out; the pieces of a slice split
-// across blocks go to a workspace, and the block that brings the last one
-// (an atomic count a slice, put back to 0 by that block) adds them in K
-// order and writes out: one launch, the same bits on every run.
+// KW8 and KW4 with a bf16 x of at most 64 rows (decode M) take the decode
+// weight-streaming route (wo_decode_kernel, decode_gemm.cuh's kW8Bf16 and
+// kW4Bf16 kinds): one block an SM, a producer warp keeping copies of 64
+// weight rows x 256 columns in flight into a shared-memory ring, the M
+// tile 16..64 rows, every block an equal share of the weight bytes. A
+// slice that one block holds whole goes straight to out; the pieces of a
+// slice split across blocks go to a workspace, and the block that brings
+// the last one (an atomic count a slice, put back to 0 by that block) adds
+// them in K order and writes out: one launch, the same bits on every run.
 #include <algorithm>
 
 #include "decode_gemm.cuh"
+#include "wgmma_wo_tile.cuh"
 
 namespace {
 
@@ -463,26 +474,28 @@ int run_w4g_decode(const void* x, const void* w, const void* gs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------- KW8 at decode M
-// out = (x @ W) * sw for bf16 x (M <= 64), int8 W (K, N); see the note at
-// the top. cnt: one int a slice, 0 on entry and on exit.
-template <typename OutT>
+// ------------------------------------------------- KW8 and KW4 at decode M
+// out = (x @ W) * sw for bf16 x (M <= 64) and, as kKind says, int8 W
+// (K, N) or split-half INT4 W (K/2, N); see the note at the top. cnt: one
+// int a slice, 0 on entry and on exit.
+template <int kKind, typename OutT>
 __global__ void __launch_bounds__(aimet::dec::kThreads, 1)
-w8_decode_kernel(const int8_t* __restrict__ w,
+wo_decode_kernel(const int8_t* __restrict__ w,
                  const __grid_constant__ CUtensorMap map_x,
                  const float* __restrict__ sw, OutT* __restrict__ out,
                  float* __restrict__ ws, int* __restrict__ cnt, int M, int N,
                  int K) {
   namespace dec = aimet::dec;
   constexpr int kW = dec::kW;
+  constexpr bool kW4 = dec::Fmt<kKind>::kW4;
   extern __shared__ __align__(128) unsigned char dsmem[];
   int* flag = reinterpret_cast<int*>(dsmem + 512);
   const int mt = (M + 15) / 16;
-  dec::Ring ring = dec::make_ring<dec::kW8Bf16>(dsmem, mt);
+  dec::Ring ring = dec::make_ring<kKind>(dsmem, mt);
   __syncthreads();
-  const dec::Geo g(M, K, N, 1, gridDim.x);
-  const dec::Operand op{w, nullptr, N, &map_x, 0};
-  dec::stream_gemm<dec::kW8Bf16>(
+  const dec::Geo g(M, kW4 ? K / 2 : K, N, 1, gridDim.x);
+  const dec::Operand op{w, nullptr, N, &map_x, kW4 ? K / 2 : 0};
+  dec::stream_gemm<kKind>(
       op, g, mt, ring, [&](const dec::Piece& p, const auto& acc) {
         const int n0 = p.j * kW, ncols = min(kW, N - n0);
         const int b0 = g.first_block(p.j), b1 = g.last_block(p.j);
@@ -535,15 +548,15 @@ w8_decode_kernel(const int8_t* __restrict__ w,
       });
 }
 
-template <typename OutT>
-int run_w8_decode(const void* x, const void* w, const void* sw, void* out,
+template <int kKind, typename OutT>
+int run_wo_decode(const void* x, const void* w, const void* sw, void* out,
                   void* ws, void* cnt, int M, int N, int K, int blocks,
                   cudaStream_t s) {
   namespace dec = aimet::dec;
   CUtensorMap mx;
-  if (!dec::x_map<dec::kW8Bf16>(&mx, x, M, K, (M + 15) / 16))
+  if (!dec::x_map<kKind>(&mx, x, M, K, (M + 15) / 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = w8_decode_kernel<OutT>;
+  auto kern = wo_decode_kernel<kKind, OutT>;
   static bool ready = false;                 // the smem limit, once
   if (!ready) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -555,6 +568,64 @@ int run_w8_decode(const void* x, const void* w, const void* sw, void* out,
       static_cast<const int8_t*>(w), mx, static_cast<const float*>(sw),
       static_cast<OutT*>(out),
       static_cast<float*>(ws), static_cast<int*>(cnt), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The decode routes' shared checks and dispatch: K (INT4: K/2 packed
+// rows) and N multiples of 16, workspace and counters no shorter than
+// the split needs.
+template <int kKind>
+int wo_decode(const void* x, const void* w, const void* sw, void* out,
+              void* ws, void* cnt, int M, int N, int K, int blocks,
+              long long ws_values, int cnt_values, int out_is_bf16,
+              void* stream) {
+  namespace dec = aimet::dec;
+  const int rows = dec::Fmt<kKind>::kW4 ? K / 2 : K;
+  if (M <= 0 || M > 16 * dec::kMaxMT || K <= 0 || N <= 0 ||
+      (dec::Fmt<kKind>::kW4 && K % 2) || rows % 16 || N % 16 ||
+      blocks <= 0 || !aimet::aligned16(x) || !aimet::aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dec::Geo g(M, rows, N, 1, blocks);
+  if (ws_values < g.ws_values() || cnt_values < g.nslices)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_is_bf16
+             ? run_wo_decode<kKind, __nv_bfloat16>(x, w, sw, out, ws, cnt, M,
+                                                   N, K, blocks, s)
+             : run_wo_decode<kKind, float>(x, w, sw, out, ws, cnt, M, N, K,
+                                           blocks, s);
+}
+
+// ------------------------------------------------ KW4 at prefill M: wgmma
+// (wgmma_wo_tile.cuh)
+template <typename OutT, bool kPairX>
+int run_w4_tile(const CUtensorMap& mx, const CUtensorMap& mw, const void* sw,
+                void* out, int M, int N, int K2, int x_hi, int xrows,
+                cudaStream_t s) {
+  namespace wot = aimet::wot;
+  static int sms = 0;                        // the card's SMs, once
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return static_cast<int>(e);
+  }
+  auto kern = wot::w4_tile_kernel<aimet::dec::kW4Bf16, OutT, kPairX>;
+  static bool ready = false;                 // the smem limit, once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, wot::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  const int tiles_m = (xrows + wot::kBM - 1) / wot::kBM;
+  const int tiles_n = (N + wot::kBN - 1) / wot::kBN;
+  const int grid = std::min(tiles_m * tiles_n, sms);
+  kern<<<grid, wot::kThreads, wot::kSmemBytes, s>>>(
+      mx, mw, static_cast<const float*>(sw), static_cast<OutT*>(out), M, N,
+      K2, x_hi, tiles_m, tiles_n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -649,18 +720,73 @@ extern "C" int aimet_w8_decode_gemm(const void* x, const void* w,
                                     int blocks, long long ws_values,
                                     int cnt_values, int out_is_bf16,
                                     void* stream) {
-  namespace dec = aimet::dec;
-  if (M <= 0 || M > 16 * dec::kMaxMT || K <= 0 || N <= 0 || K % 16 ||
-      N % 16 || blocks <= 0 || !aimet::aligned16(x) || !aimet::aligned16(w))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dec::Geo g(M, K, N, 1, blocks);
-  if (ws_values < g.ws_values() || cnt_values < g.nslices)
+  return wo_decode<aimet::dec::kW8Bf16>(x, w, sw, out, ws, cnt, M, N, K,
+                                        blocks, ws_values, cnt_values,
+                                        out_is_bf16, stream);
+}
+
+// KW4's decode route: as aimet_w8_decode_gemm with w (K/2, N) split-half
+// INT4, K/2 and N multiples of 16.
+extern "C" int aimet_w4_decode_gemm(const void* x, const void* w,
+                                    const void* sw, void* out, void* ws,
+                                    void* cnt, int M, int N, int K,
+                                    int blocks, long long ws_values,
+                                    int cnt_values, int out_is_bf16,
+                                    void* stream) {
+  return wo_decode<aimet::dec::kW4Bf16>(x, w, sw, out, ws, cnt, M, N, K,
+                                        blocks, ws_values, cnt_values,
+                                        out_is_bf16, stream);
+}
+
+// KW4's route at prefill M (wgmma_wo_tile.cuh): x (M, K) bf16 (K % 16:
+// x's high half 16-byte aligned) or f32 (K % 4), rows unit-stride; w (K/2,
+// N) split-half INT4, N % 16; x, w and sw 16-byte aligned; out (M, N)
+// bf16 or f32. An f32 x is first written as bf16 pairs into ws, which must
+// hold ws_bytes >= 2 M x pair_ld(K) x 2 (unused for bf16 x).
+extern "C" int aimet_w4_tile_gemm(const void* x, const void* w,
+                                  const void* sw, void* out, void* ws, int M,
+                                  int N, int K, int x_is_f32,
+                                  int out_is_bf16, long long ws_bytes,
+                                  void* stream) {
+  namespace wot = aimet::wot;
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (K % 2 || N % 16 || K % (x_is_f32 ? 4 : 16) ||
+      !aimet::aligned16(x) || !aimet::aligned16(w) || !aimet::aligned16(sw))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_is_bf16 ? run_w8_decode<__nv_bfloat16>(x, w, sw, out, ws, cnt,
-                                                    M, N, K, blocks, s)
-                     : run_w8_decode<float>(x, w, sw, out, ws, cnt, M, N, K,
-                                            blocks, s);
+  const int K2 = K / 2;
+  CUtensorMap mx, mw;
+  if (!aimet::encode_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K2, N, N,
+                        wot::kP, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_is_f32) {
+    const long long ld = wot::pair_ld(K), hi0 = wot::pair_hi(K);
+    if (ws == nullptr || !aimet::aligned16(ws) ||
+        ws_bytes < 2LL * M * ld * 2 ||
+        !aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ws,
+                          2 * M, (int)(hi0 + K2), ld * 2, wot::kBM, 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t total = (size_t)M * (K / 4);
+    const int blocks =
+        (int)std::min<size_t>((total + 255) / 256, (size_t)4 * 132 * 8);
+    wot::split_pairs_kernel<<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<uint16_t*>(ws), M, K);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return out_is_bf16
+               ? run_w4_tile<__nv_bfloat16, true>(mx, mw, sw, out, M, N, K2,
+                                                  (int)hi0, 2 * M, s)
+               : run_w4_tile<float, true>(mx, mw, sw, out, M, N, K2,
+                                          (int)hi0, 2 * M, s);
+  }
+  if (!aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K,
+                        2LL * K, wot::kBM, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return out_is_bf16
+             ? run_w4_tile<__nv_bfloat16, false>(mx, mw, sw, out, M, N, K2,
+                                                 K2, M, s)
+             : run_w4_tile<float, false>(mx, mw, sw, out, M, N, K2, K2, M,
+                                         s);
 }
 
 // As aimet_w4_gemm with group scales gs (K/group, N) f32 in place of sw;

@@ -222,7 +222,7 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
     splits = decode_splits(M, N, -(-K2 // _TILE_P))
     ws = (torch.zeros((M, N), dtype=torch.int32, device=x_q.device)
           if splits > 1 else out)
-    w4a8_gemm.launches += 1
+    _count(w4a8_gemm, "s8_tile", x_q, out)
     _build.launch("aimet_w4a8_gemm", x_q.data_ptr(), x_scale.data_ptr(),
                   w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
                   ws.data_ptr(), M, N, K2, splits,
@@ -232,6 +232,20 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 
 w4a8_gemm.launches = 0
+w4a8_gemm.routes = {"decode": 0, "s8_tile": 0}
+w4a8_gemm.shapes = {}
+
+
+def _count(fn, route: str, x, out, group: int = 0) -> None:
+    """One launch of ``fn``'s kernel, by the route it took (``fn.routes``
+    counts each route's launches beside ``fn.launches``, the kernel's) and
+    by its shape (``fn.shapes``: (route, M, N, K, x dtype, out dtype,
+    group) -> launches, K counting unpacked weight rows)."""
+    fn.launches += 1
+    fn.routes[route] += 1
+    key = (route, x.shape[0], out.shape[1], x.shape[1],
+           str(x.dtype).split(".")[-1], str(out.dtype).split(".")[-1], group)
+    fn.shapes[key] = fn.shapes.get(key, 0) + 1
 
 
 def w4a8_decode_route(M: int, N: int, K2: int) -> bool:
@@ -248,7 +262,7 @@ def _launch_w4a8_decode(x_q, x_scale, w_packed, w_scale, out):
     ws = torch.empty((plan.ws_values,), dtype=torch.int32,
                      device=x_q.device)
     cnt = _zeroed_counters(x_q.device, plan.slices)
-    w4a8_gemm.launches += 1
+    _count(w4a8_gemm, "decode", x_q, out)
     _build.launch("aimet_w4a8_decode_gemm", x_q.data_ptr(),
                   x_scale.data_ptr(), w_packed.data_ptr(),
                   w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -326,7 +340,8 @@ def _weight_only(name: str, x, w, w_scale, out_dtype, w4: bool, fn):
 
 
 def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
-    """Launch KW4, KW8 (``group`` None) or KW4G on CUDA tensors."""
+    """Launch KW4, KW8 (``group`` None) or KW4G on CUDA tensors, by the
+    route the shapes pick."""
     M = x.shape[0]
     if x.dtype not in _GEMM_DTYPES or out_dtype not in _GEMM_DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16 x and output, "
@@ -335,12 +350,27 @@ def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
         raise TypeError(f"expected int8 weights and float32 scales, got "
                         f"{w.dtype}, {w_scale.dtype}")
     # the kernel reads 16-byte vectors: contiguous, 16-byte aligned operands
-    x, w = (t.contiguous() for t in (x, w))
-    x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
-    w_scale = w_scale.contiguous()
+    x, w, w_scale = (t.contiguous() for t in (x, w, w_scale))
+    x, w, w_scale = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (x, w, w_scale))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if fn is matmul_w8 and w8_decode_route(M, N, K, x.dtype):
-        return _launch_w8_decode(x, w, w_scale, out)
+        return _launch_wo_decode("aimet_w8_decode_gemm", fn, x, w, w_scale,
+                                 out, K)
+    if fn is matmul_w4 and w4_decode_route(M, N, K, x.dtype):
+        return _launch_wo_decode("aimet_w4_decode_gemm", fn, x, w, w_scale,
+                                 out, K // 2)
+    if fn is matmul_w4 and w4_tile_route(M, N, K, x.dtype):
+        return _launch_w4_tile(x, w, w_scale, out)
+    return _launch_bf_tile(name, fn, x, w, w_scale, out, group)
+
+
+def _launch_bf_tile(name, fn, x, w, w_scale, out, group=None):
+    """The ``mma.sync`` block tile of KW4, KW8 or KW4G (``group`` set:
+    KW4G, which takes its weight-streaming route where
+    :func:`w4g_decode_route` says) on contiguous, aligned CUDA operands,
+    splitting K by :func:`decode_splits`."""
+    (M, K), N = x.shape, out.shape[1]
     decode = group is not None and w4g_decode_route(M, N, K, x.dtype)
     if decode:
         splits = w4g_decode_splits(M, N, K)
@@ -351,11 +381,11 @@ def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
           if splits > 1 else out)
     sizes = (M, N, K) if group is None else (M, N, K, group)
     flags = () if group is None else (int(decode),)
-    fn.launches += 1
+    _count(fn, "decode" if decode else "bf_tile", x, out, group or 0)
     _build.launch(name, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
                   out.data_ptr(), ws.data_ptr(), *sizes, splits,
                   int(x.dtype == torch.float32),
-                  int(out_dtype == torch.bfloat16), *flags,
+                  int(out.dtype == torch.bfloat16), *flags,
                   _build.stream_ptr(x.device))
     return out
 
@@ -365,11 +395,19 @@ def matmul_w4(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
     """Weight-only INT4: x (M, K) @ split-half INT4 weights (K//2, N) int8
     with per-column scales (N,) f32 -> (M, N) ``out_dtype`` (default x's
     dtype). On CUDA tensors (x bf16 or f32) it launches kernel KW4
-    (``csrc/wo_gemm.cu``) at every M, splitting K by
-    :func:`decode_splits`; on CPU tensors it takes
-    :func:`matmul_w4_torch`. An f32 x is not rounded to bf16: the kernel
-    takes it as a bf16 high part plus a bf16 residual (within ~2^-16 of
-    the f32 product)."""
+    (``csrc/wo_gemm.cu``) by one of three routes, picked from the shapes:
+    a bf16 x of at most 64 rows with K/2 and N multiples of 16 streams the
+    weights through the decode routine (:func:`w4_decode_route`,
+    :func:`decode_plan`, one block an SM); M above 64 with operands TMA
+    can map and at least ``W4_TILE_MIN_TILES`` output tiles takes the
+    TMA + ``wgmma`` tile (:func:`w4_tile_route`,
+    ``csrc/wgmma_wo_tile.cuh``, no split K); the rest takes the
+    ``mma.sync`` block tile, splitting K by :func:`decode_splits`.
+    ``matmul_w4.routes`` counts each route's launches, ``.shapes`` each
+    route's launches by shape. On CPU tensors it
+    takes :func:`matmul_w4_torch`. An f32 x is not rounded to bf16: the
+    kernel takes it as a bf16 high part plus a bf16 residual (within
+    ~2^-16 of the f32 product)."""
     return _weight_only("aimet_w4_gemm", x, w_packed, w_scale, out_dtype,
                         True, matmul_w4)
 
@@ -388,7 +426,11 @@ def matmul_w8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
 
 
 matmul_w4.launches = 0
+matmul_w4.routes = {"decode": 0, "tile": 0, "bf_tile": 0}
+matmul_w4.shapes = {}
 matmul_w8.launches = 0
+matmul_w8.routes = {"decode": 0, "bf_tile": 0}
+matmul_w8.shapes = {}
 
 
 class DecodePlan(NamedTuple):
@@ -441,19 +483,83 @@ def _zeroed_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch_w8_decode(x, w, w_scale, out):
-    """KW8's decode route on contiguous, aligned CUDA operands."""
+def w4_decode_route(M: int, N: int, K: int, x_dtype) -> bool:
+    """Whether KW4 takes its decode weight-streaming route: a bf16 x of
+    1..64 rows, K/2 packed rows and N multiples of 16."""
+    return (x_dtype == torch.bfloat16 and 1 <= M <= MAX_DECODE_ROWS
+            and K % 32 == 0 and N % 16 == 0)
+
+
+W4_TILE_MIN_M = MAX_DECODE_ROWS + 1   # the tile's rows from here up
+W4_TILE_BM, W4_TILE_BN = 128, 256     # the tile's map rows and columns
+# the output tiles from which the tile beats the block tile: on the H100
+# it loses at 16 (M <= 128 at N = 4096: 1.10-1.47x slower) and wins from
+# 24 (chip_smoke.tile_sweep, PERF.md)
+W4_TILE_MIN_TILES = 24
+
+
+def w4_tiles(M: int, N: int, x_dtype) -> int:
+    """The output tiles of KW4's TMA + ``wgmma`` tile: 128 rows of its x
+    map (an f32 x maps 2 rows a row: bf16 high part and residual) by 256
+    columns. Its persistent grid runs one tile a block, one block an SM,
+    and never splits K."""
+    rows = 2 * M if x_dtype == torch.float32 else M
+    return -(-rows // W4_TILE_BM) * -(-N // W4_TILE_BN)
+
+
+def w4_tile_route(M: int, N: int, K: int, x_dtype) -> bool:
+    """Whether KW4 takes its TMA + ``wgmma`` tile: M from
+    ``W4_TILE_MIN_M`` up, at least ``W4_TILE_MIN_TILES`` output tiles
+    (:func:`w4_tiles`; below, most SMs idle while each block walks all of
+    K, and the block tile, which splits K, is faster), and operands
+    the tensor maps take: N % 16 and, for a bf16 x, x's high half 16-byte
+    aligned (K % 16: a TMA box that starts off 16 bytes hangs the load);
+    an f32 x is rewritten as aligned bf16 pairs first, and needs K % 4
+    (16-byte rows to read)."""
+    return (x_dtype in _GEMM_DTYPES and M >= W4_TILE_MIN_M and N % 16 == 0
+            and K % (16 if x_dtype == torch.bfloat16 else 4) == 0
+            and w4_tiles(M, N, x_dtype) >= W4_TILE_MIN_TILES)
+
+
+def w4_pair_ld(K: int) -> int:
+    """bf16 values a row of the tile's pair matrix for an f32 x (the bf16
+    high parts and residuals of x's rows): x's low half, then its high
+    half from the next multiple of 8, rows a multiple of 8 (16 bytes)."""
+    hi0 = -(-(K // 2) // 8) * 8
+    return -(-(hi0 + K // 2) // 8) * 8
+
+
+def _launch_wo_decode(name, fn, x, w, w_scale, out, rows):
+    """KW8's or KW4's decode route on contiguous, aligned CUDA operands;
+    ``rows``: the weight's rows (K, or K/2 packed)."""
     M, K = x.shape
     N = w.shape[1]
-    plan = decode_plan(M, N, K, _sm_count(x.device))
+    plan = decode_plan(M, N, rows, _sm_count(x.device))
     ws = torch.empty((plan.ws_values,), dtype=torch.float32,
                      device=x.device)
     cnt = _zeroed_counters(x.device, plan.slices)
-    matmul_w8.launches += 1
-    _build.launch("aimet_w8_decode_gemm", x.data_ptr(), w.data_ptr(),
-                  w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                  cnt.data_ptr(), M, N, K, plan.blocks, ws.numel(),
-                  cnt.numel(), int(out.dtype == torch.bfloat16),
+    _count(fn, "decode", x, out)
+    _build.launch(name, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                  out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), M, N, K,
+                  plan.blocks, ws.numel(), cnt.numel(),
+                  int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(x.device))
+    return out
+
+
+def _launch_w4_tile(x, w, w_scale, out):
+    """KW4's TMA + ``wgmma`` tile on contiguous, aligned CUDA operands; an
+    f32 x gets its pair matrix in a workspace."""
+    M, K = x.shape
+    N = w.shape[1]
+    f32 = x.dtype == torch.float32
+    ws = (torch.empty((2 * M, w4_pair_ld(K)), dtype=torch.bfloat16,
+                      device=x.device) if f32 else out)
+    _count(matmul_w4, "tile", x, out)
+    _build.launch("aimet_w4_tile_gemm", x.data_ptr(), w.data_ptr(),
+                  w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
+                  int(f32), int(out.dtype == torch.bfloat16),
+                  ws.numel() * ws.element_size() if f32 else 0,
                   _build.stream_ptr(x.device))
     return out
 
@@ -536,6 +642,8 @@ def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 matmul_w4_grouped.launches = 0
+matmul_w4_grouped.routes = {"decode": 0, "bf_tile": 0}
+matmul_w4_grouped.shapes = {}
 
 
 # --------------------------------------------------------------------------
@@ -725,7 +833,7 @@ def _launch_q8(x_q, x_scale, w_q, w_scale, col_bias, dtype):
             for t in (x_scale, w_scale, col_bias)]
     sx, sw, cb = (p if isinstance(p, int) else p.data_ptr() for p in ptrs)
     (M, K), N = x_q.shape, w_q.shape[1]
-    matmul_q8.launches += 1
+    _count(matmul_q8, "s8_tile", x_q, out)
     _build.launch("aimet_q8_gemm", x_q.data_ptr(), sx, w_q.data_ptr(), sw,
                   cb, out.data_ptr(), ws.data_ptr(), M, N, K, splits,
                   _OUT_KIND[dtype], _build.stream_ptr(x_q.device))
@@ -755,6 +863,8 @@ def matmul_q8(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
 
 
 matmul_q8.launches = 0
+matmul_q8.routes = {"tile": 0, "s8_tile": 0}
+matmul_q8.shapes = {}
 
 
 _Q8_BM, _Q8_BK = 128, 128      # KQ8's K-major route: M tile, K step
@@ -801,7 +911,7 @@ def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     splits = q8_kmajor_splits(M, N, K)
     out = (torch.zeros if splits > 1 else torch.empty)(
         (M, N), dtype=torch.int32, device=x_q.device)
-    matmul_q8.launches += 1
+    _count(matmul_q8, "tile", x_q, out)
     _build.launch("aimet_q8_int32_kmajor", x_q.data_ptr(), x_q.stride(0),
                   wt.data_ptr(), wt.stride(0), out.data_ptr(), M, N, K,
                   splits, _build.stream_ptr(x_q.device))

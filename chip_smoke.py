@@ -8,6 +8,7 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-slice     # K2 / K3 and the per-slot step
     python3 chip_smoke.py --layer-variants   # the whole-layer kernel's variants
+    python3 chip_smoke.py --w4-slice         # KW4, the w4 prefill and step
 
 1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
    ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
@@ -25,12 +26,18 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    q within one bf16 ulp a prob; KW4 and KW8 on f32 x as well, the f32
    ``lm_head`` of a lowered model), and times kernel, plain version, the
    bound the card's peaks set and, beside the int8 GEMMs,
-   ``torch._int_mm``; K2 at decode M (1, 16, 32, 64 at 4096 x 28672 and
-   the padded ``lm_head``, bit-exact before timing) and K3 at B = 16, 32
-   and 1 with S = 1024 and at S = 16,384 (with a sweep of its chunk); it holds the im2col convs ``conv2d_w8`` (KW8) and
-   ``conv2d_w4`` (KW4) at ResNet-50 conv shapes within KW8's and KW4's
-   share; it probes ``torch._weight_int8pack_mm`` and
-   ``torch._weight_int4pack_mm`` for KW8's and KW4G's library column;
+   ``torch._int_mm``; K1 at decode M (16 and 64 rows); K2 at decode M (1,
+   16, 32, 64 at 4096 x 28672 and the padded ``lm_head``, bit-exact
+   before timing); KW4 on each of its routes at the main paths' shapes
+   (decode M 1, 16, 32, 64 at 4096 x 28672, the padded ``lm_head`` and
+   layer 0's QKV; M = 4096 at the four layer projections and the
+   ``lm_head``; f32 x at the lowered ``lm_head``), each within KW4's share
+   of its plain version and repeating its bits before it is timed; K3 at
+   B = 16, 32 and 1 with S = 1024 and at S = 16,384 (with a sweep of its
+   chunk); it holds the im2col convs ``conv2d_w8`` (KW8) and ``conv2d_w4``
+   (KW4) at ResNet-50 conv shapes within KW8's and KW4's share; it probes
+   ``torch._weight_int8pack_mm`` and ``torch._weight_int4pack_mm`` for the
+   library column of KW8, KW4 and KW4G;
 3. draws ``TransformerConfig.llama3_8b()`` weights at full width and depth
    (32 layers) with ``random_quantized_weights`` on the card and drives
    each path with the launch counts set to 0 just before it and read just
@@ -81,8 +88,13 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    (the dynamic full-INT8 ops API: K1 + KQ8, equal to its plain
    version);
    then a MobileNetV2 lowered in ``w8a8`` (its depthwise convs);
-7. prints the measurements, the card's name and power limit, a ``kernels``
-   JSON line and, last, ``{"ok": true, "device": {...}}``.
+7. times the GEMM routes (KW4, KW8, KW4G, K2) alone at every shape they
+   ran at on the main paths (``route_shape_gaps``) and prints the
+   measurements, each kernel route's redesign score (its launches on the
+   main paths, counted by the wrappers per route and shape, times its ms -
+   bound there: ``route_ranking``), the card's
+   name and power limit, a ``kernels`` JSON line and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed phase exits non-zero. Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
@@ -90,7 +102,10 @@ repository, it exits non-zero before printing any result.
 ``--decode-slice`` runs only K2's decode rows, K3's rows and the per-slot
 step's profile in each mode (``decode_slice``), with APIs a tree from
 before K2's decode route and K3's split also has: copied into such a tree,
-it measures that tree with the same code.
+it measures that tree with the same code. ``--w4-slice`` does the same for
+KW4 (``w4_slice``): its rows, K1's decode rows, KW4 at the lowered
+forward's linears, the w4 prefill of 8 x 512, the w4 per-slot step and
+the w4 continuous batcher.
 """
 from __future__ import annotations
 
@@ -112,6 +127,10 @@ F32_FLOPS = 67e12
 TOL_ATTN = 2e-2          # K3, KFL, KSOL vs plain: max |diff| / max |plain|
 TOL_INT8_DOTS = 6e-2     # KSOL with int8 dots, same measure
 TOL_WO = 1e-2            # KW4 / KW8, same measure
+# KW4 / KW8 on an f32 x with an f32 output, same measure: the kernels take
+# x as a bf16 high part plus a bf16 residual (within ~2^-16 of the f32
+# product; measured <= 1.2e-5), where an x rounded to bf16 gives ~1e-3
+TOL_WO_F32 = 1e-4
 TOL_LOGITS = 5e-2        # whole-model logits, same measure
 TOL_GQA_F32 = 1e-4       # KGQA f32 q vs plain: f32 sums of 1024 rows
 # KGQA vs K3's context on the same roped q and caches, same measure: K3
@@ -186,6 +205,47 @@ SOL_ROWS = (1, 32, 64)
 # KW4G's timed rows: (tag, M) at 4096 x 14336, group 128
 W4G_ROWS = (("prefill", 4096), ("decode", 16), ("decode M=32", 32),
             ("decode M=64", 64))
+# KW4 at decode M: (M, K, N) at W_gate|up of Llama-3-8B, its padded lm_head
+# and layer 0's QKV (the two KW4 launches of a w4 decode step)
+KW4_DECODE_SHAPES = ((16, 4096, 28672), (1, 4096, 28672), (32, 4096, 28672),
+                     (64, 4096, 28672), (16, 4096, 131072), (16, 4096, 6144))
+# KW4 at prefill M (8 x 512 tokens): the four layer projections (QKV, O,
+# gate|up, down) and the padded lm_head
+KW4_PREFILL_SHAPES = ((4096, 4096, 28672), (4096, 4096, 6144),
+                      (4096, 4096, 4096), (4096, 14336, 4096),
+                      (4096, 4096, 131072))
+# the lowered Llama-3-8B's linears at M = 8 x 512, f32 out: (K, N, launches
+# a forward, x's dtype); 7 a layer over 32 layers (bf16 x, the float
+# model's Dense), then the f32 lm_head
+KW4_LOWERED_SHAPES = ((4096, 4096, 64, "bf16"), (4096, 1024, 64, "bf16"),
+                      (4096, 14336, 64, "bf16"), (14336, 4096, 32, "bf16"),
+                      (4096, 128256, 1, "f32"))
+KW4_KERNELS = ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode",
+               "w4_tile", "split_pairs"]
+# K1 at decode M (the per-op w4a8 decode step's rows): (M, K)
+K1_DECODE_SHAPES = ((16, 4096), (64, 4096))
+# the rows at the shapes that carry most of a route's launches on the main
+# paths (several only where they launch equally often), by which a route
+# of a kernel outside SHAPE_KERNELS is scored; the rest (sweeps of M or B)
+# are not
+MAIN_ROWS = {
+    "act_quant[decode M=16]",
+    "q8_gemm[int32, conv 3x3]", "q8_gemm[w_down]",
+    "w8a8_fusedq[conv 3x3]", "w8a8_staticq[w_down]",
+    "decode_attention", "fused_wo_mlp[next_qkv]",
+    "sol_decode_layer[w4]", "sol_decode_layer[w4a8]",
+    "fused_decode_layer[next_qkv]",
+    "gqa_decode_attention[bf16]", "gqa_decode_attention[f32]",
+}
+# the wrappers by kernel name (gemm_row reads their route counts)
+KERNEL_FNS = {}
+# launches on the main paths by "kernel:route" (take_routes)
+ROUTE_LAUNCHES = {}
+# the kernels whose routes are scored at every shape they ran on the main
+# paths (their wrappers count launches by shape: ``fn.shapes``), and those
+# launches: (kernel, route, M, N, K, x dtype, out dtype, group) -> count
+SHAPE_KERNELS = ("w4_gemm", "w8_gemm", "w4_grouped_gemm", "w4a8_gemm")
+ROUTE_SHAPES = {}
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
     "w4": ("w4_gemm", "sol_decode_layer", "decode_attention",
@@ -212,6 +272,29 @@ LOWER_MODES = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+def zero_counts(counters):
+    """Set every wrapper's launch count, and each of its routes' and
+    shapes', to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        for r in getattr(fn, "routes", {}):
+            fn.routes[r] = 0
+        if hasattr(fn, "shapes"):
+            fn.shapes.clear()
+
+
+def take_routes(counters):
+    """Add the route and shape counts of the path just driven (since
+    zero_counts) to ROUTE_LAUNCHES and ROUTE_SHAPES."""
+    for k, fn in counters.items():
+        for r, n in getattr(fn, "routes", {}).items():
+            if n:
+                ROUTE_LAUNCHES[f"{k}:{r}"] = \
+                    ROUTE_LAUNCHES.get(f"{k}:{r}", 0) + n
+        for key, n in getattr(fn, "shapes", {}).items():
+            ROUTE_SHAPES[(k,) + key] = ROUTE_SHAPES.get((k,) + key, 0) + n
 
 
 @contextlib.contextmanager
@@ -273,6 +356,18 @@ def timed(fn, iters, match=None, warmup=3):
         if len(ev) == per_call * iters:
             dev_us = sum(e.time_range.elapsed_us() for e in ev)
             return dev_us / 1e3 / iters, wall * 1e3 / iters
+    log(f"  (the profiler lost CUDA kernels matching {match} three times: "
+        "timed with CUDA events around each call, the median)")
+    return event_ms(fn, iters, wall)
+
+
+def event_ms(fn, iters, wall=0.0):
+    """The median device ms of fn(i) over ``iters`` calls, each between
+    its own pair of CUDA events, queued behind a spinning kernel so the
+    host's gaps between the calls do not count (all of a call's kernels
+    do); ``wall``: the host seconds of the calls, measured here if 0.
+    Returns (ms, host ms per call)."""
+    import torch
     if not wall:
         t0 = time.perf_counter()
         for i in range(iters):
@@ -290,8 +385,6 @@ def timed(fn, iters, match=None, warmup=3):
         fn(i)
         b.record()
     torch.cuda.synchronize()
-    log(f"  (the profiler lost CUDA kernels matching {match} three times: "
-        "timed with CUDA events around each call, the median)")
     per = sorted(a.elapsed_time(b) for a, b in marks)
     return per[len(per) // 2], wall * 1e3 / iters
 
@@ -343,15 +436,23 @@ def phase_split(torch, flay, call, runs=10):
 
 def gemm_timer(rows):
     """gemm_row(label, kernel, m, k, n, launch, plain, match, in_bytes,
-    peak, out_bytes=None, vec_bytes=None): times ``launch(i)`` (the CUDA
-    kernels named by ``match``) and ``plain(i)`` into ``rows[label]`` with
-    the bound of the GEMM's bytes and operations. in_bytes: the
-    activations' and the weight codes' bytes; the output is bf16 and one
-    f32 scale a column is read unless ``out_bytes`` / ``vec_bytes`` say
-    otherwise."""
+    peak, out_bytes=None, vec_bytes=None, iters=20): times ``launch(i)``
+    (the CUDA kernels named by ``match``) and ``plain(i)`` into
+    ``rows[label]`` with the bound of the GEMM's bytes and operations, and
+    the route ``launch`` took where the kernel's wrapper counts routes.
+    in_bytes: the activations' and the weight codes' bytes; the output is
+    bf16 and one f32 scale a column is read unless ``out_bytes`` /
+    ``vec_bytes`` say otherwise."""
     def gemm_row(label, kernel, m, k, n, launch, plain, match, in_bytes,
-                 peak, out_bytes=None, vec_bytes=None):
-        ms, call = timed(launch, 20, match)
+                 peak, out_bytes=None, vec_bytes=None, iters=20):
+        import torch
+        fn = KERNEL_FNS.get(kernel)
+        before = dict(getattr(fn, "routes", {}))
+        launch(0)
+        torch.cuda.synchronize()
+        took = [r for r, v in getattr(fn, "routes", {}).items()
+                if v != before.get(r, 0)]
+        ms, call = timed(launch, iters, match)
         pms, _ = timed(plain, 3, warmup=1)
         out_bytes = m * n * 2 if out_bytes is None else out_bytes
         vec_bytes = n * 4 if vec_bytes is None else vec_bytes
@@ -359,8 +460,215 @@ def gemm_timer(rows):
                           (2 * m * n * k, peak))
         rows[label] = dict(kernel=kernel, shape=f"M={m} K={k} N={n}", ms=ms,
                            call_ms=call, plain_ms=pms, bound_ms=b,
-                           bound_by=how)
+                           bound_by=how,
+                           route=took[0] if len(took) == 1 else None)
     return gemm_row
+
+
+def int4pack_ms(torch, tim, x, packed, sc):
+    """torch._weight_int4pack_mm on KW4's operands (tinygemm's layout, the
+    column scale repeated over groups of 128, zeros 0): (ms, max |diff|
+    over max |KW4|), or (None, the error's text) where it does not run."""
+    k, n = x.shape[1], packed.shape[1]
+    try:
+        u = (tim.unpack_int4(packed).to(torch.int32) + 8).t()
+        u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+        wt = torch._convert_weight_to_int4pack(u8.contiguous(), 8)
+        sz = torch.stack([sc.expand(k // 128, n),
+                          torch.zeros((k // 128, n), device=x.device)],
+                         -1).to(torch.bfloat16).contiguous()
+        got = torch._weight_int4pack_mm(x, wt, 128, sz)
+        err = rel_err(got, tim.matmul_w4(x, packed, sc))
+        ms, _ = timed(lambda i: torch._weight_int4pack_mm(x, wt, 128, sz),
+                      10)
+        return ms, err
+    except Exception as e:              # recorded: the row's library note
+        return None, f"torch._weight_int4pack_mm: {e}"[:200]
+
+
+def kw4_label(m, k, n):
+    if m <= 64:
+        return ("w4_gemm[decode]" if (m, n) == (16, 28672) else
+                f"w4_gemm[decode M={m}]" if n == 28672 else
+                f"w4_gemm[lm_head M={m}]" if n == 131072 else
+                f"w4_gemm[qkv M={m}]")
+    return ("w4_gemm[prefill]" if n == 28672 else
+            "w4_gemm[prefill lm_head]" if n == 131072 else
+            f"w4_gemm[prefill {k}x{n}]")
+
+
+def kw4_rows(torch, tim, g, rows, gemm_row, note):
+    """KW4 at the main paths' shapes, KW4_DECODE_SHAPES and
+    KW4_PREFILL_SHAPES (bf16 x): each held against its plain version
+    within TOL_WO and on a repeated call, then timed with 3 weight copies
+    rotated (so the weights stream from HBM), torch._weight_int4pack_mm
+    beside it (the library column)."""
+    for m, k, n in KW4_DECODE_SHAPES + KW4_PREFILL_SHAPES:
+        ws = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 0.02 \
+            / k ** 0.5
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        got = tim.matmul_w4(x, ws[0], sw)
+        want = tim.matmul_w4_torch(x, ws[0], sw)
+        note("w4_gemm", got, want)
+        err = rel_err(got, want)
+        assert err < TOL_WO, ("KW4", m, k, n, err)
+        assert torch.equal(tim.matmul_w4(x, ws[0], sw), got), \
+            ("KW4", m, k, n, "repeat")
+        label = kw4_label(m, k, n)
+        log(f"{label} at M={m}, K={k}, N={n}: within {err:.2e} of max (< "
+            f"{TOL_WO}), repeated calls the same bits")
+        del got, want
+        gemm_row(label, "w4_gemm", m, k, n,
+                 lambda i: tim.matmul_w4(x, ws[i % 3], sw),
+                 lambda i: tim.matmul_w4_torch(x, ws[i % 3], sw),
+                 KW4_KERNELS, m * k * 2 + k // 2 * n, BF16_FLOPS,
+                 iters=20 if m <= 64 else 5)
+        lib, what = int4pack_ms(torch, tim, x, ws[0], sw)
+        if lib is None:
+            rows[label]["library_note"] = what
+        else:
+            rows[label]["library_ms"], rows[label]["library_err"] = lib, what
+        del ws, x
+
+
+def k1_decode_rows(torch, tim, g, rows, note):
+    """K1 at decode M (K1_DECODE_SHAPES, bf16 x): codes and scales
+    bit-exact against its plain version, then timed with 4 inputs
+    rotated."""
+    for m, k in K1_DECODE_SHAPES:
+        xs = [torch.randn((m, k), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(4)]
+        q, s_ = tim.quantize_activation_per_row(xs[0])
+        pq, ps = tim._quantize_activation_plain(xs[0])
+        note("act_quant", q, pq)
+        assert torch.equal(q, pq) and torch.equal(s_, ps), ("K1", m, k)
+        ms, call = timed(lambda i: tim.quantize_activation_per_row(
+            xs[i % 4]), 50, ["act_quant_kernel"])
+        pms, _ = timed(lambda i: tim._quantize_activation_plain(xs[i % 4]),
+                       10)
+        b, how = bound_ms(m * k * 2 + m * k + m * 4, (3 * m * k, F32_FLOPS))
+        rows[f"act_quant[decode M={m}]"] = dict(
+            kernel="act_quant", shape=f"x ({m},{k}) bf16", ms=ms,
+            call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how)
+        log(f"K1 act_quant at ({m}, {k}): codes and scales bit-exact")
+
+
+def kw4_lowered(torch, tim, g):
+    """KW4 alone at the lowered Llama-3-8B forward's linears
+    (KW4_LOWERED_SHAPES, M = 4096, f32 out, as the lowering calls it):
+    device ms of each and their sum over one forward's 225 launches.
+    Returns a dict."""
+    m, out = 4096, {}
+    total = 0.0
+    for k, n, count, xt in KW4_LOWERED_SHAPES:
+        x = torch.randn((m, k), generator=g, device="cuda").to(
+            torch.bfloat16 if xt == "bf16" else torch.float32)
+        w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                          generator=g, device="cuda")
+        sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+        ms, _ = timed(lambda i: tim.matmul_w4(x, w, sw, torch.float32), 5,
+                      KW4_KERNELS)
+        out[f"{k}x{n} {xt}"] = dict(ms=ms, launches=count)
+        total += ms * count
+        del x, w
+    out["forward_ms"] = total
+    log("KW4 at the lowered forward's linears (M=4096, f32 out): "
+        + ", ".join(f"{s} {r['ms']:.3f} ms x {r['launches']}"
+                    for s, r in out.items() if s != "forward_ms")
+        + f"; {total:.2f} ms a forward")
+    return out
+
+
+def route_shape_gaps(torch, tim):
+    """Every main-path shape of the SHAPE_KERNELS' routes (ROUTE_SHAPES),
+    on seeded operands, checked to take the route it took there, then
+    timed alone (``event_ms``: the median of 5 calls, 3 weight copies
+    rotated so decode shapes stream their weights from HBM), with its
+    bound. Returns {ROUTE_SHAPES key: (ms, bound ms)}."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    fns = {"w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
+           "w4_grouped_gemm": tim.matmul_w4_grouped,
+           "w4a8_gemm": tim.w4a8_gemm}
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    out = {}
+    for key in sorted(k for k in ROUTE_SHAPES if k[0] in fns):
+        kernel, route, m, n, k, xt, ot, group = key
+        fn, odt = fns[kernel], dt[ot]
+        rows_ = k if kernel == "w8_gemm" else k // 2
+        ws = [torch.randint(-128, 128, (rows_, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        if kernel == "w4a8_gemm":
+            x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              generator=g, device="cuda")
+            sx = torch.rand((m,), generator=g, device="cuda")
+            sc = torch.rand((n,), generator=g, device="cuda") * 1e-3
+            call = lambda i: fn(x, sx, ws[i % 3], sc, odt)
+            x_bytes, peak = m * k + m * 4, INT8_OPS
+        else:
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt[xt])
+            x_bytes = x.numel() * x.element_size()
+            # an f32 x is two bf16 operands: twice the tensor-core work
+            peak = BF16_FLOPS / (2 if xt == "float32" else 1)
+            if group:
+                sc = torch.rand((k // group, n), generator=g,
+                                device="cuda") * 1e-3
+                call = lambda i: fn(x, ws[i % 3], sc, group_size=group,
+                                    out_dtype=odt)
+            else:
+                sc = torch.rand((n,), generator=g, device="cuda") * 1e-3
+                call = lambda i: fn(x, ws[i % 3], sc, odt)
+        before = fn.routes[route]
+        call(0)
+        assert fn.routes[route] == before + 1, (key, "took another route")
+        ms, _ = event_ms(call, 5)
+        b, _ = bound_ms(x_bytes + rows_ * n + sc.numel() * 4
+                        + m * n * (4 if ot == "float32" else 2),
+                        (2 * m * n * k, peak))
+        out[key] = (ms, b)
+        del ws, x, sc
+    return out
+
+
+def route_ranking(rows, launches, counters, shape_gaps):
+    """The redesign score of each kernel's route: its launches on the main
+    paths x (ms - bound). For the SHAPE_KERNELS, the sum over every shape
+    the route ran at on the main paths of its launches there x (ms -
+    bound) there (``shape_gaps``); for the rest, the gap at the rows that
+    carry most of its launches (MAIN_ROWS; the mean where there are
+    several), else its cheapest timed row; a route with no timed row is
+    listed unscored. Returns a list, highest score first."""
+    out = []
+    for k, fn in counters.items():
+        for r in list(getattr(fn, "routes", {})) or [None]:
+            n = launches.get(k, 0) if r is None else \
+                ROUTE_LAUNCHES.get(f"{k}:{r}", 0)
+            if k in SHAPE_KERNELS:
+                at = {key: c for key, c in ROUTE_SHAPES.items()
+                      if key[:2] == (k, r)}
+                score = sum(c * (shape_gaps[key][0] - shape_gaps[key][1])
+                            for key, c in at.items()) / 1e3
+                out.append(dict(
+                    kernel=k, route=r, launches=n,
+                    gap_ms=score * 1e3 / n if n else None, score_s=score,
+                    rows=[], shapes=len(at),
+                    basis=f"every main-path shape ({len(at)})"))
+                continue
+            cand = {lab: x for lab, x in rows.items()
+                    if x["kernel"] == k and x.get("route") == r}
+            main = {lab: x for lab, x in cand.items() if lab in MAIN_ROWS}
+            gaps = [x["ms"] - x["bound_ms"] for x in (main or cand).values()]
+            gap = (sum(gaps) / len(gaps) if main else
+                   min(gaps) if gaps else None)
+            out.append(dict(
+                kernel=k, route=r or "kernel", launches=n, gap_ms=gap,
+                score_s=None if gap is None else n * gap / 1e3,
+                rows=sorted(main or cand),
+                basis="main-path shapes" if main else
+                "cheapest timed shape" if cand else "not timed"))
+    return sorted(out, key=lambda d: (d["score_s"] is None,
+                                      -(d["score_s"] or 0.0)))
 
 
 def k2_decode_rows(torch, tim, g, gemm_row, note):
@@ -569,6 +877,7 @@ def check_kernels(torch, ops):
     rows["act_quant"] = dict(kernel="act_quant", shape=f"x ({m},{k}) bf16",
                              ms=ms, call_ms=call, plain_ms=pms, bound_ms=b,
                              bound_by=how)
+    k1_decode_rows(torch, tim, g, rows, note)
 
     # --- K2, KW4, KW8 at every main-path (K, N), plus a ragged shape
     kn = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
@@ -615,6 +924,7 @@ def check_kernels(torch, ops):
 
     gemm_row = gemm_timer(rows)
     k2_decode_rows(torch, tim, g, gemm_row, note)
+    kw4_rows(torch, tim, g, rows, gemm_row, note)
     for m, tag in ((16, "decode"), (4096, "prefill")):
         k, n = 4096, 28672
         # rotate 3 weight copies so the decode weights stream from HBM
@@ -628,14 +938,13 @@ def check_kernels(torch, ops):
                      lambda i: tim.w4a8_gemm_torch(xq, sx, ws[i % 3], sw,
                                                    torch.bfloat16),
                      K2_KERNELS, m * k + m * 4 + k // 2 * n, INT8_OPS)
-        x = randn(m, k)
-        for name, (w4, fn, plain) in wo.items():
-            ws = [codes(k // 2 if w4 else k, n) for _ in range(3)]
-            gemm_row(f"{name}[{tag}]", name, m, k, n,
-                     lambda i: fn(x, ws[i % 3], sw),
-                     lambda i: plain(x, ws[i % 3], sw),
-                     ["wo_gemm_kernel", "wo_reduce_kernel", "w8_decode"],
-                     m * k * 2 + ws[0].numel(), BF16_FLOPS)
+        x = randn(m, k)                  # KW4's rows: kw4_rows
+        ws = [codes(k, n) for _ in range(3)]
+        gemm_row(f"w8_gemm[{tag}]", "w8_gemm", m, k, n,
+                 lambda i: tim.matmul_w8(x, ws[i % 3], sw),
+                 lambda i: tim.matmul_w8_torch(x, ws[i % 3], sw),
+                 ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode"],
+                 m * k * 2 + ws[0].numel(), BF16_FLOPS)
         del ws, xq, x
     # KW8's decode route (the w8 serving decode) at every M tile
     k, n = 4096, 28672
@@ -656,7 +965,7 @@ def check_kernels(torch, ops):
         gemm_row(f"w8_gemm[decode M={m}]", "w8_gemm", m, k, n,
                  lambda i: tim.matmul_w8(x, ws[i % 3], sw),
                  lambda i: tim.matmul_w8_torch(x, ws[i % 3], sw),
-                 ["w8_decode"], m * k * 2 + ws[0].numel(), BF16_FLOPS)
+                 ["wo_decode"], m * k * 2 + ws[0].numel(), BF16_FLOPS)
     del ws, x
 
     # --- K3 at the per-slot step's shape, batch 32 and the long cache
@@ -1032,11 +1341,11 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                 note(name, got, want)
                 err = rel_err(got, want)
                 worst = max(worst, err)
-                assert got.dtype == torch.float32 and err < TOL_WO, \
+                assert got.dtype == torch.float32 and err < TOL_WO_F32, \
                     (name, "f32", m, k, n, err)
                 del x, w, got, want
-        log(f"{name} on f32 x: within {worst:.2e} of max (< {TOL_WO}) at M "
-            "in {4096, 16} x (K, N) in [(4096, 128256), (4096, 4096)]")
+        log(f"{name} on f32 x: within {worst:.2e} of max (< {TOL_WO_F32}) "
+            "at M in {4096, 16} x (K, N) in [(4096, 128256), (4096, 4096)]")
 
     # timings at the lowered model's shapes
     for label, m, k, n, x_dtype in (
@@ -1083,8 +1392,9 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
         # f32 x is two bf16 operands: twice the bf16 tensor-core work
         gemm_row(f"{name}[f32 lm_head]", name, m, k, n,
                  lambda i: fn(x, w, sw), lambda i: plain(x, w, sw),
-                 ["wo_gemm_kernel", "wo_reduce_kernel"], m * k * 4 + w.numel(),
-                 BF16_FLOPS / 2, out_bytes=m * n * 4)
+                 KW4_KERNELS if w4 else ["wo_gemm_kernel", "wo_reduce_kernel"],
+                 m * k * 4 + w.numel(), BF16_FLOPS / 2, out_bytes=m * n * 4,
+                 iters=5)
         del x, w
 
 
@@ -1283,11 +1593,11 @@ def int32_conv_sweep(torch, tim, shapes):
 
 
 def library_probes(torch, tim, g, rows):
-    """The library column of KW8, KW4 and KW4G: whether PyTorch's
-    weight-only int8 and int4 matmuls (torch._weight_int8pack_mm,
+    """The library column of KW8 and KW4G: whether PyTorch's weight-only
+    int8 and int4 matmuls (torch._weight_int8pack_mm,
     torch._weight_int4pack_mm) run on this card, and their time at the
-    rows' shapes where one computes the row's function (KW4's per-column
-    scale as group scales of 128)."""
+    rows' shapes where one computes the row's function (KW4's column:
+    kw4_rows, int4pack_ms); then the library column of every such row."""
     dev = "cuda"
     for tag, m in (("decode", 16), ("prefill", 4096)) + tuple(
             (f"decode M={m}", m) for m in W8_DECODE_ROWS):
@@ -1329,31 +1639,10 @@ def library_probes(torch, tim, g, rows):
         except Exception as e:
             row["library_note"] = f"torch._weight_int4pack_mm: {e}"[:200]
         del x, packed
-    for tag, m in (("decode", 16), ("prefill", 4096)):
-        # KW4: tinygemm with the column scale repeated over groups of 128
-        # (the scale rounded to bf16, the kernel keeps it f32) and zeros 0
-        k, n = 4096, 28672
-        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-        packed, sc = tim.quantize_weight_int4(
-            torch.randn((k, n), generator=g, device=dev) * 0.02)
-        row = rows[f"w4_gemm[{tag}]"]
-        try:
-            u = (tim.unpack_int4(packed).to(torch.int32) + 8).t()
-            u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
-            wt = torch._convert_weight_to_int4pack(u8.contiguous(), 8)
-            sz = torch.stack([sc.expand(k // 128, n),
-                              torch.zeros((k // 128, n), device=dev)],
-                             -1).to(torch.bfloat16).contiguous()
-            got = torch._weight_int4pack_mm(x, wt, 128, sz)
-            row["library_err"] = rel_err(got, tim.matmul_w4(x, packed, sc))
-            row["library_ms"], _ = timed(
-                lambda i: torch._weight_int4pack_mm(x, wt, 128, sz), 10)
-        except Exception as e:
-            row["library_note"] = f"torch._weight_int4pack_mm: {e}"[:200]
-        del x, packed
     for label in ["w8_gemm[decode]", "w8_gemm[prefill]"] + [
             f"w8_gemm[decode M={m}]" for m in W8_DECODE_ROWS] + [
-            "w4_gemm[decode]", "w4_gemm[prefill]"] + [
+            kw4_label(m, k, n) for m, k, n in
+            KW4_DECODE_SHAPES + KW4_PREFILL_SHAPES] + [
             f"w4_grouped_gemm[{tag}]" for tag, _ in W4G_ROWS]:
         r = rows[label]
         log(f"  library for {label}: "
@@ -1440,12 +1729,32 @@ def plain_versions(qllm, ops):
          qllm.sol_decode_layer) = saved[1:]
 
 
+def run_batcher(torch, llm, cfg, g):
+    """32 requests (prompts of 32-256 tokens, 16-64 new tokens, drawn from
+    ``g``) through the continuous batcher (16 slots, chunk 4), every one
+    finished with its tokens in the vocabulary. Returns (generated tok/s
+    on the host clock, seconds, engine steps, generated tokens)."""
+    from aimet_tpu_torch.serving.batcher import ContinuousBatcher
+    batcher = ContinuousBatcher(llm, num_slots=16, step_chunk=4)
+    draw = lambda lo, hi, n: torch.randint(lo, hi, (n,), generator=g,
+                                           device="cuda").tolist()
+    lens, news = draw(32, 257, 32), draw(16, 65, 32)
+    reqs = [batcher.submit(draw(0, cfg.vocab_size, n), max_new_tokens=m)
+            for n, m in zip(lens, news)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    steps = batcher.run_until_done(max_steps=1000)
+    dt = time.time() - t0
+    assert all(r.done for r in reqs), "batcher left requests unfinished"
+    assert [len(r.generated) for r in reqs] == news
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+    return sum(news) / dt, dt, steps, sum(news)
+
+
 def serve(torch, llm, cfg, mode, counters, g, decode_batches):
     """Phase 3 for one mode: its main path with the counts set to 0 just
     before and read just after. Returns (metrics, launches)."""
-    from aimet_tpu_torch.serving.batcher import ContinuousBatcher
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     counts = lambda: {k: fn.launches for k, fn in counters.items()}
     diff = lambda a, b: {k: b[k] - a[k] for k in a if b[k] != a[k]}
     metrics = {}
@@ -1529,26 +1838,13 @@ def serve(torch, llm, cfg, mode, counters, g, decode_batches):
                 metrics, b)
         del caches, logits
 
-    batcher = ContinuousBatcher(llm, num_slots=16, step_chunk=4)
-    draw = lambda lo, hi, n: torch.randint(lo, hi, (n,), generator=g,
-                                           device="cuda").tolist()
-    lens, news = draw(32, 257, 32), draw(16, 65, 32)
-    reqs = [batcher.submit(draw(0, cfg.vocab_size, n), max_new_tokens=m)
-            for n, m in zip(lens, news)]
-    torch.cuda.synchronize()
-    t0 = time.time()
-    steps = batcher.run_until_done(max_steps=1000)
-    dt = time.time() - t0
-    assert all(r.done for r in reqs), "batcher left requests unfinished"
-    assert [len(r.generated) for r in reqs] == news
-    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
-    metrics["cb_tok_s"] = sum(news) / dt
+    tok_s, dt, steps, n_tok = run_batcher(torch, llm, cfg, g)
+    metrics["cb_tok_s"] = tok_s
     metrics["cb_s"] = dt
-    log(f"[{mode}] continuous batcher: {len(reqs)} requests, {sum(news)} "
-        f"tokens in {dt:.2f} s ({sum(news) / dt:.0f} tok/s), {steps} engine "
-        "steps")
-    del batcher
+    log(f"[{mode}] continuous batcher: 32 requests, {n_tok} tokens in "
+        f"{dt:.2f} s ({tok_s:.0f} tok/s), {steps} engine steps")
     launches = counts()
+    take_routes(counters)
     log(f"[{mode}] main-path launches: {launches}")
     for name in PATH_KERNELS[mode]:
         assert launches[name] > 0, \
@@ -1656,10 +1952,10 @@ def decode_step_path(torch, qllm, ops, qw, cfg, counters, g):
     # warm-up: step 0 once on each side (it writes the same rows again)
     step(toks[:, P:P + 1], P)
     llm.decode(toks[:, P:P + 1], caches, P)
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     kdl, host_ms = run(step)
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    take_routes(counters)
     per_step = {k: v / steps for k, v in launches.items()}
     ref, ref_host_ms = run(lambda t, p: llm.decode(t, caches, p)[0][:, 0])
     kv_equal = all(torch.equal(k, c.k.view(k.shape))
@@ -1726,14 +2022,14 @@ def gqa_on_serving_caches(torch, ops, cfg, caches, last, counters, g):
     q = apply_rope(qkv[:, :H * D].reshape(B, 1, H, D), cos, sin)
     q = q.reshape(B, KH, H // KH, D)                   # f32, as K3 ropes
     ctx3 = ctx3.reshape(q.shape)
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     m, outs = {}, {}
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         got, _, err = check_gqa(torch, gqa, q.to(dtype), c.k, c.v,
                                 c.k_scale, c.v_scale, pos)
         outs[tag] = (got, err)
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    take_routes(counters)
     for tag, (got, err) in outs.items():
         e3 = rel_err(got, ctx3)
         tol = TOL_GQA_K3_F32 if tag == "f32" else TOL_ATTN
@@ -1781,8 +2077,7 @@ def long_cache_path(torch, qllm, ops, cfg, counters, g):
     tok = torch.randint(0, c2.vocab_size, (B, 1), generator=g,
                         device="cuda")
     slots = pos - torch.arange(B, device="cuda", dtype=torch.int32) * 97
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     m = {}
     rows = torch.arange(B, device="cuda")
     for tag, where in (("ksol", pos), ("k3_kfl", slots)):
@@ -1863,6 +2158,7 @@ def long_cache_path(torch, qllm, ops, cfg, counters, g):
         worst = max(worst, err)
     m["long_cache_gqa_rel_err"] = worst
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    take_routes(counters)
     log(f"[long cache] KGQA at S={S}, position {pos}: within {worst:.3e} of "
         f"its plain version's max (f32 q < {TOL_GQA_F32}, bf16 q one bf16 "
         f"ulp a prob); launches {launches}")
@@ -2020,14 +2316,14 @@ def lowering(torch, tim, counters, g):
         assert len(low.lowered_ops) == n_lin and not low.downgraded_ops, \
             (mode, low.skipped_ops, low.downgraded_ops)
         low(params, x)                    # retrace for 8 x 512, warm-up
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = low(params, x)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
         counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        take_routes(counters)
         for k, v in counts.items():
             launches[k] += v
         assert counts == expect(n_lin), (mode, counts)
@@ -2105,11 +2401,11 @@ def lowering_block8(torch, tim, counters, g):
     x = toks()
     params = sim.params
     low(params, x)                                  # warm-up
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts(counters)
     out = low(params, x)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    take_routes(counters)
     assert launches == {"w4_grouped_gemm": len(lin) - 1, "w8_gemm": 1}, \
         launches
     with plain_lowering(lw, tim):
@@ -2219,14 +2515,14 @@ def forward_stats(torch, fn, counters):
     just after; then its device ms (profiler, by kernel) and host ms.
     Returns (out, counts, host_ms, device_ms, top kernels)."""
     fn()                                   # warm-up (and retrace)
-    for c in counters.values():
-        c.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t) * 1e3
     counts = {k: c.launches for k, c in counters.items() if c.launches}
+    take_routes(counters)
     with profiled() as prof:
         fn()
         torch.cuda.synchronize()
@@ -2662,6 +2958,186 @@ def decode_slice() -> int:
     return 0
 
 
+# tile_sweep's crossing of KW4's tile and block tile: x rows, and (K, N)
+# at the layer projections (QKV, O, gate|up, down) with x's dtype
+TILE_SWEEP_M = (65, 128, 256, 512, 1024, 2048)
+TILE_SWEEP_KN = ((4096, 6144, "bf16"), (4096, 4096, "bf16"),
+                 (4096, 28672, "bf16"), (14336, 4096, "bf16"),
+                 (4096, 4096, "f32"))
+
+
+def tile_sweep(torch, tim):
+    """The evidence for where KW4's tile takes over (this tree's, where it
+    has the tile): device ms of the decode route against the tile at M =
+    32, 48 and 64 at 4096 x 28672 and 4096 x 6144 (``decode``); and of the
+    tile against the block tile (``bf_tile``, split K) at TILE_SWEEP_M x
+    TILE_SWEEP_KN, beside the tile's output tiles (``block``: the median
+    of 20 calls between CUDA events); each output checked against the
+    plain version. Returns a dict."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {"decode": {}, "block": {}}
+    k = 4096
+    for n, ms_ in ((28672, (64, 48, 32)), (6144, (64, 48, 32))):
+        w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                          generator=g, device="cuda")
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 1e-3
+        for m in ms_:
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            want = tim.matmul_w4_torch(x, w, sw)
+            o = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+            calls = {"tile": lambda i: tim._launch_w4_tile(x, w, sw, o),
+                     "decode": lambda i: tim._launch_wo_decode(
+                         "aimet_w4_decode_gemm", tim.matmul_w4, x, w, sw, o,
+                         k // 2)}
+            for tag, call in calls.items():
+                call(0)
+                assert rel_err(o, want) < TOL_WO, ("KW4 sweep", m, n, tag)
+                ms, _ = timed(call, 20, KW4_KERNELS)
+                out["decode"][f"M={m} N={n} {tag}"] = ms
+            del x, want, o
+        del w
+    for k, n, xt in TILE_SWEEP_KN:
+        w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                          generator=g, device="cuda")
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 1e-3
+        dt = torch.bfloat16 if xt == "bf16" else torch.float32
+        for m in TILE_SWEEP_M:
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            want = tim.matmul_w4_torch(x, w, sw)
+            o = torch.empty((m, n), dtype=dt, device="cuda")
+            row = {"tiles": tim.w4_tiles(m, n, dt)}
+            for tag, call in (
+                    ("tile", lambda i: tim._launch_w4_tile(x, w, sw, o)),
+                    ("bf_tile", lambda i: tim._launch_bf_tile(
+                        "aimet_w4_gemm", tim.matmul_w4, x, w, sw, o))):
+                call(0)
+                assert rel_err(o, want) < TOL_WO, ("KW4 sweep", m, k, n, tag)
+                row[tag], _ = event_ms(call, 20)
+            out["block"][f"M={m} K={k} N={n} {xt}"] = row
+            del x, want, o
+        del w
+    log("  KW4 decode route against the tile (K 4096), ms: " + ", ".join(
+        f"{k_} {v:.4f}" for k_, v in out["decode"].items()))
+    log("  KW4 tile against the block tile, ms (output tiles): " + ", ".join(
+        f"{k_}: {r['tile']:.4f} / {r['bf_tile']:.4f} ({r['tiles']})"
+        for k_, r in out["block"].items()))
+    return out
+
+
+def w4_slice() -> int:
+    """``python3 chip_smoke.py --w4-slice``: KW4 and the paths it carries,
+    on whatever tree holds this script (copied into a parent tree, it
+    measures that tree with the same code): KW4's rows (``kw4_rows``:
+    decode M and prefill M, bf16 x, against the plain version first), its
+    f32 lm_head row, K1 at decode M, KW4 alone at the lowered Llama-3-8B
+    forward's linears (``kw4_lowered``) and, where the tree has KW4's
+    tile, ``tile_sweep``; then Llama-3-8B (32 layers) in w4: a prefill of
+    8 x 512 (2 profiled), 4 profiled per-slot decode steps at batch 16 and
+    the continuous batcher (``run_batcher``, timed, then profiled). Prints
+    one JSON line of the numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.ops import int_matmul as tim
+    from aimet_tpu_torch.serving import quantized_llm as qllm
+    KERNEL_FNS.update({"w4_gemm": tim.matmul_w4,
+                       "act_quant": tim.quantize_activation_per_row})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"w4 slice of {ROOT}: torch {torch.__version__}; {smi}")
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows, errs = {}, {"w4_gemm": 0.0, "act_quant": 0.0}
+
+    def note(name, a, b):
+        errs[name] = max(errs[name], (a.float() - b.float()).abs().max()
+                         .item())
+    gemm_row = gemm_timer(rows)
+    kw4_rows(torch, tim, g, rows, gemm_row, note)
+    m, k, n = 4096, 4096, 128256
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, generator=g,
+                      device="cuda")
+    sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+    err = rel_err(tim.matmul_w4(x, w, sw), tim.matmul_w4_torch(x, w, sw))
+    assert err < TOL_WO_F32, ("KW4 f32", err)
+    log(f"w4_gemm[f32 lm_head]: within {err:.2e} of max (< {TOL_WO_F32})")
+    gemm_row("w4_gemm[f32 lm_head]", "w4_gemm", m, k, n,
+             lambda i: tim.matmul_w4(x, w, sw),
+             lambda i: tim.matmul_w4_torch(x, w, sw), KW4_KERNELS,
+             m * k * 4 + w.numel(), BF16_FLOPS / 2, out_bytes=m * n * 4,
+             iters=5)
+    del x, w
+    k1_decode_rows(torch, tim, g, rows, note)
+    lowered = kw4_lowered(torch, tim, g)
+    sweep = tile_sweep(torch, tim) if hasattr(tim, "w4_tile_route") else None
+    for name, r in rows.items():
+        log(f"  {name:28s} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), library {r.get('library_ms')}, route "
+            f"{r.get('route')}")
+    cfg = TransformerConfig.llama3_8b()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qw = qllm.random_quantized_weights(cfg, mode="w4", seed=0)
+    llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode="w4", max_len=1024)
+    toks = torch.randint(0, cfg.vocab_size, (8, 512), generator=g,
+                         device="cuda")
+    llm.prefill(toks, llm.new_caches(8))              # warm-up
+    wall, busy, dev, by_name = profile_steps(
+        torch, lambda: llm.prefill(toks, llm.new_caches(8)), n=2)
+    metrics = {"prefill_8x512": dict(host_ms=wall, device_ms=dev, busy=busy,
+                                     kernels=by_name)}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[w4] prefill 8x512 profile: {wall:.2f} ms on the host clock, "
+        f"{dev:.3f} device ms, busy {busy:.3f}; device ms by kernel: "
+        + ", ".join(f"{k_} {v:.3f}" for k_, v in top))
+    toks = torch.randint(0, cfg.vocab_size, (16, 512), generator=g,
+                         device="cuda")
+    logits, caches = llm.prefill(toks, llm.new_caches(16))
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    slot_step_profile(torch, llm, "w4", tok, caches,
+                      torch.arange(16, device="cuda", dtype=torch.int32)
+                      + 512, metrics, 16)
+    del caches
+    # the continuous batcher, the same 32 requests each run: timed, then
+    # profiled; KW4's launches by route in the timed run
+    fn = tim.matmul_w4
+    before = dict(getattr(fn, "routes", {}), all=fn.launches)
+    tok_s, dt, steps, n_tok = run_batcher(
+        torch, llm, cfg, torch.Generator(device="cuda").manual_seed(3))
+    routes = {r: v - before[r] for r, v in
+              dict(getattr(fn, "routes", {}), all=fn.launches).items()}
+    wall, busy, dev, by_name = profile_steps(
+        torch, lambda: run_batcher(
+            torch, llm, cfg, torch.Generator(device="cuda").manual_seed(3)),
+        n=1)
+    metrics["cb"] = dict(tok_s=tok_s, s=dt, steps=steps, tokens=n_tok,
+                         kw4_routes=routes, profiled_s=wall / 1e3,
+                         device_ms=dev, busy=busy, kernels=by_name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[w4] continuous batcher: {n_tok} tokens in {dt:.2f} s ({tok_s:.1f}"
+        f" tok/s), {steps} engine steps, KW4 launches by route {routes}; "
+        f"profiled: {dev:.2f} device ms, busy {busy:.3f}; device ms by "
+        "kernel: " + ", ".join(f"{k_} {v:.2f}" for k_, v in top))
+    log(json.dumps({"w4_slice": {"root": ROOT, "card": smi, "rows": rows,
+                                 "errs": errs, "kw4_lowered": lowered,
+                                 "tile_sweep": sweep,
+                                 "e2e": metrics}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2689,6 +3165,8 @@ def main() -> int:
                 "q8_gemm": tim.matmul_q8,
                 "fused_decode_layer": flay.fused_decode_layer,
                 "gqa_decode_attention": gqa.fused_gqa_decode_attention}
+
+    KERNEL_FNS.update(counters)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2798,6 +3276,8 @@ def main() -> int:
     log(f"[cnn] phase took {time.time() - t:.1f} s")
     for name in SOURCES:
         assert launches[name] > 0, f"kernel {name} never launched"
+    for route in ("w4_gemm:decode", "w4_gemm:tile"):
+        assert ROUTE_LAUNCHES.get(route, 0) > 0, f"{route} never launched"
 
     kernels = []
     for label, r in rows.items():
@@ -2808,25 +3288,39 @@ def main() -> int:
             launches=launches[r["kernel"]], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            shape=r["shape"],
+            shape=r["shape"], kernel_route=r.get("route") or "kernel",
             **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err",
                                  "nmajor_ms", "k128_ms", "chunk") if k in r}))
     # the order of the kernels' redesign: first those slower than one
-    # PyTorch call for the same function, then launches x (ms - bound) at
-    # each kernel's cheapest timed shape (its decode shape where it has one)
+    # PyTorch call for the same function, then each route's launches on
+    # the main paths x (ms - bound) at its main-path shapes (route_ranking)
     slower = sorted(((r["ms"] / r["library_ms"], label) for label, r in
                      rows.items() if r["library_ms"] and
                      r["library_ms"] < r["ms"]), reverse=True)
-    loss = {}
-    for r in rows.values():
-        gap = r["ms"] - r["bound_ms"]
-        loss[r["kernel"]] = min(loss.get(r["kernel"], gap), gap)
-    ranked = sorted(((launches[k] * gap / 1e3, k) for k, gap in loss.items()),
-                    reverse=True)
+    t = time.time()
+    torch.cuda.empty_cache()
+    shape_gaps = route_shape_gaps(torch, tim)
+    log(f"[ranking] {len(shape_gaps)} main-path GEMM shapes timed in "
+        f"{time.time() - t:.1f} s")
+    ranked = route_ranking(rows, launches, counters, shape_gaps)
     log("slower than the library call: " + ", ".join(
         f"{label} {x:.2f}x" for x, label in slower))
-    log("launches x (ms - bound), s: " + ", ".join(
-        f"{k} {t:.3f}" for t, k in ranked))
+    log("launches x (ms - bound) by route, s:")
+    for d in ranked:
+        log(f"  {d['kernel']}:{d['route']} "
+            + (f"{d['score_s']:.3f}" if d["score_s"] is not None
+               else "not scored")
+            + f" ({d['launches']} launches"
+            + (f" x {d['gap_ms']:.4f} ms" if d["gap_ms"] is not None else "")
+            + f", {d['basis']}"
+            + (f": {', '.join(d['rows'])})" if d["rows"] else ")"))
+    metrics["route_ranking"] = ranked
+    metrics["route_launches"] = dict(ROUTE_LAUNCHES)
+    metrics["route_shapes"] = [
+        dict(kernel=key[0], route=key[1], m=key[2], n=key[3], k=key[4],
+             x=key[5], out=key[6], group=key[7], launches=c,
+             ms=shape_gaps[key][0], bound_ms=shape_gaps[key][1])
+        for key, c in sorted(ROUTE_SHAPES.items()) if key in shape_gaps]
     log(json.dumps({"metrics": metrics, "launches": launches, "card": smi}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
@@ -2839,4 +3333,5 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit(layer_variants() if sys.argv[1:] == ["--layer-variants"]
              else decode_slice() if sys.argv[1:] == ["--decode-slice"]
+             else w4_slice() if sys.argv[1:] == ["--w4-slice"]
              else main())

@@ -28,7 +28,14 @@ with KDL = KSOL bit for bit and repeated launches bit-identical. K2's
 decode route is bit-exact at the same M and ragged widths, and at the
 ``lm_head``'s; K3 split across blocks keeps bit-exact cache bytes and 2e-2
 at rep 1, 4, 8, D 40, 64, 128, every position kind, B = 1 and S = 16,384,
-with repeated launches bit-identical.
+with repeated launches bit-identical. KW4's decode route (bf16 x, M <= 64)
+keeps 1e-2 at M = 1, 16, 33, 64 and the Llama widths; its TMA + wgmma
+tile (M > 64) keeps it at M = 65, 128, 300, 4096 with ragged N and K/2
+(through ``matmul_w4`` where the route takes it, else launched directly),
+f32 x (1e-4 with an f32 output; K/2 = 100, whose high half the f32 pairs
+realign) and ``conv2d_w4``, is exact on one tile of
+small integers, and both repeat their bits; both C entries refuse short
+buffers.
 """
 import pytest
 import torch
@@ -807,3 +814,166 @@ def test_split_attention_one_row_and_long_cache(gen, b, s, dtype):
     pos = torch.full((b,), s - 384, dtype=torch.int32, device="cuda")
     pos[-1] = s - 1
     _k3_case(gen, b, s, 32, 8, 128, pos, dtype)
+
+
+def _w4_operands(gen, m, k, n, dtype, mean=0.0):
+    x = (torch.randn((m, k), generator=gen, device="cuda") + mean).to(dtype)
+    w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                      generator=gen, device="cuda")
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    return x, w, scale
+
+
+def _w4_route_case(m, k, n, x, w, scale, out_dtype, route):
+    """matmul_w4 on the given operands: one launch on ``route``, within
+    1e-2 of the plain version's max, the same bits on repeated calls."""
+    before = tim.matmul_w4.routes[route]
+    got = tim.matmul_w4(x, w, scale, out_dtype)
+    assert tim.matmul_w4.routes[route] == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert _rel(got, tim.matmul_w4_torch(x, w, scale, out_dtype)) < 1e-2
+    for _ in range(3):
+        assert torch.equal(tim.matmul_w4(x, w, scale, out_dtype), got)
+    return got
+
+
+def _w4_tile_case(m, k, n, x, w, scale, out_dtype):
+    """The tile on the given operands, checked as ``_w4_route_case`` does:
+    through matmul_w4 where its route takes the tile; where the shape has
+    too few output tiles for the route (matmul_w4 then takes the block
+    tile, checked too), launched directly. Returns the tile's output."""
+    if tim.w4_tile_route(m, n, k, x.dtype):
+        return _w4_route_case(m, k, n, x, w, scale, out_dtype, "tile")
+    want = tim.matmul_w4_torch(x, w, scale, out_dtype)
+    before = dict(tim.matmul_w4.routes)
+    assert _rel(tim.matmul_w4(x, w, scale, out_dtype), want) < 1e-2
+    assert tim.matmul_w4.routes["bf_tile"] == before["bf_tile"] + 1
+    launch = lambda: tim._launch_w4_tile(
+        x, w, scale, torch.empty((m, n), dtype=out_dtype, device="cuda"))
+    got = launch()
+    assert tim.matmul_w4.routes["tile"] == before["tile"] + 1
+    assert _rel(got, want) < 1e-2
+    for _ in range(3):
+        assert torch.equal(launch(), got)
+    return got
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 33, 64])
+def test_w4_decode_route_matches_plain(gen, m, out_dtype):
+    """KW4's decode weight-streaming route at every M tile, on N and K/2
+    that are multiples of 16 but of no slice or stage (1296 = 5 x 256 + 16
+    columns, 528 = 8 x 64 + 16 packed rows), x of non-zero mean."""
+    k, n = 1056, 1296
+    assert tim.w4_decode_route(m, n, k, torch.bfloat16)
+    x, w, scale = _w4_operands(gen, m, k, n, torch.bfloat16, mean=0.5)
+    _w4_route_case(m, k, n, x, w, scale, out_dtype, "decode")
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (16, 4096, 131072),      # the padded lm_head
+    (1, 4096, 6144),         # layer 0's QKV
+    (64, 14336, 4096),       # W_down: slices split across blocks
+])
+def test_w4_decode_route_at_llama_widths(gen, m, k, n):
+    x, w, scale = _w4_operands(gen, m, k, n, torch.bfloat16)
+    _w4_route_case(m, k, n, x, w, scale, torch.bfloat16, "decode")
+
+
+def test_w4_tile_one_tile_exact(gen):
+    """The tile on one 128 x 256 tile with small integer inputs, whose f32
+    sums are exact: the bits of the plain version, so any slip of the
+    fragment layouts, the nibble planes or the column permutation shows.
+    (One tile is below the route's tile count: launched directly.)"""
+    m, k, n = 128, 128, 256
+    r = torch.arange(m, device="cuda")[:, None]
+    c = torch.arange(k, device="cuda")[None, :]
+    x = ((r * 7 + c * 3) % 11 - 5).to(torch.bfloat16)
+    lo = (torch.arange(k // 2 * n, device="cuda").reshape(k // 2, n) % 16)
+    hi = (torch.arange(k // 2 * n, device="cuda").reshape(k // 2, n) // 16
+          + 5) % 16
+    w = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+    scale = torch.ones((n,), device="cuda")
+    before = tim.matmul_w4.routes["tile"]
+    got = tim._launch_w4_tile(x, w, scale, torch.empty(
+        (m, n), dtype=torch.float32, device="cuda"))
+    assert tim.matmul_w4.routes["tile"] == before + 1
+    assert torch.equal(got, tim.matmul_w4_torch(x, w, scale, torch.float32))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 4096, 4096),        # one row past decode M (16 tiles)
+    (128, 2048, 6144),
+    (300, 208, 272),         # ragged M, N; K/2 = 104: no whole stage
+    (4096, 4096, 6144),      # prefill
+    (65, 4096, 28672),       # one row past decode M, on the route
+    (300, 208, 2832),        # ragged M, N; K/2 = 104, on the route
+])
+def test_w4_tile_matches_plain(gen, m, k, n, out_dtype):
+    """KW4's TMA + wgmma tile on a bf16 x of non-zero mean (a nibble plane
+    or x half slip shows as an offset)."""
+    x, w, scale = _w4_operands(gen, m, k, n, torch.bfloat16, mean=0.5)
+    _w4_tile_case(m, k, n, x, w, scale, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 4096, 4096),
+    (300, 200, 272),         # K/2 = 100: the pairs realign x's high half
+    (4096, 4096, 128256),    # the lowered f32 lm_head's width
+    (65, 4096, 8192),        # one row past decode M, on the route
+])
+def test_w4_tile_takes_f32_x(gen, m, k, n, out_dtype):
+    """An f32 x on the tile: its bf16 pairs (high part, residual) keep the
+    product within ~2^-16, so well inside 1e-2 (here 1e-4 of the max)."""
+    x, w, scale = _w4_operands(gen, m, k, n, torch.float32, mean=0.5)
+    got = _w4_tile_case(m, k, n, x, w, scale, out_dtype)
+    if out_dtype == torch.float32:
+        assert _rel(got, tim.matmul_w4_torch(x, w, scale, out_dtype)) < 1e-4
+
+
+def test_w4_conv_at_resnet50_shape_takes_the_tile(gen):
+    """conv2d_w4 at ResNet-50's layer-2 3 x 3 conv (patches 25,088 x
+    1152, f32) runs on the tile."""
+    x = torch.randn((32, 128, 28, 28), generator=gen, device="cuda")
+    wq, s = tic.quantize_conv_weight_int4(
+        torch.randn((128, 128, 3, 3), generator=gen, device="cuda") * 0.03)
+    before = tim.matmul_w4.routes["tile"]
+    got = tic.conv2d_w4(x, wq, s, (3, 3))
+    assert tim.matmul_w4.routes["tile"] == before + 1
+    want = tic._im2col_conv(tim.matmul_w4_torch, x, wq, s, (3, 3), (1, 1),
+                            "SAME", None, None)
+    assert _rel(got, want) < 1e-2
+
+
+def test_w4_routes_refuse_short_buffers(gen):
+    """The C entries check their buffers: a decode workspace or counter
+    array shorter than the split needs, and an f32 pair workspace shorter
+    than 2 M x pair_ld(K) bf16, are launch errors, not writes past them."""
+    m, k, n = 16, 4096, 6144
+    x, w, scale = _w4_operands(gen, m, k, n, torch.bfloat16)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    plan = tim.decode_plan(m, n, k // 2, tim._sm_count(x.device))
+    ws = torch.empty((plan.ws_values,), dtype=torch.float32, device="cuda")
+    cnt = torch.zeros((plan.slices,), dtype=torch.int32, device="cuda")
+    stream = _build.stream_ptr(x.device)
+    for ws_values, cnt_values in ((plan.ws_values - 1, plan.slices),
+                                  (plan.ws_values, plan.slices - 1)):
+        with pytest.raises(RuntimeError):
+            _build.launch("aimet_w4_decode_gemm", x.data_ptr(), w.data_ptr(),
+                          scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                          cnt.data_ptr(), m, n, k, plan.blocks, ws_values,
+                          cnt_values, 1, stream)
+    m = 300
+    xf, w, scale = _w4_operands(gen, m, k, n, torch.float32)
+    out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+    pairs = torch.empty((2 * m, tim.w4_pair_ld(k)), dtype=torch.bfloat16,
+                        device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_w4_tile_gemm", xf.data_ptr(), w.data_ptr(),
+                      scale.data_ptr(), out.data_ptr(), pairs.data_ptr(), m,
+                      n, k, 1, 0, pairs.numel() * 2 - 2,
+                      stream)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, torch.zeros_like(cnt))
