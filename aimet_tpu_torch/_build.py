@@ -50,6 +50,8 @@ SIGNATURES = {
     # cnt_values, out_is_bf16, stream
     "aimet_w4a8_decode_gemm": [_VP] * 7 + [_I] * 4
     + [ctypes.c_longlong, _I, _I, _VP],
+    # xq, sx, wp, sw, out, M, N, K2, out_is_bf16, stream
+    "aimet_w4a8_tile_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
     # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out, ws, cnt,
     # B, S, H, KH, D, chunk, ws_values, cnt_values, sqrt_d, io_is_bf16,
     # stream
@@ -70,6 +72,7 @@ SIGNATURES = {
     + [ctypes.c_longlong, _I, _I, _VP],
     # x, w, sw, out, ws, M, N, K, x_is_f32, out_is_bf16, ws_bytes, stream
     "aimet_w4_tile_gemm": [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong, _VP],
+    "aimet_w8_tile_gemm": [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong, _VP],
     # x, w, gs, out, ws, M, N, K, group, splits, x_is_f32, out_is_bf16,
     # decode, stream
     "aimet_w4g_gemm": [_VP] * 5 + [_I] * 8 + [_VP],

@@ -3,8 +3,8 @@
 // their tensor maps, and wgmma's fences and shared-memory descriptors.
 // Users: the decode weight-streaming routine (decode_gemm.cuh: KW8, KW4
 // and K2 at decode M, the whole-layer kernels' GEMM phases), KQ8's int32
-// route on K-major weights (w8a8_gemm.cu) and the weight-only wgmma tile
-// (wgmma_wo_tile.cuh: KW4 at prefill M).
+// route on K-major weights (w8a8_gemm.cu) and the prefill wgmma tile
+// (wgmma_wo_tile.cuh: KW4, KW8 and K2 at prefill M).
 #pragma once
 #include <cuda.h>
 

@@ -24,6 +24,13 @@
 //   an equal share of the packed weight bytes through a cp.async ring, x by
 //   TMA, exact int32 sums; a slice split across blocks is added in block
 //   order by the last block to finish its piece (slice counters left 0);
+// - prefill M (M > 64, K/2 and N multiples of 16, at least the route's
+//   count of 128 x 256 output tiles: w4a8_tile_route): w4a8_tile_kernel,
+//   the persistent TMA + wgmma tile of wgmma_wo_tile.cuh in its kW4Int8
+//   format: the int8 codes of x by TMA as wgmma's B operand, the packed
+//   weights by TMA, sign-extended to int8 and transposed in registers
+//   into wgmma's A operand (m64n128k32.s32.s8.s8), no split K, exact int32
+//   sums and this epilogue's order;
 // - every other shape: a simple tiled kernel on mma.sync.m16n8k32.s8.s8.s32
 //   (the block tile aimet::s8_tile of gemm_tiles.cuh). A block owns a
 //   64 x 128 output tile and walks its K range 64 packed rows at a time.
@@ -31,11 +38,12 @@
 //   the decode route refuses), the K range is split across blocks and the
 //   int32 partial sums are combined with integer atomics into a zeroed
 //   (M, N) buffer (order-independent, so bit-exact), then a small epilogue
-//   kernel. A TMA + wgmma tile for prefill M is later work.
+//   kernel.
 #include <algorithm>
 
 #include "decode_gemm.cuh"
 #include "gemm_tiles.cuh"
+#include "wgmma_wo_tile.cuh"
 
 namespace {
 
@@ -266,4 +274,36 @@ extern "C" int aimet_w4a8_decode_gemm(const void* xq, const void* sx,
                                          K2, blocks, s)
              : run_decode<float>(xq, sx, wp, sw, out, ws, cnt, M, N, K2,
                                  blocks, s);
+}
+
+// K2's route at prefill M (wgmma_wo_tile.cuh, kW4Int8): xq (M, 2 K2) int8
+// codes, rows unit-stride, wp (K2, N) split-half INT4, K2 and N multiples
+// of 16 (x's high half 16-byte aligned); xq, wp and sw 16-byte aligned;
+// out (M, N) bf16 or f32, (f32(sum) * sx[m]) * sw[n].
+extern "C" int aimet_w4a8_tile_gemm(const void* xq, const void* sx,
+                                    const void* wp, const void* sw,
+                                    void* out, int M, int N, int K2,
+                                    int out_is_bf16, void* stream) {
+  namespace wot = aimet::wot;
+  constexpr int kKind = aimet::dec::kW4Int8;
+  if (M <= 0 || N <= 0 || K2 <= 0) return 0;
+  if (K2 % 16 || N % 16 || !aimet::aligned16(xq) || !aimet::aligned16(wp) ||
+      !aimet::aligned16(sw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  if (!aimet::encode_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wp, K2, N, N,
+                        wot::Stage<kKind>::kRows, 128) ||
+      !aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, 2 * K2,
+                        2LL * K2, wot::kBM, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sxp = static_cast<const float*>(sx);
+  const float* swp = static_cast<const float*>(sw);
+  return out_is_bf16
+             ? wot::launch_tile<kKind, __nv_bfloat16, false>(
+                   mx, mw, sxp, swp, static_cast<__nv_bfloat16*>(out), M, N,
+                   K2, K2, M, s)
+             : wot::launch_tile<kKind, float, false>(
+                   mx, mw, sxp, swp, static_cast<float*>(out), M, N, K2, K2,
+                   M, s);
 }

@@ -1,67 +1,96 @@
-// The weight-only GEMM tile for prefill M on Hopper: KW4's route at M > 64
-// (wo_gemm.cu, aimet_w4_tile_gemm), in place of aimet::bf_tile. KW4
-// replaces aimet_tpu/ops/int_matmul.py:1023 (matmul_w4).
+// The GEMM tile for prefill M on Hopper, one structure for three weight
+// formats (decode_gemm.cuh's kinds), in place of aimet::bf_tile and
+// aimet::s8_tile:
+//   dec::kW4Bf16: KW4 (wo_gemm.cu, aimet_w4_tile_gemm; replaces
+//     aimet_tpu/ops/int_matmul.py:1023, matmul_w4): x bf16 or f32, W
+//     split-half packed INT4, (K/2, N) int8: packed row p holds k = p (low
+//     nibble, stored + 8) and k = p + K/2 (high nibble, two's complement);
+//     out = (x @ W) * sw, f32 sums;
+//   dec::kW8Bf16: KW8 (wo_gemm.cu, aimet_w8_tile_gemm; replaces
+//     int_matmul.py:245, matmul_w8): x bf16 or f32, W int8 codes (K, N);
+//     out = (x @ W) * sw, f32 sums;
+//   dec::kW4Int8: K2 (w4a8_gemm.cu, aimet_w4a8_tile_gemm; replaces the
+//     GEMM of int_matmul.py:692 and :767): x the per-row int8 codes (M,
+//     K), W split-half INT4; out = (f32(sum) * sx[m]) * sw[n], exact int32
+//     sums, so bit-exact.
 //
-//   out[m, n] = (sum_k x[m, k] W[k, n]) * sw[n]
-// for x (M, K) bf16 or f32 and W split-half packed INT4, (K/2, N) int8:
-// packed row p holds k = p (low nibble, stored + 8) and k = p + K/2 (high
-// nibble, two's complement).
-//
-// Bound on the H100: the bf16 tensor-core rate (989 TFLOP/s dense); an
-// f32 x is two bf16 operands, so twice the operations. The design aims at
-// keeping wgmma busy while the INT4 weights, which wgmma cannot take, are
-// unpacked beside it:
+// Bound on the H100: the tensor-core rate (bf16 989 TFLOP/s dense, int8
+// 1,979 TOP/s; an f32 x is two bf16 operands, twice the operations). The
+// design keeps wgmma busy while the weights, which wgmma cannot take in
+// their stored form (INT4) or as bf16 (int8 codes), are unpacked beside
+// it:
 // - out^T = W^T x^T. The unpacked weights are wgmma's A operand, from
-//   registers (wgmma ... .bf16 with A in registers), 64 weight columns an
-//   instruction; x, K-major as it lies in memory, is B from shared memory,
-//   128 rows of x an instruction (m64n128k16). So the nibbles go from
-//   shared memory to registers once and never back.
+//   registers, 64 weight columns an instruction; x, K-major as it lies in
+//   memory, is B from shared memory, 128 rows of x an instruction
+//   (m64n128k16 bf16, m64n128k32 s8). So the weights go from shared memory
+//   to registers once and never back.
 // - A persistent grid, one block an SM, walks 128 x 256 output tiles
 //   (x rows x weight columns): bands of kBand M tiles, M fastest within a
 //   band, so the tiles a wave runs together read few x tiles and weight
 //   slabs (8 x 1 MB and ~17 x 0.5 MB at K = 4096: L2-resident).
-// - A producer warp keeps a 4-stage shared-memory ring fed with TMA loads,
-//   a full / empty mbarrier pair a stage. A stage is 64 packed weight rows:
-//   two x boxes (128 rows x 64 k, 128-byte swizzle: x[:, p..] and
-//   x[:, K/2 + p..], the halves each packed byte meets) and two weight
-//   boxes (64 rows x 128 columns, 128-byte swizzle, so the fragment loads
-//   meet no bank conflicts), 48 KB. Rows and k past the matrices arrive
-//   as zeros. The producer runs on into the next tile while the consumers
-//   store, so one tile's epilogue overlaps the next one's loads.
+// - A producer warpgroup (one thread issues) keeps a shared-memory ring
+//   fed with TMA loads, a full / empty mbarrier pair a stage. A stage
+//   (Stage<kKind>) is kRows weight rows (packed rows for INT4) in two
+//   weight boxes (kRows rows x 128 columns, 128-byte swizzle, so the
+//   fragment loads meet no bank conflicts), and kXBoxes x boxes of 128
+//   rows x 128 bytes (128-byte swizzle): for INT4 two, x[:, p..] and
+//   x[:, K/2 + p..], the halves each packed byte meets; for int8 weights
+//   one. Rows and k past the matrices arrive as zeros. All three stages are sized so the ring holds 192 KB:
+//   KW4 4 stages of 64 packed rows (128 k, 48 KB), KW8 6 of 64 rows (64
+//   k, 32 KB: int8 weights stream twice the bytes a k, so a stage holds
+//   half the k of KW4's in fewer bytes, and the ring keeps 6 in flight),
+//   K2 3 of 128 packed rows (256 k, 64 KB: a 128-byte x box row is 128
+//   int8 k, four s8 k-steps, the descriptor stride of the bf16 tile). The
+//   producer runs on into the next tile while the consumers store, so one
+//   tile's epilogue overlaps the next one's loads.
 // - Two consumer warpgroups, 128 weight columns each (two m64 slices), 128
-//   f32 sums a thread. A 32-bit shared load takes 4 columns of one packed
-//   row; the thread's A rows g and g + 8 of both slices are those 4
-//   columns (the slices' rows are permuted onto the weight columns, and the
-//   epilogue follows the permutation), so 4 loads (rows 2t, 2t + 1, 2t + 8,
-//   2t + 9 of 16) feed the A fragments of 16 packed rows for both slices
-//   and both nibble planes: a byte permute, then 0x4300 | nibble - 136 as
-//   bf16x2 (decode_gemm.cuh's nibbles_bf16x2), exact. A warpgroup unpacks
-//   a whole stage (64 registers of A fragments), then issues its 16
-//   wgmmas (4 groups of 16 rows x 2 slices x 2 planes) and waits for them
-//   before it releases the stage: ptxas serializes wgmmas whose register
-//   operands other instructions define while earlier ones are in flight
-//   (its C7513 report), so the unpack overlaps the other warpgroup's
-//   MMAs, not the warpgroup's own.
+//   sums a thread. A 32-bit shared load takes 4 columns of one weight row;
+//   the thread's A rows g and g + 8 of both slices are those 4 columns
+//   (slice s's row g is column 2s, row g + 8 column 2s + 1 of the word;
+//   the epilogue follows the permutation), so one load serves both
+//   slices:
+//   - bf16 A (m64n128k16: rows 2t, 2t + 1, 2t + 8, 2t + 9 of 16 k): a byte
+//     permute pairs two rows' bytes, then INT4 0x4300 | nibble - 136
+//     (decode_gemm.cuh's nibbles_bf16x2) or int8 (v & 0x7F) | 0x4300 minus
+//     (v & 0x80) | 0x4300 (int8_bf16x2), both exact;
+//   - s8 A (m64n128k32: 4 consecutive k a register, k 4t.. and 16 + 4t..
+//     of 32): 4 loads of packed rows 4t.. (and 16 + 4t..), the plane's
+//     nibbles sign-extended to int8 (nibbles_s8x4), then a 4 x 4 byte
+//     transpose (transpose4) gives each column its 4 k.
+//   A warpgroup unpacks a whole stage (64 registers of A fragments for
+//   INT4, 32 for int8 weights), then issues the stage's wgmmas and waits
+//   for them before it releases the stage: ptxas serializes wgmmas whose
+//   register operands other instructions define while earlier ones are in
+//   flight (its C7513 report), so the unpack overlaps the other
+//   warpgroup's MMAs, not the warpgroup's own.
+// - Registers: 128 sums, a stage's A fragments and the unpack need ~200 a
+//   thread; ptxas gives a 384-thread block 168 (and 288 threads no more),
+//   where the tiles spill or serialize. setmaxnreg moves the producer
+//   warpgroup's registers to the consumers: 40 and 232.
 // - Packed rows past K/2 in the last stage are set to 0x08 bytes, which
 //   unpack to 0 in both planes: the low plane's x box there holds x's high
-//   half, not zeros.
-// - x's high half must start 16-byte aligned in memory: a TMA box whose
-//   first column is not hangs the load (measured: K/2 = 100 bf16 values).
-//   So a bf16 x needs K/2 % 8 == 0.
-// - f32 x: a prologue pass of the kernel's own writes x as pairs of bf16
-//   rows, 2M rows of pair_ld(K): row 2m the bf16 high part of x[m], row
-//   2m + 1 its bf16 residual (as bf_tile splits it: within ~2^-16 of the
-//   f32 product), x's high half from column pair_hi(K), 16-byte aligned,
-//   the columns between the halves 0. The tile then runs unchanged on 64
-//   rows of x a tile; columns 2i and 2i + 1 of a thread's sums are one
-//   row's two parts, added in the epilogue.
+//   half, not zeros. (int8 weight rows past K arrive as zeros, as do x's
+//   k past K.)
+// - x's boxes must start 16-byte aligned in memory: a TMA box whose first
+//   column is not hangs the load (measured: K/2 = 100 bf16 values). So a
+//   bf16 x needs K/2 % 8 == 0 under INT4 weights and K % 8 == 0 under
+//   int8 ones, and K2's int8 codes K/2 % 16 == 0.
+// - f32 x (KW4, KW8): a prologue pass (wo_gemm.cu) writes x as
+//   pairs of bf16 rows, 2M rows of pair_ld values: row 2m the bf16 high
+//   part of x[m], row 2m + 1 its bf16 residual (as bf_tile splits it:
+//   within ~2^-16 of the f32 product). Under INT4 weights x's high half
+//   starts at column pair_hi(K), 16-byte aligned, the columns between the
+//   halves 0; under int8 weights the columns are x's, rows 16-byte
+//   aligned. The tile then runs unchanged on 64 rows of x a tile; columns
+//   2i and 2i + 1 of a thread's sums are one row's two parts, added in
+//   the epilogue.
 // - No split K: at prefill M the tiles fill the SMs, so each output is one
 //   fixed sum and repeated calls give the same bits. The epilogue scales
 //   each column once and stores 4 columns (8 or 16 bytes) a row from
 //   registers.
-// The weight format enters only through the weight boxes and the unpack
-// (kKind); INT4 (dec::kW4Bf16) is the one instantiated.
 #pragma once
+#include <algorithm>
+
 #include "decode_gemm.cuh"
 #include "tma_wgmma.cuh"
 
@@ -70,16 +99,48 @@ namespace wot {
 
 constexpr int kBM = 128;                  // rows of x (of pairs: 64 rows)
 constexpr int kBN = 256;                  // weight columns a tile
-constexpr int kP = 64;                    // packed weight rows a stage
-constexpr int kStages = 4;
 constexpr int kConsumerWarps = 8;         // 2 warpgroups
-constexpr int kThreads = 32 * (kConsumerWarps + 1);
-constexpr int kXBox = kBM * 128;          // 128 rows x 64 bf16
-constexpr int kWBox = kP * 128;           // 64 packed rows x 128 columns
-constexpr int kStageBytes = 2 * kXBox + 2 * kWBox;
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + alignment
-constexpr int kGroups = kP / 16;          // 16 packed rows a group
+// the producer: a warpgroup, so that setmaxnreg can move its registers to
+// the consumers (one thread issues the loads)
+constexpr int kProducerWarps = 4;
+constexpr int kThreads = 32 * (kConsumerWarps + kProducerWarps);
+// registers a thread: ptxas gives a 384-thread block 168; the producer
+// gives back all but 40, the consumers take 232 (128 sums, a stage's A
+// fragments, the unpack)
+constexpr bool kSetMaxNReg = true;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kXBox = kBM * 128;          // 128 rows x 128 bytes
 constexpr int kBand = 8;                  // M tiles a band of the tile order
+
+// A ring stage of each format: kRows weight rows (packed for INT4) in two
+// boxes of kRows x 128 columns, kXBoxes x boxes; kStages of them; groups
+// of kGroup weight rows feed one wgmma k-step; Acc the sums' type.
+template <int kKind>
+struct Stage;
+template <>
+struct Stage<dec::kW4Bf16> {
+  using Acc = float;
+  static constexpr int kRows = 64, kXBoxes = 2, kStages = 4, kGroup = 16;
+};
+template <>
+struct Stage<dec::kW8Bf16> {
+  using Acc = float;
+  static constexpr int kRows = 64, kXBoxes = 1, kStages = 6, kGroup = 16;
+};
+template <>
+struct Stage<dec::kW4Int8> {
+  using Acc = int;
+  static constexpr int kRows = 128, kXBoxes = 2, kStages = 3, kGroup = 32;
+};
+template <int kKind>
+__host__ __device__ constexpr int stage_bytes() {
+  return Stage<kKind>::kXBoxes * kXBox + 2 * Stage<kKind>::kRows * 128;
+}
+// the ring, and 1024 bytes to align it
+template <int kKind>
+__host__ __device__ constexpr int smem_bytes() {
+  return Stage<kKind>::kStages * stage_bytes<kKind>() + 1024;
+}
 
 // d += A . B for one warpgroup: A 64 x 16 bf16 in registers (a, the
 // fragment of mma.m16n8k16's A, warp w holding rows 16 w..), B 128 x 16
@@ -120,6 +181,44 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The same for int8: A 64 x 32 s8 in registers (mma.m16n8k32's A
+// fragment a warp: 4 consecutive k a register), B 128 x 32 s8 K-major in
+// shared memory; exact int32 sums
+__device__ __forceinline__ void wgmma_s8_rs_n128(int (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // the tile of index `tile`: bands of kBand M tiles, M fastest in a band
 __device__ __forceinline__ void tile_at(int tile, int tiles_m, int tiles_n,
                                         int& mt, int& nt) {
@@ -130,36 +229,148 @@ __device__ __forceinline__ void tile_at(int tile, int tiles_m, int tiles_n,
   nt = local / rows;
 }
 
-// out (M, N) = (x @ W) * sw; map_x: x (M rows) or its pairs (kPairX: 2M
-// rows), bf16, boxes of 128 rows x 64 values, x's high half from column
-// x_hi (16-byte aligned); map_w: the packed weights (K2 rows), boxes of 64
-// rows x 128 columns; tiles_m tiles of 128 map rows, tiles_n of 256
-// columns
+// One warpgroup's MMAs on the stage at st (x boxes first), its weight box
+// at wb, `rows` weight rows of the stage valid; (chunk, cbyte): the
+// thread's 4 columns in a 128-byte box row. Unpacks the whole stage, then
+// issues its wgmmas and waits for them (see the header).
+template <int kKind>
+__device__ __forceinline__ void stage_mma(
+    const unsigned char* st, const unsigned char* wb, int rows, int chunk,
+    int cbyte, int t, typename Stage<kKind>::Acc (&acc)[2][64]) {
+  using S = Stage<kKind>;
+  constexpr int kGroups = S::kRows / S::kGroup;
+  // the word of weight row r (128-byte swizzled box)
+  auto word = [&](int r) {
+    return ld_u32(wb + r * 128 + ((chunk ^ (r & 7)) << 4) + cbyte);
+  };
+  if constexpr (kKind == dec::kW4Int8) {
+    // a[group][slice][plane]: group q is packed rows 32 q..; register 0
+    // (1) is slice s's row g (g + 8), column 2s (2s + 1) of the word, k
+    // 4t..; registers 2, 3 the same at k 16 + 4t..
+    uint32_t a[kGroups][2][2][4];
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+      uint32_t wv[8];                  // packed rows 32q + 4t + i (+ 16)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 32 * q + 4 * t + (i & 3) + 16 * (i >> 2);
+        wv[i] = word(r);
+        if (rows < S::kRows && r >= rows) wv[i] = 0x08080808u;
+      }
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl) {
+        uint32_t u0[4], u1[4], b0[4], b1[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          u0[i] = pl ? dec::nibbles_s8x4<true>(wv[i])
+                     : dec::nibbles_s8x4<false>(wv[i]);
+          u1[i] = pl ? dec::nibbles_s8x4<true>(wv[4 + i])
+                     : dec::nibbles_s8x4<false>(wv[4 + i]);
+        }
+        dec::transpose4(u0, b0);       // b0[c]: column c's k 4t..4t+3
+        dec::transpose4(u1, b1);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          a[q][s][pl][0] = b0[2 * s];
+          a[q][s][pl][1] = b0[2 * s + 1];
+          a[q][s][pl][2] = b1[2 * s];
+          a[q][s][pl][3] = b1[2 * s + 1];
+        }
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t db = sw128_desc(st + h * kXBox + 32 * q);
+        wgmma_s8_rs_n128(acc[0], a[q][0][h], db);
+        wgmma_s8_rs_n128(acc[1], a[q][1][h], db);
+      }
+  } else {
+    // bf16 A: a[group][slice][plane][register]; group q is weight rows
+    // 16 q.., byte 2s (+1) of a word slice s's row g (g + 8)
+    constexpr int kPlanes = kKind == dec::kW4Bf16 ? 2 : 1;
+    uint32_t a[kGroups][2][kPlanes][4];
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+      // weight rows 16 q + 2t, +1, +8, +9
+      uint32_t wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * q + 2 * t + (i & 1) + 8 * (i >> 1);
+        wv[i] = word(r);
+        if (kPlanes == 2 && rows < S::kRows && r >= rows)
+          wv[i] = 0x08080808u;
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t c = 2 * s + e;
+          const uint32_t sel = c | (c << 4) | ((4 + c) << 8) |
+                               ((4 + c) << 12);
+          const uint32_t p01 = __byte_perm(wv[0], wv[1], sel);
+          const uint32_t p89 = __byte_perm(wv[2], wv[3], sel);
+          if constexpr (kPlanes == 2) {
+            a[q][s][0][e] = dec::nibbles_bf16x2<false>(p01);
+            a[q][s][0][2 + e] = dec::nibbles_bf16x2<false>(p89);
+            a[q][s][1][e] = dec::nibbles_bf16x2<true>(p01 >> 4);
+            a[q][s][1][2 + e] = dec::nibbles_bf16x2<true>(p89 >> 4);
+          } else {
+            a[q][s][0][e] = dec::int8_bf16x2(p01);
+            a[q][s][0][2 + e] = dec::int8_bf16x2(p89);
+          }
+        }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q)
+#pragma unroll
+      for (int h = 0; h < kPlanes; ++h) {
+        const uint64_t db = sw128_desc(st + h * kXBox + 32 * q);
+        wgmma_bf16_rs_n128(acc[0], a[q][0][h], db);
+        wgmma_bf16_rs_n128(acc[1], a[q][1][h], db);
+      }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// out (M, N) = (x @ W) * sw (K2: (f32(x @ W) * sx[m]) * sw[n]); map_x: x
+// (M rows) or its pairs (kPairX: 2M rows), boxes of 128 rows x 128 bytes,
+// box b of a stage from column b * x_hi (INT4: x's high half, 16-byte
+// aligned); map_w: the weights (R rows), boxes of Stage::kRows rows x 128
+// columns; tiles_m tiles of 128 map rows, tiles_n of 256 columns.
+// Each format's kernel below is this body under its own name.
 template <int kKind, typename OutT, bool kPairX>
-__global__ void __launch_bounds__(kThreads, 1)
-w4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
-               const __grid_constant__ CUtensorMap map_w,
-               const float* __restrict__ sw, OutT* __restrict__ out, int M,
-               int N, int K2, int x_hi, int tiles_m, int tiles_n) {
-  static_assert(kKind == dec::kW4Bf16, "the tile unpacks INT4 weights");
-  extern __shared__ unsigned char wot_smem[];
-  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+__device__ __forceinline__ void tile_body(
+    const CUtensorMap& map_x, const CUtensorMap& map_w,
+    const float* __restrict__ sx, const float* __restrict__ sw,
+    OutT* __restrict__ out, int M, int N, int R, int x_hi, int tiles_m,
+    int tiles_n, unsigned char* smem, uint64_t* full, uint64_t* empty) {
+  using S = Stage<kKind>;
+  constexpr int kStage = stage_bytes<kKind>();
+  constexpr int kWBox = S::kRows * 128;
   unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(wot_smem) + 1023) & ~(uintptr_t)1023);
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~(uintptr_t)1023);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int ksteps = (K2 + kP - 1) / kP;
+  const int ksteps = (R + S::kRows - 1) / S::kRows;
   const int tiles = tiles_m * tiles_n;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (warp == kConsumerWarps) {                    // the producer
-    if (lane != 0) return;
+  if (warp >= kConsumerWarps) {                    // the producer
+    if constexpr (kSetMaxNReg)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+    if (warp != kConsumerWarps || lane != 0) return;
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -167,15 +378,17 @@ w4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
       tile_at(tile, tiles_m, tiles_n, mt, nt);
       for (int ks = 0; ks < ksteps; ++ks) {
         mbar_wait(&empty[stage], phase ^ 1);
-        unsigned char* st = base + stage * kStageBytes;
-        mbar_arrive_expect_tx(&full[stage], kStageBytes);
-        tma_load(st, &map_x, ks * kP, mt * kBM, &full[stage]);
-        tma_load(st + kXBox, &map_x, x_hi + ks * kP, mt * kBM,
+        unsigned char* st = base + stage * kStage;
+        mbar_arrive_expect_tx(&full[stage], kStage);
+#pragma unroll
+        for (int b = 0; b < S::kXBoxes; ++b)
+          tma_load(st + b * kXBox, &map_x, b * x_hi + ks * S::kRows,
+                   mt * kBM, &full[stage]);
+        unsigned char* wdst = st + S::kXBoxes * kXBox;
+        tma_load(wdst, &map_w, nt * kBN, ks * S::kRows, &full[stage]);
+        tma_load(wdst + kWBox, &map_w, nt * kBN + 128, ks * S::kRows,
                  &full[stage]);
-        tma_load(st + 2 * kXBox, &map_w, nt * kBN, ks * kP, &full[stage]);
-        tma_load(st + 2 * kXBox + kWBox, &map_w, nt * kBN + 128, ks * kP,
-                 &full[stage]);
-        if (++stage == kStages) {
+        if (++stage == S::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -185,72 +398,31 @@ w4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 
   // consumers: warpgroup wg takes weight columns 128 wg.. of each tile
+  if constexpr (kSetMaxNReg)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
   const int wg = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   // this thread's 4 columns: byte 4g.. of chunk 2 wl + g / 4 of a row
   const int chunk = 2 * wl + (g >> 2), cbyte = (g & 3) * 4;
   int stage = 0;
   uint32_t phase = 0;
-  float acc[2][64];
+  typename S::Acc acc[2][64];
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     int mt, nt;
     tile_at(tile, tiles_m, tiles_n, mt, nt);
 #pragma unroll
     for (int s = 0; s < 2; ++s)
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[s][i] = 0.0f;
+      for (int i = 0; i < 64; ++i) acc[s][i] = 0;
     for (int ks = 0; ks < ksteps; ++ks) {
       mbar_wait(&full[stage], phase);
-      const unsigned char* st = base + stage * kStageBytes;
-      const unsigned char* wb = st + 2 * kXBox + wg * kWBox;
-      const int rows = K2 - ks * kP;               // valid packed rows
-      // A fragments of the stage: [group][slice][plane][register]; group
-      // q is packed rows 16 q.., byte 2s (+1) of a word slice s's row g
-      // (g + 8)
-      uint32_t a[kGroups][2][2][4];
-#pragma unroll
-      for (int q = 0; q < kGroups; ++q) {
-        // packed rows 16 q + 2t, +1, +8, +9 (128-byte swizzled boxes)
-        uint32_t wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * q + 2 * t + (i & 1) + 8 * (i >> 1);
-          wv[i] = ld_u32(wb + r * 128 + ((chunk ^ (r & 7)) << 4) + cbyte);
-          if (rows < kP && r >= rows) wv[i] = 0x08080808u;
-        }
-#pragma unroll
-        for (int s = 0; s < 2; ++s)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const uint32_t c = 2 * s + e;
-            const uint32_t sel = c | (c << 4) | ((4 + c) << 8) |
-                                 ((4 + c) << 12);
-            const uint32_t p01 = __byte_perm(wv[0], wv[1], sel);
-            const uint32_t p89 = __byte_perm(wv[2], wv[3], sel);
-            a[q][s][0][e] = dec::nibbles_bf16x2<false>(p01);
-            a[q][s][0][2 + e] = dec::nibbles_bf16x2<false>(p89);
-            a[q][s][1][e] = dec::nibbles_bf16x2<true>(p01 >> 4);
-            a[q][s][1][2 + e] = dec::nibbles_bf16x2<true>(p89 >> 4);
-          }
-      }
-      // then the stage's 16 wgmmas (4 groups x 2 planes x 2 slices), and
-      // the wait for them: ptxas serializes wgmmas whose register operands
-      // other instructions define while earlier wgmmas are in flight, so
-      // one warpgroup's unpack overlaps the other's MMAs, not its own
-      wgmma_fence();
-#pragma unroll
-      for (int q = 0; q < kGroups; ++q)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint64_t db = sw128_desc(st + h * kXBox + 32 * q);
-          wgmma_bf16_rs_n128(acc[0], a[q][0][h], db);
-          wgmma_bf16_rs_n128(acc[1], a[q][1][h], db);
-        }
-      wgmma_commit();
-      wgmma_wait<0>();
+      const unsigned char* st = base + stage * kStage;
+      stage_mma<kKind>(st, st + S::kXBoxes * kXBox + wg * kWBox,
+                       R - ks * S::kRows, chunk, cbyte, t, acc);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);
-      if (++stage == kStages) {
+      if (++stage == S::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -271,13 +443,16 @@ w4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int i = 4 * j + 2 * (c & 1);
-          v[c] = kPairX ? acc[c >> 1][i] + acc[c >> 1][i + 1]
-                        : acc[c >> 1][i + e];
+          if constexpr (kKind == dec::kW4Int8)
+            v[c] = __fmul_rn(__int2float_rn(acc[c >> 1][i + e]), sx[m]);
+          else
+            v[c] = kPairX ? acc[c >> 1][i] + acc[c >> 1][i + 1]
+                          : acc[c >> 1][i + e];
         }
-        v[0] *= s4.x;
-        v[1] *= s4.y;
-        v[2] *= s4.z;
-        v[3] *= s4.w;
+        v[0] = __fmul_rn(v[0], s4.x);
+        v[1] = __fmul_rn(v[1], s4.y);
+        v[2] = __fmul_rn(v[2], s4.z);
+        v[3] = __fmul_rn(v[3], s4.w);
         OutT* o = out + (size_t)m * N + n;
         if constexpr (sizeof(OutT) == 4) {
           *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -293,40 +468,84 @@ w4_tile_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// the column of x's high half in the pair rows of an f32 x (16-byte
-// aligned), and the bf16 values a pair row holds (16-byte rows)
+#define AIMET_TILE_KERNEL(NAME, KIND)                                       \
+  template <typename OutT, bool kPairX>                                     \
+  __global__ void __launch_bounds__(kThreads, 1)                            \
+      NAME(const __grid_constant__ CUtensorMap map_x,                       \
+           const __grid_constant__ CUtensorMap map_w,                       \
+           const float* __restrict__ sx, const float* __restrict__ sw,      \
+           OutT* __restrict__ out, int M, int N, int R, int x_hi,           \
+           int tiles_m, int tiles_n) {                                      \
+    extern __shared__ unsigned char wot_smem[];                             \
+    __shared__ __align__(8) uint64_t full[Stage<KIND>::kStages];            \
+    __shared__ __align__(8) uint64_t empty[Stage<KIND>::kStages];           \
+    tile_body<KIND, OutT, kPairX>(map_x, map_w, sx, sw, out, M, N, R, x_hi, \
+                                  tiles_m, tiles_n, wot_smem, full, empty); \
+  }
+AIMET_TILE_KERNEL(w4_tile_kernel, dec::kW4Bf16)     // KW4
+AIMET_TILE_KERNEL(w8_tile_kernel, dec::kW8Bf16)     // KW8
+AIMET_TILE_KERNEL(w4a8_tile_kernel, dec::kW4Int8)   // K2
+#undef AIMET_TILE_KERNEL
+
+// format kKind's kernel
+template <int kKind, typename OutT, bool kPairX>
+auto tile_kernel() {
+  if constexpr (kKind == dec::kW4Bf16)
+    return w4_tile_kernel<OutT, kPairX>;
+  else if constexpr (kKind == dec::kW8Bf16)
+    return w8_tile_kernel<OutT, kPairX>;
+  else
+    return w4a8_tile_kernel<OutT, kPairX>;
+}
+
+// Launches format kKind's tile on stream s: a persistent grid of
+// min(tiles, SMs) blocks over ceil(xrows / 128) x ceil(N / 256) tiles.
+// mx maps x (xrows = M) or its pairs (xrows = 2M) in boxes of 128 rows x
+// 128 bytes; mw the weights (R rows) in boxes of Stage::kRows rows x 128
+// columns; x_hi: the x column of a stage's second box (INT4: K/2 or the
+// pairs' pair_hi); sx: K2's row scales (else unused).
+template <int kKind, typename OutT, bool kPairX>
+int launch_tile(const CUtensorMap& mx, const CUtensorMap& mw,
+                const float* sx, const float* sw, OutT* out, int M, int N,
+                int R, int x_hi, int xrows, cudaStream_t s) {
+  static int sms = 0;                        // the card's SMs, once
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return static_cast<int>(e);
+  }
+  auto kern = tile_kernel<kKind, OutT, kPairX>();
+  static bool ready = false;                 // the smem limit, once
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<kKind>());
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  const int tiles_m = (xrows + kBM - 1) / kBM;
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int grid = std::min(tiles_m * tiles_n, sms);
+  kern<<<grid, kThreads, smem_bytes<kKind>(), s>>>(mx, mw, sx, sw, out, M,
+                                                   N, R, x_hi, tiles_m,
+                                                   tiles_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pair rows of an f32 x under INT4 weights: the column of x's high
+// half (16-byte aligned), and the bf16 values a row holds (16-byte rows)
 __host__ __device__ constexpr long long pair_hi(int K) {
   return (K / 2 + 7) / 8 * 8;
 }
 __host__ __device__ constexpr long long pair_ld(int K) {
   return (pair_hi(K) + K / 2 + 7) / 8 * 8;
 }
-
-// x (M, K) f32 -> xs (2M rows, pair_ld(K) apart) bf16: row 2m the bf16
-// high part of x[m], row 2m + 1 its bf16 residual; k < K/2 at column k,
-// the rest at pair_hi(K) + k - K/2, the columns between 0; K % 4 == 0
-__global__ void split_pairs_kernel(const float* __restrict__ x,
-                                   uint16_t* __restrict__ xs, int M, int K) {
-  const int K2 = K / 2, hi0 = (int)pair_hi(K);
-  const size_t ld = (size_t)pair_ld(K);
-  const size_t q = (size_t)K / 4, total = (size_t)M * q;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t m = i / q;
-    const int c = (int)(i % q) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(x) + i);
-    const float f[4] = {v.x, v.y, v.z, v.w};
-    uint16_t* row = xs + 2 * m * ld;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat16 b = __float2bfloat16_rn(f[e]);
-      const int col = c + e < K2 ? c + e : hi0 + c + e - K2;
-      row[col] = __bfloat16_as_ushort(b);
-      row[ld + col] = bf16_bits(__fsub_rn(f[e], __bfloat162float(b)));
-    }
-    if (c == 0)
-      for (int col = K2; col < hi0; ++col) row[col] = row[ld + col] = 0;
-  }
+// under int8 weights: x's K columns, rows of a multiple of 8 values
+__host__ __device__ constexpr long long pair_ld_w8(int K) {
+  return (K + 7LL) / 8 * 8;
 }
 
 }  // namespace wot

@@ -31,11 +31,11 @@
 //   KW8 and KW4 stream their weights through the decode routine
 //   (wo_decode_kernel below), KW4G through its own ring
 //   (w4g_decode_kernel);
-// - KW4 at prefill M (M > 64, operands TMA can map, at least 24 output
-//   tiles of 128 x 256): the persistent TMA + wgmma tile of
-//   wgmma_wo_tile.cuh, INT4 unpacked in registers as wgmma's A operand,
-//   no split K;
-// - the rest (KW8 and KW4G at prefill M, KW4 with fewer tiles, ragged
+// - KW4 and KW8 at prefill M (M > 64, operands TMA can map, at least
+//   the route's count of 128 x 256 output tiles): the persistent TMA +
+//   wgmma tile of wgmma_wo_tile.cuh, the weights unpacked in registers as
+//   wgmma's A operand, no split K;
+// - the rest (KW4G at prefill M, KW4 and KW8 with fewer tiles, ragged
 //   shapes): the block tile
 //   aimet::bf_tile (gemm_tiles.cuh) on mma.sync.m16n8k16.bf16 with f32
 //   accumulators, a 64 x 128 output tile a block. Where M x N tiles cannot
@@ -596,37 +596,105 @@ int wo_decode(const void* x, const void* w, const void* sw, void* out,
                                            blocks, s);
 }
 
-// ------------------------------------------------ KW4 at prefill M: wgmma
+// ------------------------------------- KW4 and KW8 at prefill M: wgmma
 // (wgmma_wo_tile.cuh)
-template <typename OutT, bool kPairX>
-int run_w4_tile(const CUtensorMap& mx, const CUtensorMap& mw, const void* sw,
-                void* out, int M, int N, int K2, int x_hi, int xrows,
-                cudaStream_t s) {
+
+// x (M, K) f32 -> xs (2M rows, ld apart) bf16: row 2m the bf16 high part
+// of x[m], row 2m + 1 its bf16 residual; k < cut at column k, the rest at
+// hi0 + k - cut, the columns between cut and hi0 0 (INT4: cut K/2, hi0
+// pair_hi; int8 weights: cut = hi0 = K); K % 4 == 0
+__global__ void split_pairs_kernel(const float* __restrict__ x,
+                                   uint16_t* __restrict__ xs, int M, int K,
+                                   int cut, int hi0, long long ld) {
+  const size_t q = (size_t)K / 4, total = (size_t)M * q;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t m = i / q;
+    const int c = (int)(i % q) * 4;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x) + i);
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    uint16_t* row = xs + 2 * m * (size_t)ld;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat16 b = __float2bfloat16_rn(f[e]);
+      const int col = c + e < cut ? c + e : hi0 + c + e - cut;
+      row[col] = __bfloat16_as_ushort(b);
+      row[ld + col] = aimet::bf16_bits(__fsub_rn(f[e], __bfloat162float(b)));
+    }
+    if (c == 0)
+      for (int col = cut; col < hi0; ++col) row[col] = row[ld + col] = 0;
+  }
+}
+
+// Writes the pairs of an f32 x into ws (bytes ws_bytes, at least 2M x ld
+// bf16) with split_pairs_kernel and maps them for the tile (cols: the
+// map's columns); false if ws is short or unaligned or the map fails.
+inline bool pairs_map(CUtensorMap* mx, const float* x, void* ws,
+                      long long ws_bytes, int M, int K, int cut, int hi0,
+                      long long ld, int cols, cudaStream_t s) {
+  if (ws == nullptr || !aimet::aligned16(ws) ||
+      ws_bytes < 2LL * M * ld * 2 ||
+      !aimet::encode_2d(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ws, 2 * M,
+                        cols, ld * 2, aimet::wot::kBM, 128))
+    return false;
+  const size_t total = (size_t)M * (K / 4);
+  const int blocks =
+      (int)std::min<size_t>((total + 255) / 256, (size_t)4 * 132 * 8);
+  split_pairs_kernel<<<blocks, 256, 0, s>>>(
+      x, static_cast<uint16_t*>(ws), M, K, cut, hi0, ld);
+  return true;
+}
+
+// The tile's C entries: x (M, K) bf16 or f32, rows unit-stride; w (K/2, N)
+// split-half INT4 (kKind kW4Bf16) or (K, N) int8 (kW8Bf16), N % 16; x, w
+// and sw 16-byte aligned; a bf16 x's boxes 16-byte aligned (INT4: K % 16,
+// its high half; int8: K % 8), an f32 x K % 4. An f32 x is first written
+// as bf16 pairs into ws (ws_bytes: at least 2M rows of the pair layout).
+template <int kKind>
+int wo_tile(const void* x, const void* w, const void* sw, void* out,
+            void* ws, int M, int N, int K, int x_is_f32, int out_is_bf16,
+            long long ws_bytes, void* stream) {
   namespace wot = aimet::wot;
-  static int sms = 0;                        // the card's SMs, once
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return static_cast<int>(e);
-  }
-  auto kern = wot::w4_tile_kernel<aimet::dec::kW4Bf16, OutT, kPairX>;
-  static bool ready = false;                 // the smem limit, once
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, wot::kSmemBytes);
+  constexpr bool kW4 = kKind == aimet::dec::kW4Bf16;
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if ((kW4 && K % 2) || N % 16 || K % (x_is_f32 ? 4 : kW4 ? 16 : 8) ||
+      !aimet::aligned16(x) || !aimet::aligned16(w) || !aimet::aligned16(sw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = kW4 ? K / 2 : K;
+  const float* swp = static_cast<const float*>(sw);
+  CUtensorMap mx, mw;
+  if (!aimet::encode_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, R, N, N,
+                        wot::Stage<kKind>::kRows, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (x_is_f32) {
+    // INT4: x's high half from pair_hi, the columns between 0; int8: x's
+    // columns as they are
+    const long long ld = kW4 ? wot::pair_ld(K) : wot::pair_ld_w8(K);
+    const int hi0 = kW4 ? (int)wot::pair_hi(K) : K;
+    if (!pairs_map(&mx, static_cast<const float*>(x), ws, ws_bytes, M, K,
+                   kW4 ? K / 2 : K, hi0, ld, kW4 ? hi0 + K / 2 : K, s))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    ready = true;
+    return out_is_bf16
+               ? wot::launch_tile<kKind, __nv_bfloat16, true>(
+                     mx, mw, nullptr, swp, static_cast<__nv_bfloat16*>(out),
+                     M, N, R, hi0, 2 * M, s)
+               : wot::launch_tile<kKind, float, true>(
+                     mx, mw, nullptr, swp, static_cast<float*>(out), M, N,
+                     R, hi0, 2 * M, s);
   }
-  const int tiles_m = (xrows + wot::kBM - 1) / wot::kBM;
-  const int tiles_n = (N + wot::kBN - 1) / wot::kBN;
-  const int grid = std::min(tiles_m * tiles_n, sms);
-  kern<<<grid, wot::kThreads, wot::kSmemBytes, s>>>(
-      mx, mw, static_cast<const float*>(sw), static_cast<OutT*>(out), M, N,
-      K2, x_hi, tiles_m, tiles_n);
-  return static_cast<int>(cudaGetLastError());
+  if (!aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K,
+                        2LL * K, wot::kBM, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return out_is_bf16
+             ? wot::launch_tile<kKind, __nv_bfloat16, false>(
+                   mx, mw, nullptr, swp, static_cast<__nv_bfloat16*>(out), M,
+                   N, R, R, M, s)
+             : wot::launch_tile<kKind, float, false>(
+                   mx, mw, nullptr, swp, static_cast<float*>(out), M, N, R,
+                   R, M, s);
 }
 
 template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
@@ -748,45 +816,20 @@ extern "C" int aimet_w4_tile_gemm(const void* x, const void* w,
                                   int N, int K, int x_is_f32,
                                   int out_is_bf16, long long ws_bytes,
                                   void* stream) {
-  namespace wot = aimet::wot;
-  if (M <= 0 || N <= 0 || K <= 0) return 0;
-  if (K % 2 || N % 16 || K % (x_is_f32 ? 4 : 16) ||
-      !aimet::aligned16(x) || !aimet::aligned16(w) || !aimet::aligned16(sw))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int K2 = K / 2;
-  CUtensorMap mx, mw;
-  if (!aimet::encode_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K2, N, N,
-                        wot::kP, 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (x_is_f32) {
-    const long long ld = wot::pair_ld(K), hi0 = wot::pair_hi(K);
-    if (ws == nullptr || !aimet::aligned16(ws) ||
-        ws_bytes < 2LL * M * ld * 2 ||
-        !aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ws,
-                          2 * M, (int)(hi0 + K2), ld * 2, wot::kBM, 128))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const size_t total = (size_t)M * (K / 4);
-    const int blocks =
-        (int)std::min<size_t>((total + 255) / 256, (size_t)4 * 132 * 8);
-    wot::split_pairs_kernel<<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<uint16_t*>(ws), M, K);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return out_is_bf16
-               ? run_w4_tile<__nv_bfloat16, true>(mx, mw, sw, out, M, N, K2,
-                                                  (int)hi0, 2 * M, s)
-               : run_w4_tile<float, true>(mx, mw, sw, out, M, N, K2,
-                                          (int)hi0, 2 * M, s);
-  }
-  if (!aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K,
-                        2LL * K, wot::kBM, 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return out_is_bf16
-             ? run_w4_tile<__nv_bfloat16, false>(mx, mw, sw, out, M, N, K2,
-                                                 K2, M, s)
-             : run_w4_tile<float, false>(mx, mw, sw, out, M, N, K2, K2, M,
-                                         s);
+  return wo_tile<aimet::dec::kW4Bf16>(x, w, sw, out, ws, M, N, K, x_is_f32,
+                                      out_is_bf16, ws_bytes, stream);
+}
+
+// KW8's route at prefill M: as aimet_w4_tile_gemm with w (K, N) int8
+// codes; a bf16 x needs K % 8 (16-byte rows), and an f32 x's pairs take
+// ws_bytes >= 2 M x pair_ld_w8(K) x 2 (K rounded up to a multiple of 8).
+extern "C" int aimet_w8_tile_gemm(const void* x, const void* w,
+                                  const void* sw, void* out, void* ws, int M,
+                                  int N, int K, int x_is_f32,
+                                  int out_is_bf16, long long ws_bytes,
+                                  void* stream) {
+  return wo_tile<aimet::dec::kW8Bf16>(x, w, sw, out, ws, M, N, K, x_is_f32,
+                                      out_is_bf16, ws_bytes, stream);
 }
 
 // As aimet_w4_gemm with group scales gs (K/group, N) f32 in place of sw;

@@ -191,11 +191,15 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
     """GEMM on per-row quantized activations: x_q (M, K) int8, x_scale (M,)
     f32, split-half INT4 weights (K//2, N) int8, w_scale (N,) f32 ->
     (M, N) ``out_dtype``. On a CUDA tensor it launches kernel K2
-    (``csrc/w4a8_gemm.cu``): at decode M with aligned shapes
-    (:func:`w4a8_decode_route`) its weight-streaming route, one block an SM
-    planned by :func:`decode_plan`; else its block tile, splitting K by
-    :func:`decode_splits` into a zeroed int32 buffer. Both are bit-exact.
-    On a CPU tensor it takes ``w4a8_gemm_torch``."""
+    (``csrc/w4a8_gemm.cu``) by one of three routes, picked from the shapes:
+    at decode M with aligned shapes (:func:`w4a8_decode_route`) its
+    weight-streaming route, one block an SM planned by
+    :func:`decode_plan`; above 64 rows with aligned shapes and at least
+    ``TILE_MIN_TILES`` output tiles (:func:`w4a8_tile_route`) the
+    TMA + ``wgmma`` tile (``csrc/wgmma_wo_tile.cuh``, int8 MMAs, no split
+    K); else its block tile, splitting K by :func:`decode_splits` into a
+    zeroed int32 buffer. All three are bit-exact. On a CPU tensor it takes
+    ``w4a8_gemm_torch``."""
     M, K = x_q.shape
     K2, N = w_packed.shape
     if K != 2 * K2 or x_scale.shape != (M,) or w_scale.shape != (N,):
@@ -219,6 +223,21 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     if w4a8_decode_route(M, N, K2):
         return _launch_w4a8_decode(x_q, x_scale, w_packed, w_scale, out)
+    if w4a8_tile_route(M, N, K2):
+        return _launch_w4a8_tile(x_q, x_scale, w_packed, w_scale, out)
+    return _launch_s8_tile(x_q, x_scale, w_packed, w_scale, out)
+
+
+w4a8_gemm.launches = 0
+w4a8_gemm.routes = {"decode": 0, "tile": 0, "s8_tile": 0}
+w4a8_gemm.shapes = {}
+
+
+def _launch_s8_tile(x_q, x_scale, w_packed, w_scale, out):
+    """K2's ``mma.sync`` block tile on contiguous, aligned CUDA operands,
+    splitting K by :func:`decode_splits` into a zeroed int32 buffer."""
+    M = x_q.shape[0]
+    K2, N = w_packed.shape
     splits = decode_splits(M, N, -(-K2 // _TILE_P))
     ws = (torch.zeros((M, N), dtype=torch.int32, device=x_q.device)
           if splits > 1 else out)
@@ -226,14 +245,9 @@ def w4a8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor,
     _build.launch("aimet_w4a8_gemm", x_q.data_ptr(), x_scale.data_ptr(),
                   w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
                   ws.data_ptr(), M, N, K2, splits,
-                  int(out_dtype == torch.bfloat16),
+                  int(out.dtype == torch.bfloat16),
                   _build.stream_ptr(x_q.device))
     return out
-
-
-w4a8_gemm.launches = 0
-w4a8_gemm.routes = {"decode": 0, "s8_tile": 0}
-w4a8_gemm.shapes = {}
 
 
 def _count(fn, route: str, x, out, group: int = 0) -> None:
@@ -268,6 +282,28 @@ def _launch_w4a8_decode(x_q, x_scale, w_packed, w_scale, out):
                   w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
                   cnt.data_ptr(), M, N, K2, plan.blocks, ws.numel(),
                   cnt.numel(), int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(x_q.device))
+    return out
+
+
+def w4a8_tile_route(M: int, N: int, K2: int) -> bool:
+    """Whether K2 takes its TMA + ``wgmma`` tile: M from ``TILE_MIN_M``
+    up, K/2 packed rows and N multiples of 16 (x's high half 16-byte
+    aligned for its TMA boxes), and at least ``TILE_MIN_TILES`` output
+    tiles (:func:`tile_count`; below, the block tile, which splits K, is
+    faster)."""
+    return (M >= TILE_MIN_M and K2 % 16 == 0 and N % 16 == 0
+            and tile_count(M, N, torch.int8) >= TILE_MIN_TILES)
+
+
+def _launch_w4a8_tile(x_q, x_scale, w_packed, w_scale, out):
+    """K2's TMA + ``wgmma`` tile on contiguous, aligned CUDA operands."""
+    M = x_q.shape[0]
+    K2, N = w_packed.shape
+    _count(w4a8_gemm, "tile", x_q, out)
+    _build.launch("aimet_w4a8_tile_gemm", x_q.data_ptr(), x_scale.data_ptr(),
+                  w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M,
+                  N, K2, int(out.dtype == torch.bfloat16),
                   _build.stream_ptr(x_q.device))
     return out
 
@@ -360,8 +396,9 @@ def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
     if fn is matmul_w4 and w4_decode_route(M, N, K, x.dtype):
         return _launch_wo_decode("aimet_w4_decode_gemm", fn, x, w, w_scale,
                                  out, K // 2)
-    if fn is matmul_w4 and w4_tile_route(M, N, K, x.dtype):
-        return _launch_w4_tile(x, w, w_scale, out)
+    if (fn is matmul_w4 and w4_tile_route(M, N, K, x.dtype)
+            or fn is matmul_w8 and w8_tile_route(M, N, K, x.dtype)):
+        return _launch_wo_tile(fn, x, w, w_scale, out)
     return _launch_bf_tile(name, fn, x, w, w_scale, out, group)
 
 
@@ -399,7 +436,7 @@ def matmul_w4(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
     a bf16 x of at most 64 rows with K/2 and N multiples of 16 streams the
     weights through the decode routine (:func:`w4_decode_route`,
     :func:`decode_plan`, one block an SM); M above 64 with operands TMA
-    can map and at least ``W4_TILE_MIN_TILES`` output tiles takes the
+    can map and at least ``TILE_MIN_TILES`` output tiles takes the
     TMA + ``wgmma`` tile (:func:`w4_tile_route`,
     ``csrc/wgmma_wo_tile.cuh``, no split K); the rest takes the
     ``mma.sync`` block tile, splitting K by :func:`decode_splits`.
@@ -416,11 +453,15 @@ def matmul_w8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Weight-only INT8: x (M, K) @ int8 codes (K, N) with per-column
     scales (N,) f32. On CUDA tensors (x bf16 or f32, as for
-    :func:`matmul_w4`) it launches kernel KW8 (``csrc/wo_gemm.cu``) at every
-    M: a bf16 x of at most 64 rows with K and N multiples of 16 takes its
-    decode weight-streaming route (:func:`w8_decode_route`,
-    :func:`decode_plan`, one block an SM), the rest its block tile. On CPU
-    tensors it takes :func:`matmul_w8_torch`."""
+    :func:`matmul_w4`) it launches kernel KW8 (``csrc/wo_gemm.cu``) by one
+    of three routes, picked from the shapes: a bf16 x of at most 64 rows
+    with K and N multiples of 16 takes its decode weight-streaming route
+    (:func:`w8_decode_route`, :func:`decode_plan`, one block an SM); M
+    above 64 with operands TMA can map and at least ``TILE_MIN_TILES``
+    output tiles the TMA + ``wgmma`` tile (:func:`w8_tile_route`,
+    ``csrc/wgmma_wo_tile.cuh``, no split K; an f32 x as bf16 pairs, as
+    KW4's); the rest its block tile. On CPU tensors it takes
+    :func:`matmul_w8_torch`."""
     return _weight_only("aimet_w8_gemm", x, w_q, w_scale, out_dtype, False,
                         matmul_w8)
 
@@ -429,7 +470,7 @@ matmul_w4.launches = 0
 matmul_w4.routes = {"decode": 0, "tile": 0, "bf_tile": 0}
 matmul_w4.shapes = {}
 matmul_w8.launches = 0
-matmul_w8.routes = {"decode": 0, "bf_tile": 0}
+matmul_w8.routes = {"decode": 0, "tile": 0, "bf_tile": 0}
 matmul_w8.shapes = {}
 
 
@@ -490,41 +531,53 @@ def w4_decode_route(M: int, N: int, K: int, x_dtype) -> bool:
             and K % 32 == 0 and N % 16 == 0)
 
 
-W4_TILE_MIN_M = MAX_DECODE_ROWS + 1   # the tile's rows from here up
-W4_TILE_BM, W4_TILE_BN = 128, 256     # the tile's map rows and columns
-# the output tiles from which the tile beats the block tile: on the H100
-# it loses at 16 (M <= 128 at N = 4096: 1.10-1.47x slower) and wins from
-# 24 (chip_smoke.tile_sweep, PERF.md)
-W4_TILE_MIN_TILES = 24
+TILE_MIN_M = MAX_DECODE_ROWS + 1      # the tile's rows from here up
+TILE_BM, TILE_BN = 128, 256           # the tile's map rows and columns
+# the output tiles from which the tile beats the block tiles (which split
+# K; the tile never does), measured on the H100 for each format
+# (chip_smoke.tile_sweep for KW4, chip_smoke.prefill_sweep for KW8 and
+# K2; PERF.md): each loses at 16 tiles (M <= 128 at N = 4096) and wins
+# from 24 (N = 6144), at K = 4096 and 14336 alike
+TILE_MIN_TILES = 24
 
 
-def w4_tiles(M: int, N: int, x_dtype) -> int:
-    """The output tiles of KW4's TMA + ``wgmma`` tile: 128 rows of its x
-    map (an f32 x maps 2 rows a row: bf16 high part and residual) by 256
-    columns. Its persistent grid runs one tile a block, one block an SM,
-    and never splits K."""
+def tile_count(M: int, N: int, x_dtype) -> int:
+    """The output tiles of the TMA + ``wgmma`` tile (KW4, KW8, K2): 128
+    rows of its x map (an f32 x maps 2 rows a row: bf16 high part and
+    residual) by 256 columns. Its persistent grid runs one tile a block,
+    one block an SM, and never splits K."""
     rows = 2 * M if x_dtype == torch.float32 else M
-    return -(-rows // W4_TILE_BM) * -(-N // W4_TILE_BN)
+    return -(-rows // TILE_BM) * -(-N // TILE_BN)
 
 
 def w4_tile_route(M: int, N: int, K: int, x_dtype) -> bool:
-    """Whether KW4 takes its TMA + ``wgmma`` tile: M from
-    ``W4_TILE_MIN_M`` up, at least ``W4_TILE_MIN_TILES`` output tiles
-    (:func:`w4_tiles`; below, most SMs idle while each block walks all of
-    K, and the block tile, which splits K, is faster), and operands
-    the tensor maps take: N % 16 and, for a bf16 x, x's high half 16-byte
-    aligned (K % 16: a TMA box that starts off 16 bytes hangs the load);
-    an f32 x is rewritten as aligned bf16 pairs first, and needs K % 4
-    (16-byte rows to read)."""
-    return (x_dtype in _GEMM_DTYPES and M >= W4_TILE_MIN_M and N % 16 == 0
+    """Whether KW4 takes its TMA + ``wgmma`` tile: M from ``TILE_MIN_M``
+    up, at least ``TILE_MIN_TILES`` output tiles (:func:`tile_count`;
+    below, most SMs idle while each block walks all of K, and the block
+    tile, which splits K, is faster), and operands the tensor maps take:
+    N % 16 and, for a bf16 x, x's high half 16-byte aligned (K % 16: a TMA
+    box that starts off 16 bytes hangs the load); an f32 x is rewritten
+    as aligned bf16 pairs first, and needs K % 4 (16-byte rows to
+    read)."""
+    return (x_dtype in _GEMM_DTYPES and M >= TILE_MIN_M and N % 16 == 0
             and K % (16 if x_dtype == torch.bfloat16 else 4) == 0
-            and w4_tiles(M, N, x_dtype) >= W4_TILE_MIN_TILES)
+            and tile_count(M, N, x_dtype) >= TILE_MIN_TILES)
+
+
+def w8_tile_route(M: int, N: int, K: int, x_dtype) -> bool:
+    """Whether KW8 takes its TMA + ``wgmma`` tile: as
+    :func:`w4_tile_route`, but int8 weights' x boxes follow k
+    contiguously, so a bf16 x needs only 16-byte rows (K % 8); an f32 x
+    K % 4."""
+    return (x_dtype in _GEMM_DTYPES and M >= TILE_MIN_M and N % 16 == 0
+            and K % (8 if x_dtype == torch.bfloat16 else 4) == 0
+            and tile_count(M, N, x_dtype) >= TILE_MIN_TILES)
 
 
 def w4_pair_ld(K: int) -> int:
-    """bf16 values a row of the tile's pair matrix for an f32 x (the bf16
-    high parts and residuals of x's rows): x's low half, then its high
-    half from the next multiple of 8, rows a multiple of 8 (16 bytes)."""
+    """bf16 values a row of KW4's pair matrix for an f32 x (the bf16 high
+    parts and residuals of x's rows): x's low half, then its high half
+    from the next multiple of 8, rows a multiple of 8 (16 bytes)."""
     hi0 = -(-(K // 2) // 8) * 8
     return -(-(hi0 + K // 2) // 8) * 8
 
@@ -547,16 +600,24 @@ def _launch_wo_decode(name, fn, x, w, w_scale, out, rows):
     return out
 
 
-def _launch_w4_tile(x, w, w_scale, out):
-    """KW4's TMA + ``wgmma`` tile on contiguous, aligned CUDA operands; an
-    f32 x gets its pair matrix in a workspace."""
+def w8_pair_ld(K: int) -> int:
+    """bf16 values a row of KW8's pair matrix for an f32 x: x's K columns,
+    rows a multiple of 8 (16 bytes)."""
+    return -(-K // 8) * 8
+
+
+def _launch_wo_tile(fn, x, w, w_scale, out):
+    """KW4's or KW8's (``fn``) TMA + ``wgmma`` tile on contiguous, aligned
+    CUDA operands; an f32 x gets its pair matrix in a workspace."""
     M, K = x.shape
     N = w.shape[1]
     f32 = x.dtype == torch.float32
-    ws = (torch.empty((2 * M, w4_pair_ld(K)), dtype=torch.bfloat16,
-                      device=x.device) if f32 else out)
-    _count(matmul_w4, "tile", x, out)
-    _build.launch("aimet_w4_tile_gemm", x.data_ptr(), w.data_ptr(),
+    w4 = fn is matmul_w4
+    ws = (torch.empty((2 * M, (w4_pair_ld if w4 else w8_pair_ld)(K)),
+                      dtype=torch.bfloat16, device=x.device) if f32 else out)
+    _count(fn, "tile", x, out)
+    _build.launch("aimet_w4_tile_gemm" if w4 else "aimet_w8_tile_gemm",
+                  x.data_ptr(), w.data_ptr(),
                   w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
                   int(f32), int(out.dtype == torch.bfloat16),
                   ws.numel() * ws.element_size() if f32 else 0,

@@ -9,6 +9,7 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
     python3 chip_smoke.py --decode-slice     # K2 / K3 and the per-slot step
     python3 chip_smoke.py --layer-variants   # the whole-layer kernel's variants
     python3 chip_smoke.py --w4-slice         # KW4, the w4 prefill and step
+    python3 chip_smoke.py --prefill-slice    # KW8 and K2 at prefill M
 
 1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
    ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
@@ -32,7 +33,9 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    (decode M 1, 16, 32, 64 at 4096 x 28672, the padded ``lm_head`` and
    layer 0's QKV; M = 4096 at the four layer projections and the
    ``lm_head``; f32 x at the lowered ``lm_head``), each within KW4's share
-   of its plain version and repeating its bits before it is timed; K3 at
+   of its plain version and repeating its bits before it is timed; KW8 and
+   K2 at M = 4096 on their TMA + ``wgmma`` tiles (KW8's f32 ``lm_head``
+   beside ``torch._weight_int8pack_mm`` on the same f32 x); K3 at
    B = 16, 32 and 1 with S = 1024 and at S = 16,384 (with a sweep of its
    chunk); it holds the im2col convs ``conv2d_w8`` (KW8) and ``conv2d_w4``
    (KW4) at ResNet-50 conv shapes within KW8's and KW4's share; it probes
@@ -105,7 +108,13 @@ before K2's decode route and K3's split also has: copied into such a tree,
 it measures that tree with the same code. ``--w4-slice`` does the same for
 KW4 (``w4_slice``): its rows, K1's decode rows, KW4 at the lowered
 forward's linears, the w4 prefill of 8 x 512, the w4 per-slot step and
-the w4 continuous batcher.
+the w4 continuous batcher; ``--prefill-slice`` for KW8 and K2 at
+prefill M (``prefill_slice``): their rows at the serving prefill's
+shapes, KW8's f32 lm_head, both at the lowered forward's linears, the
+tiles' crossings with the block tiles (``prefill_sweep``, and KW4's
+``tile_sweep``) and what the weight unpack and the register split cost
+them (``tile_variants``), the w8 and w4a8 prefill of 8 x 512 and the
+w4a8 batcher.
 """
 from __future__ import annotations
 
@@ -188,7 +197,7 @@ CNN_MODES = {
 K2_DECODE_SHAPES = ((16, 4096, 28672), (1, 4096, 28672), (32, 4096, 28672),
                     (64, 4096, 28672), (16, 4096, 131072))
 K2_KERNELS = ["w4a8_gemm_kernel", "w4a8_epilogue_kernel",
-              "w4a8_decode_kernel"]
+              "w4a8_decode_kernel", "w4a8_tile_kernel"]
 # K3: (label, B, S, positions) — the per-slot step's shape (PERF.md row
 # 14), batch 32, one row, and the long cache (positions 15,985..16,000:
 # S - 384 - b)
@@ -222,6 +231,12 @@ KW4_LOWERED_SHAPES = ((4096, 4096, 64, "bf16"), (4096, 1024, 64, "bf16"),
                       (4096, 128256, 1, "f32"))
 KW4_KERNELS = ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode",
                "w4_tile", "split_pairs"]
+KW8_KERNELS = ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode",
+               "w8_tile", "split_pairs"]
+# KW8 and K2 at the serving prefill (8 x 512 tokens, M = 4096): (K, N) of
+# the four layer projections (QKV, O, gate|up, down) and the padded lm_head
+PREFILL_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+              (4096, 131072))
 # K1 at decode M (the per-op w4a8 decode step's rows): (M, K)
 K1_DECODE_SHAPES = ((16, 4096), (64, 4096))
 # the rows at the shapes that carry most of a route's launches on the main
@@ -943,8 +958,7 @@ def check_kernels(torch, ops):
         gemm_row(f"w8_gemm[{tag}]", "w8_gemm", m, k, n,
                  lambda i: tim.matmul_w8(x, ws[i % 3], sw),
                  lambda i: tim.matmul_w8_torch(x, ws[i % 3], sw),
-                 ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode"],
-                 m * k * 2 + ws[0].numel(), BF16_FLOPS)
+                 KW8_KERNELS, m * k * 2 + ws[0].numel(), BF16_FLOPS)
         del ws, xq, x
     # KW8's decode route (the w8 serving decode) at every M tile
     k, n = 4096, 28672
@@ -1384,18 +1398,18 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                  m * k * 2 + k // 2 * n, BF16_FLOPS,
                  vec_bytes=(k // 128) * n * 4)
         del x, ws
-    for name, (w4, fn, plain) in wo.items():
-        m, k, n = 4096, 4096, 128256
-        x = torch.randn((m, k), generator=g, device=dev)
-        w = codes(k // 2 if w4 else k, n)
-        sw = torch.rand((n,), generator=g, device=dev) * 1e-3
-        # f32 x is two bf16 operands: twice the bf16 tensor-core work
-        gemm_row(f"{name}[f32 lm_head]", name, m, k, n,
-                 lambda i: fn(x, w, sw), lambda i: plain(x, w, sw),
-                 KW4_KERNELS if w4 else ["wo_gemm_kernel", "wo_reduce_kernel"],
-                 m * k * 4 + w.numel(), BF16_FLOPS / 2, out_bytes=m * n * 4,
-                 iters=5)
-        del x, w
+    m, k, n = 4096, 4096, 128256
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = codes(k // 2, n)
+    sw = torch.rand((n,), generator=g, device=dev) * 1e-3
+    # f32 x is two bf16 operands: twice the bf16 tensor-core work
+    gemm_row("w4_gemm[f32 lm_head]", "w4_gemm", m, k, n,
+             lambda i: tim.matmul_w4(x, w, sw),
+             lambda i: tim.matmul_w4_torch(x, w, sw), KW4_KERNELS,
+             m * k * 4 + w.numel(), BF16_FLOPS / 2, out_bytes=m * n * 4,
+             iters=5)
+    del x, w
+    w8_f32_lm_head(torch, tim, g, rows, gemm_row, note)
 
 
 def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
@@ -2749,45 +2763,66 @@ def cnn(torch, tim, counters, g):
 
 
 # Variants of the whole-layer kernel for ``--layer-variants``: name ->
-# (text, replacement) pairs applied to csrc/fused_layer.cu: the kAhead
-# weight stages of the next GEMM phase that the producer issues during
-# each epilogue, none or more than the build's 2.
+# (text, replacement, occurrences) applied to csrc/fused_layer.cu: the
+# kAhead weight stages of the next GEMM phase that the producer issues
+# during each epilogue, none or more than the build's 2.
 LAYER_VARIANTS = {
     "as built": (),
-    "kAhead 0": (("constexpr int kAhead = 2;", "constexpr int kAhead = 0;"),),
-    "kAhead 4": (("constexpr int kAhead = 2;", "constexpr int kAhead = 4;"),),
+    "kAhead 0": (("constexpr int kAhead = 2;", "constexpr int kAhead = 0;",
+                  1),),
+    "kAhead 4": (("constexpr int kAhead = 2;", "constexpr int kAhead = 4;",
+                  1),),
 }
 
 
-def variant_libraries(_build):
-    """Builds csrc/fused_layer.cu once for each LAYER_VARIANTS entry (one
-    nvcc each, all started together) under the git-ignored build root;
-    returns name -> ctypes library holding the whole-layer kernel's C
-    entries."""
-    import ctypes
+def variant_builds(_build, variants, patched, sources, tag):
+    """Builds ``sources`` (``csrc`` files) once for each entry of
+    ``variants`` (name -> (text, replacement, occurrences) pairs applied in
+    turn to ``patched``), one nvcc a source, all started together, each
+    variant then linked into one library under the git-ignored build root
+    (``tag``); returns name -> the library's path."""
     import shutil
-    src = (_build.CSRC / "fused_layer.cu").read_text()
+    text0 = (_build.CSRC / patched).read_text()
     nvcc = _build.find_nvcc()
     procs = {}
-    for i, (name, subs) in enumerate(LAYER_VARIANTS.items()):
-        text = src
-        for old, new in subs:
-            assert text.count(old) == 1, ("variant", name, old)
+    for i, (name, subs) in enumerate(variants.items()):
+        text = text0
+        for old, new, count in subs:
+            assert text.count(old) == count, ("variant", name, old)
             text = text.replace(old, new)
-        d = _build.BUILD_ROOT / "variants" / str(i)
+        d = _build.BUILD_ROOT / tag / str(i)
         d.mkdir(parents=True, exist_ok=True)
-        for h in _build.CSRC.glob("*.cuh"):
-            shutil.copy(h, d)
-        (d / "fused_layer.cu").write_text(text)
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [nvcc, *_build.CFLAGS, "-shared", str(d / "fused_layer.cu"),
-             "-o", str(d / "lib.so")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        for f in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / src
+                                                     for src in sources]:
+            shutil.copy(f, d)
+        (d / patched).write_text(text)
+        procs[name] = (d, [subprocess.Popen(
+            [nvcc, *_build.CFLAGS, "-c", str(d / src), "-o",
+             str(d / (src + ".o"))], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for src in sources])
+    paths = {}
+    for name, (d, ps) in procs.items():
+        for p in ps:
+            out, _ = p.communicate()
+            assert p.returncode == 0, ("variant build", name, out[-4000:])
+        link = subprocess.run(
+            [nvcc, *_build.ARCH, "-shared", "-o", str(d / "lib.so"),
+             *[str(d / (src + ".o")) for src in sources]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        assert link.returncode == 0, ("variant link", name, link.stdout)
+        paths[name] = str(d / "lib.so")
+    return paths
+
+
+def variant_libraries(_build):
+    """csrc/fused_layer.cu built for each LAYER_VARIANTS entry; returns
+    name -> ctypes library holding the whole-layer kernel's C entries."""
+    import ctypes
     libs = {}
-    for name, (path, p) in procs.items():
-        out, _ = p.communicate()
-        assert p.returncode == 0, ("variant build", name, out[-4000:])
-        lib = ctypes.CDLL(str(path))
+    for name, path in variant_builds(_build, LAYER_VARIANTS,
+                                     "fused_layer.cu", ("fused_layer.cu",),
+                                     "variants").items():
+        lib = ctypes.CDLL(path)
         for fn in ("aimet_fused_layer_smem", "aimet_fused_layer_grid",
                    "aimet_fused_layer"):
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
@@ -2892,6 +2927,44 @@ def layer_variants() -> int:
     return 0
 
 
+def profile_prefill(torch, llm, cfg, g, mode):
+    """A prefill of 8 x 512 tokens (after a warm-up one), 2 profiled:
+    host and device ms, busy share and device ms by kernel, logged."""
+    toks = torch.randint(0, cfg.vocab_size, (8, 512), generator=g,
+                         device="cuda")
+    llm.prefill(toks, llm.new_caches(8))              # warm-up
+    wall, busy, dev, by_name = profile_steps(
+        torch, lambda: llm.prefill(toks, llm.new_caches(8)), n=2)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[{mode}] prefill 8x512 profile: {wall:.2f} ms on the host clock, "
+        f"{dev:.3f} device ms, busy {busy:.3f}; device ms by kernel: "
+        + ", ".join(f"{k_} {v:.3f}" for k_, v in top))
+    return dict(host_ms=wall, device_ms=dev, busy=busy, kernels=by_name)
+
+
+def profile_batcher(torch, llm, cfg, mode, fn):
+    """The continuous batcher, the same 32 requests each run
+    (``run_batcher``): timed, with the launches of ``fn`` (a GEMM wrapper)
+    by route, then profiled; logged."""
+    before = dict(fn.routes, all=fn.launches)
+    tok_s, dt, steps, n_tok = run_batcher(
+        torch, llm, cfg, torch.Generator(device="cuda").manual_seed(3))
+    routes = {r: v - before[r]
+              for r, v in dict(fn.routes, all=fn.launches).items()}
+    wall, busy, dev, by_name = profile_steps(
+        torch, lambda: run_batcher(
+            torch, llm, cfg, torch.Generator(device="cuda").manual_seed(3)),
+        n=1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[{mode}] continuous batcher: {n_tok} tokens in {dt:.2f} s "
+        f"({tok_s:.1f} tok/s), {steps} engine steps, launches by route "
+        f"{routes}; profiled: {dev:.2f} device ms, busy {busy:.3f}; device "
+        "ms by kernel: " + ", ".join(f"{k_} {v:.2f}" for k_, v in top))
+    return dict(tok_s=tok_s, s=dt, steps=steps, tokens=n_tok, routes=routes,
+                profiled_s=wall / 1e3, device_ms=dev, busy=busy,
+                kernels=by_name)
+
+
 def decode_slice() -> int:
     """``python3 chip_smoke.py --decode-slice``: the two kernels of the
     batcher's per-slot decode step and the step itself, on whatever tree
@@ -2986,7 +3059,8 @@ def tile_sweep(torch, tim):
                 torch.bfloat16)
             want = tim.matmul_w4_torch(x, w, sw)
             o = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
-            calls = {"tile": lambda i: tim._launch_w4_tile(x, w, sw, o),
+            calls = {"tile": lambda i: tim._launch_wo_tile(
+                         tim.matmul_w4, x, w, sw, o),
                      "decode": lambda i: tim._launch_wo_decode(
                          "aimet_w4_decode_gemm", tim.matmul_w4, x, w, sw, o,
                          k // 2)}
@@ -3006,9 +3080,10 @@ def tile_sweep(torch, tim):
             x = torch.randn((m, k), generator=g, device="cuda").to(dt)
             want = tim.matmul_w4_torch(x, w, sw)
             o = torch.empty((m, n), dtype=dt, device="cuda")
-            row = {"tiles": tim.w4_tiles(m, n, dt)}
+            row = {"tiles": tim.tile_count(m, n, dt)}
             for tag, call in (
-                    ("tile", lambda i: tim._launch_w4_tile(x, w, sw, o)),
+                    ("tile", lambda i: tim._launch_wo_tile(
+                        tim.matmul_w4, x, w, sw, o)),
                     ("bf_tile", lambda i: tim._launch_bf_tile(
                         "aimet_w4_gemm", tim.matmul_w4, x, w, sw, o))):
                 call(0)
@@ -3031,10 +3106,11 @@ def w4_slice() -> int:
     measures that tree with the same code): KW4's rows (``kw4_rows``:
     decode M and prefill M, bf16 x, against the plain version first), its
     f32 lm_head row, K1 at decode M, KW4 alone at the lowered Llama-3-8B
-    forward's linears (``kw4_lowered``) and, where the tree has KW4's
-    tile, ``tile_sweep``; then Llama-3-8B (32 layers) in w4: a prefill of
-    8 x 512 (2 profiled), 4 profiled per-slot decode steps at batch 16 and
-    the continuous batcher (``run_batcher``, timed, then profiled). Prints
+    forward's linears (``kw4_lowered``) and, where the tree has the
+    shared tile's helpers, ``tile_sweep``; then Llama-3-8B (32 layers) in
+    w4: a prefill of 8 x 512 (2 profiled), 4 profiled per-slot decode
+    steps at batch 16 and the continuous batcher (``run_batcher``, timed,
+    then profiled). Prints
     one JSON line of the numbers."""
     import torch
     if not torch.cuda.is_available():
@@ -3081,7 +3157,7 @@ def w4_slice() -> int:
     del x, w
     k1_decode_rows(torch, tim, g, rows, note)
     lowered = kw4_lowered(torch, tim, g)
-    sweep = tile_sweep(torch, tim) if hasattr(tim, "w4_tile_route") else None
+    sweep = tile_sweep(torch, tim) if hasattr(tim, "tile_count") else None
     for name, r in rows.items():
         log(f"  {name:28s} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
@@ -3091,17 +3167,7 @@ def w4_slice() -> int:
     g = torch.Generator(device="cuda").manual_seed(2)
     qw = qllm.random_quantized_weights(cfg, mode="w4", seed=0)
     llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode="w4", max_len=1024)
-    toks = torch.randint(0, cfg.vocab_size, (8, 512), generator=g,
-                         device="cuda")
-    llm.prefill(toks, llm.new_caches(8))              # warm-up
-    wall, busy, dev, by_name = profile_steps(
-        torch, lambda: llm.prefill(toks, llm.new_caches(8)), n=2)
-    metrics = {"prefill_8x512": dict(host_ms=wall, device_ms=dev, busy=busy,
-                                     kernels=by_name)}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[w4] prefill 8x512 profile: {wall:.2f} ms on the host clock, "
-        f"{dev:.3f} device ms, busy {busy:.3f}; device ms by kernel: "
-        + ", ".join(f"{k_} {v:.3f}" for k_, v in top))
+    metrics = {"prefill_8x512": profile_prefill(torch, llm, cfg, g, "w4")}
     toks = torch.randint(0, cfg.vocab_size, (16, 512), generator=g,
                          device="cuda")
     logits, caches = llm.prefill(toks, llm.new_caches(16))
@@ -3111,30 +3177,366 @@ def w4_slice() -> int:
                       torch.arange(16, device="cuda", dtype=torch.int32)
                       + 512, metrics, 16)
     del caches
-    # the continuous batcher, the same 32 requests each run: timed, then
-    # profiled; KW4's launches by route in the timed run
-    fn = tim.matmul_w4
-    before = dict(getattr(fn, "routes", {}), all=fn.launches)
-    tok_s, dt, steps, n_tok = run_batcher(
-        torch, llm, cfg, torch.Generator(device="cuda").manual_seed(3))
-    routes = {r: v - before[r] for r, v in
-              dict(getattr(fn, "routes", {}), all=fn.launches).items()}
-    wall, busy, dev, by_name = profile_steps(
-        torch, lambda: run_batcher(
-            torch, llm, cfg, torch.Generator(device="cuda").manual_seed(3)),
-        n=1)
-    metrics["cb"] = dict(tok_s=tok_s, s=dt, steps=steps, tokens=n_tok,
-                         kw4_routes=routes, profiled_s=wall / 1e3,
-                         device_ms=dev, busy=busy, kernels=by_name)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[w4] continuous batcher: {n_tok} tokens in {dt:.2f} s ({tok_s:.1f}"
-        f" tok/s), {steps} engine steps, KW4 launches by route {routes}; "
-        f"profiled: {dev:.2f} device ms, busy {busy:.3f}; device ms by "
-        "kernel: " + ", ".join(f"{k_} {v:.2f}" for k_, v in top))
+    metrics["cb"] = profile_batcher(torch, llm, cfg, "w4", tim.matmul_w4)
     log(json.dumps({"w4_slice": {"root": ROOT, "card": smi, "rows": rows,
                                  "errs": errs, "kw4_lowered": lowered,
                                  "tile_sweep": sweep,
                                  "e2e": metrics}}))
+    return 0
+
+
+def prefill_label(kernel, k, n):
+    return (f"{kernel}[prefill]" if n == 28672 else
+            f"{kernel}[prefill lm_head]" if n == 131072 else
+            f"{kernel}[prefill {k}x{n}]")
+
+
+def prefill_rows(torch, tim, g, rows, gemm_row, note):
+    """KW8 and K2 at the serving prefill's shapes (M = 4096, PREFILL_KN;
+    KW8 on a bf16 x, K2 on its per-row int8 codes): each held against its
+    plain version (KW8 within TOL_WO, K2 bit-exact; both repeating their
+    bits) before it is timed with 3 weight copies rotated."""
+    m = 4096
+    for k, n in PREFILL_KN:
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 0.02 \
+            / k ** 0.5
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        ws = [torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=g,
+                            device="cuda") for _ in range(3)]
+        got = tim.matmul_w8(x, ws[0], sw)
+        want = tim.matmul_w8_torch(x, ws[0], sw)
+        note("w8_gemm", got, want)
+        err = rel_err(got, want)
+        assert err < TOL_WO, ("KW8 prefill", k, n, err)
+        assert torch.equal(tim.matmul_w8(x, ws[0], sw), got), \
+            ("KW8 prefill", k, n, "repeat")
+        del got, want
+        gemm_row(prefill_label("w8_gemm", k, n), "w8_gemm", m, k, n,
+                 lambda i: tim.matmul_w8(x, ws[i % 3], sw),
+                 lambda i: tim.matmul_w8_torch(x, ws[i % 3], sw),
+                 KW8_KERNELS, m * k * 2 + k * n, BF16_FLOPS, iters=5)
+        del ws
+        xq, sx = tim.quantize_activation_per_row(x)
+        ws = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        got = tim.w4a8_gemm(xq, sx, ws[0], sw, torch.bfloat16)
+        want = tim.w4a8_gemm_torch(xq, sx, ws[0], sw, torch.bfloat16)
+        note("w4a8_gemm", got, want)
+        assert torch.equal(got, want), ("K2 prefill", k, n)
+        assert torch.equal(tim.w4a8_gemm(xq, sx, ws[0], sw, torch.bfloat16),
+                           got), ("K2 prefill", k, n, "repeat")
+        del got, want
+        gemm_row(prefill_label("w4a8_gemm", k, n), "w4a8_gemm", m, k, n,
+                 lambda i: tim.w4a8_gemm(xq, sx, ws[i % 3], sw,
+                                         torch.bfloat16),
+                 lambda i: tim.w4a8_gemm_torch(xq, sx, ws[i % 3], sw,
+                                               torch.bfloat16),
+                 K2_KERNELS, m * k + m * 4 + k // 2 * n, INT8_OPS, iters=5)
+        log(f"KW8 and K2 at M={m}, K={k}, N={n}: KW8 within {err:.2e} of max "
+            f"(< {TOL_WO}), K2 bit-exact, repeated calls the same bits")
+        del ws, x, xq
+
+
+def w8_f32_lm_head(torch, tim, g, rows, gemm_row, note, library=True):
+    """KW8 on the lowered model's f32 lm_head (M = 4096, K = 4096, N =
+    128256, f32 out) within TOL_WO_F32 of its plain version, then timed;
+    with ``library``, torch._weight_int8pack_mm on the same f32 x (the
+    row's library column where it takes one; else its error is the row's
+    library note)."""
+    m, k, n = 4096, 4096, 128256
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=g,
+                      device="cuda")
+    sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+    got, want = tim.matmul_w8(x, w, sw), tim.matmul_w8_torch(x, w, sw)
+    note("w8_gemm", got, want)
+    err = rel_err(got, want)
+    assert got.dtype == torch.float32 and err < TOL_WO_F32, ("KW8 f32", err)
+    log(f"w8_gemm[f32 lm_head]: within {err:.2e} of max (< {TOL_WO_F32})")
+    del want
+    # f32 x is two bf16 operands: twice the bf16 tensor-core work
+    gemm_row("w8_gemm[f32 lm_head]", "w8_gemm", m, k, n,
+             lambda i: tim.matmul_w8(x, w, sw),
+             lambda i: tim.matmul_w8_torch(x, w, sw), KW8_KERNELS,
+             m * k * 4 + w.numel(), BF16_FLOPS / 2, out_bytes=m * n * 4,
+             iters=5)
+    if library:
+        row = rows["w8_gemm[f32 lm_head]"]
+        try:
+            wt = w.t().contiguous()
+            lib = torch._weight_int8pack_mm(x, wt, sw)
+            row["library_err"] = rel_err(lib, got)
+            del lib
+            row["library_ms"], _ = event_ms(
+                lambda i: torch._weight_int8pack_mm(x, wt, sw), 2)
+            del wt
+        except Exception as e:          # recorded: the row's library note
+            row["library_note"] = f"torch._weight_int8pack_mm: {e}"[:200]
+        log("  library for w8_gemm[f32 lm_head]: "
+            + (f"{row['library_ms']:.3f} ms (within {row['library_err']:.2e}"
+               " of the kernel's max)" if "library_ms" in row
+               else row.get("library_note", "")))
+    del x, w, got
+
+
+def prefill_lowered(torch, tim, g):
+    """KW8 and K2 alone at the lowered Llama-3-8B forward's linears
+    (KW4_LOWERED_SHAPES, M = 4096, f32 out, as lower_to_int calls them in
+    w8 and w4a8; K2 on the int8 codes of x): device ms of each and their
+    sum over one forward's 225 launches. Returns a dict."""
+    m, out = 4096, {}
+    for kernel in ("w8_gemm", "w4a8_gemm"):
+        total, res = 0.0, {}
+        for k, n, count, xt in KW4_LOWERED_SHAPES:
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16 if xt == "bf16" else torch.float32)
+            sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+            if kernel == "w8_gemm":
+                w = torch.randint(-128, 128, (k, n), dtype=torch.int8,
+                                  generator=g, device="cuda")
+                call = lambda i: tim.matmul_w8(x, w, sw, torch.float32)
+                match = KW8_KERNELS
+            else:
+                w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                                  generator=g, device="cuda")
+                xq, sx = tim.quantize_activation_per_row(x)
+                call = lambda i: tim.w4a8_gemm(xq, sx, w, sw, torch.float32)
+                match = K2_KERNELS
+            ms, _ = timed(call, 5, match)
+            res[f"{k}x{n} {xt}"] = dict(ms=ms, launches=count)
+            total += ms * count
+            del x, w
+        res["forward_ms"] = total
+        out[kernel] = res
+        log(f"{kernel} at the lowered forward's linears (M=4096, f32 out): "
+            + ", ".join(f"{s_} {r['ms']:.3f} ms x {r['launches']}"
+                        for s_, r in res.items() if s_ != "forward_ms")
+            + f"; {total:.2f} ms a forward")
+    return out
+
+
+# prefill_sweep's crossing of KW8's and K2's tiles with their block
+# tiles: x rows, and (K, N) at the layer projections (QKV, O, gate|up,
+# down); the output tiles these give: 16 to 192 at N = 4096 and 6144
+PREFILL_SWEEP_M = (65, 128, 192, 256, 384, 512, 1024)
+PREFILL_SWEEP_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096))
+
+
+def prefill_sweep(torch, tim):
+    """The evidence for where KW8's and K2's tiles take over from their
+    block tiles (``bf_tile`` / ``s8_tile``, split K): device ms of each
+    route called directly on the same operands (the median of 20 calls
+    between CUDA events) at PREFILL_SWEEP_M x PREFILL_SWEEP_KN, KW8 on a
+    bf16 x (and an f32 x at 4096 x 4096), beside the tile's output tiles;
+    each output checked against the plain version first (K2 bit for bit).
+    Returns {"w8_gemm": {...}, "w4a8_gemm": {...}}."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {"w8_gemm": {}, "w4a8_gemm": {}}
+    for k, n, xt in [(k, n, "bf16") for k, n in PREFILL_SWEEP_KN] + [
+            (4096, 4096, "f32")]:
+        dt = torch.bfloat16 if xt == "bf16" else torch.float32
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 1e-3
+        w8 = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=g,
+                           device="cuda")
+        w4 = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                           generator=g, device="cuda")
+        for m in PREFILL_SWEEP_M:
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            o = torch.empty((m, n), dtype=dt, device="cuda")
+            want = tim.matmul_w8_torch(x, w8, sw)
+            row = {"tiles": tim.tile_count(m, n, dt)}
+            for tag, call in (
+                    ("tile", lambda i: tim._launch_wo_tile(
+                        tim.matmul_w8, x, w8, sw, o)),
+                    ("bf_tile", lambda i: tim._launch_bf_tile(
+                        "aimet_w8_gemm", tim.matmul_w8, x, w8, sw, o))):
+                call(0)
+                assert rel_err(o, want) < TOL_WO, ("KW8 sweep", m, k, n, tag)
+                row[tag], _ = event_ms(call, 20)
+            out["w8_gemm"][f"M={m} K={k} N={n} {xt}"] = row
+            if xt == "bf16":
+                xq, sx = tim.quantize_activation_per_row(x)
+                o = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+                want = tim.w4a8_gemm_torch(xq, sx, w4, sw, torch.bfloat16)
+                row = {"tiles": tim.tile_count(m, n, torch.int8)}
+                for tag, call in (
+                        ("tile", lambda i: tim._launch_w4a8_tile(
+                            xq, sx, w4, sw, o)),
+                        ("s8_tile", lambda i: tim._launch_s8_tile(
+                            xq, sx, w4, sw, o))):
+                    call(0)
+                    assert torch.equal(o, want), ("K2 sweep", m, k, n, tag)
+                    row[tag], _ = event_ms(call, 20)
+                out["w4a8_gemm"][f"M={m} K={k} N={n}"] = row
+            del x, want, o
+        del w8, w4
+    for kernel, block in (("w8_gemm", "bf_tile"), ("w4a8_gemm", "s8_tile")):
+        log(f"  {kernel} tile against {block}, ms (output tiles): "
+            + ", ".join(f"{k_}: {r['tile']:.4f} / {r[block]:.4f} "
+                        f"({r['tiles']})" for k_, r in out[kernel].items()))
+    return out
+
+
+# Variants of the prefill tile for --prefill-slice: name -> (text,
+# replacement, occurrences) applied in turn to csrc/wgmma_wo_tile.cuh.
+# "constant A": every weight word a constant, so the A fragments are fixed
+# at compile time and no shared load or unpack runs: the MMAs and the TMA
+# ring alone (the outputs are wrong there, and only timed); "168
+# registers": the 384-thread block without setmaxnreg; "one-warp
+# producer": 288 threads, 168 registers a thread, as the tile was built
+# before its producer became a warpgroup.
+_NREG = ("constexpr bool kSetMaxNReg = true;",
+         "constexpr bool kSetMaxNReg = false;", 1)
+TILE_VARIANTS = {
+    "as built": (),
+    "constant A": (("wv[i] = word(r);", "wv[i] = 0x11111111u * (i + 1);",
+                    2),),
+    "168 registers": (_NREG,),
+    "one-warp producer": (_NREG, ("constexpr int kProducerWarps = 4;",
+                                  "constexpr int kProducerWarps = 1;", 1)),
+}
+
+
+def tile_variant_child(path):
+    """In a process of its own (several kernel libraries in one process
+    refused launches): KW4, KW8 (bf16 x) and K2 at M = 4096, 4096 x 28672
+    through the tiles of the library at ``path`` (the median of 10 calls
+    between CUDA events each); prints one JSON line {case: ms}."""
+    import ctypes
+    import torch
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.ops import int_matmul as tim
+    lib = ctypes.CDLL(path)
+    for fn in ("aimet_w4_tile_gemm", "aimet_w8_tile_gemm",
+               "aimet_w4a8_tile_gemm"):
+        getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    _build.library = lambda: lib
+    g = torch.Generator(device="cuda").manual_seed(13)
+    m, k, n = 4096, 4096, 28672
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    xq, sx = tim._quantize_activation_plain(x)
+    sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+    w8 = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=g,
+                       device="cuda")
+    w4 = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                       generator=g, device="cuda")
+    o = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    cases = {"KW4": lambda i: tim._launch_wo_tile(tim.matmul_w4, x, w4, sw,
+                                                  o),
+             "KW8": lambda i: tim._launch_wo_tile(tim.matmul_w8, x, w8, sw,
+                                                  o),
+             "K2": lambda i: tim._launch_w4a8_tile(xq, sx, w4, sw, o)}
+    res = {}
+    for case, call in cases.items():
+        call(0)
+        torch.cuda.synchronize()
+        res[case], _ = event_ms(call, 10)
+    print(json.dumps(res))
+
+
+def tile_variants():
+    """What the weight unpack and the register split cost the prefill
+    tile: KW4, KW8 and K2 at M = 4096, 4096 x 28672 (bf16 out) built as
+    they are and as each TILE_VARIANTS entry, each library timed in a
+    process of its own (``tile_variant_child``), two rounds, the second
+    in reverse order. Returns {case: {variant: [ms, ms]}}."""
+    from aimet_tpu_torch import _build
+    t = time.time()
+    paths = variant_builds(_build, TILE_VARIANTS, "wgmma_wo_tile.cuh",
+                           ("wo_gemm.cu", "w4a8_gemm.cu"), "tile_variants")
+    log(f"  {len(paths)} tile variants built in {time.time() - t:.1f} s")
+    res = {}
+    for order in (list(paths), list(paths)[::-1]):
+        for name in order:
+            out = subprocess.run(
+                [sys.executable, "-c", "import chip_smoke; "
+                 f"chip_smoke.tile_variant_child({paths[name]!r})"],
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            assert out.returncode == 0, ("variant", name, out.stderr[-2000:])
+            for case, ms in json.loads(
+                    out.stdout.strip().splitlines()[-1]).items():
+                res.setdefault(case, {}).setdefault(name, []).append(ms)
+    log("  tile variants at M=4096, K=4096, N=28672, ms (two rounds): "
+        + "; ".join(f"{c} " + ", ".join(f"{v} {a[0]:.4f} / {a[1]:.4f}"
+                                        for v, a in r.items())
+                    for c, r in res.items()))
+    return res
+
+
+def prefill_slice() -> int:
+    """``python3 chip_smoke.py --prefill-slice``: KW8 and K2 at prefill M
+    and the paths they carry, on whatever tree holds this script (copied
+    into a parent tree, it measures that tree with the same code): their
+    rows at the serving prefill's shapes (``prefill_rows``, against the
+    plain versions first), KW8's f32 lm_head, both alone at the lowered
+    Llama-3-8B forward's linears (``prefill_lowered``) and, where the tree
+    has their tiles, ``prefill_sweep`` and ``tile_variants`` (with the
+    library probe of the f32 lm_head); then Llama-3-8B (32 layers) in w8
+    and w4a8: a prefill of 8 x 512 (2 profiled), and in w4a8 the
+    continuous batcher (timed, then profiled). Prints one JSON line of
+    the numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.ops import int_matmul as tim
+    from aimet_tpu_torch.serving import quantized_llm as qllm
+    KERNEL_FNS.update({"w8_gemm": tim.matmul_w8, "w4a8_gemm": tim.w4a8_gemm})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"prefill slice of {ROOT}: torch {torch.__version__}; {smi}")
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    new_tree = hasattr(tim, "w8_tile_route")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows, errs = {}, {"w8_gemm": 0.0, "w4a8_gemm": 0.0}
+
+    def note(name, a, b):
+        errs[name] = max(errs[name], (a.float() - b.float()).abs().max()
+                         .item())
+    gemm_row = gemm_timer(rows)
+    prefill_rows(torch, tim, g, rows, gemm_row, note)
+    w8_f32_lm_head(torch, tim, g, rows, gemm_row, note, library=new_tree)
+    lowered = prefill_lowered(torch, tim, g)
+    sweep = prefill_sweep(torch, tim) if new_tree else None
+    # KW4's crossing again: its tile's block changed with KW8's and K2's
+    kw4_sweep = tile_sweep(torch, tim) if new_tree else None
+    variants = tile_variants() if new_tree else None
+    for name, r in rows.items():
+        log(f"  {name:32s} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), library {r.get('library_ms')}, route "
+            f"{r.get('route')}")
+    cfg = TransformerConfig.llama3_8b()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    metrics = {}
+    for mode in ("w8", "w4a8"):
+        qw = qllm.random_quantized_weights(
+            cfg, mode="w8" if mode == "w8" else "w4", seed=0)
+        llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode=mode,
+                                               max_len=1024)
+        metrics[f"{mode}_prefill_8x512"] = profile_prefill(torch, llm, cfg,
+                                                           g, mode)
+        if mode == "w4a8":
+            metrics["w4a8_cb"] = profile_batcher(torch, llm, cfg, mode,
+                                                 tim.w4a8_gemm)
+        del llm, qw
+        torch.cuda.empty_cache()
+    log(json.dumps({"prefill_slice": {
+        "root": ROOT, "card": smi, "rows": rows, "errs": errs,
+        "lowered": lowered, "sweep": sweep, "kw4_tile_sweep": kw4_sweep,
+        "tile_variants": variants,
+        "e2e": metrics}}))
     return 0
 
 
@@ -3276,7 +3678,8 @@ def main() -> int:
     log(f"[cnn] phase took {time.time() - t:.1f} s")
     for name in SOURCES:
         assert launches[name] > 0, f"kernel {name} never launched"
-    for route in ("w4_gemm:decode", "w4_gemm:tile"):
+    for route in ("w4_gemm:decode", "w4_gemm:tile", "w8_gemm:tile",
+                  "w4a8_gemm:tile"):
         assert ROUTE_LAUNCHES.get(route, 0) > 0, f"{route} never launched"
 
     kernels = []
@@ -3334,4 +3737,5 @@ if __name__ == "__main__":
     sys.exit(layer_variants() if sys.argv[1:] == ["--layer-variants"]
              else decode_slice() if sys.argv[1:] == ["--decode-slice"]
              else w4_slice() if sys.argv[1:] == ["--w4-slice"]
+             else prefill_slice() if sys.argv[1:] == ["--prefill-slice"]
              else main())

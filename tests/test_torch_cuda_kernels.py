@@ -35,7 +35,11 @@ tile (M > 64) keeps it at M = 65, 128, 300, 4096 with ragged N and K/2
 f32 x (1e-4 with an f32 output; K/2 = 100, whose high half the f32 pairs
 realign) and ``conv2d_w4``, is exact on one tile of
 small integers, and both repeat their bits; both C entries refuse short
-buffers.
+buffers. KW8's TMA + wgmma tile (M > 64) keeps KW8's 1e-2 at ragged M, N
+and K (and 1e-4 with an f32 x and an f32 output), K2's is bit-exact at M =
+65, 200, 4096 with ragged N and K/2 and at every Llama-3-8B layer shape;
+both are exact on one tile of small integers, repeat their bits, and their
+C entries refuse operands their TMA boxes cannot map.
 """
 import pytest
 import torch
@@ -848,8 +852,9 @@ def _w4_tile_case(m, k, n, x, w, scale, out_dtype):
     before = dict(tim.matmul_w4.routes)
     assert _rel(tim.matmul_w4(x, w, scale, out_dtype), want) < 1e-2
     assert tim.matmul_w4.routes["bf_tile"] == before["bf_tile"] + 1
-    launch = lambda: tim._launch_w4_tile(
-        x, w, scale, torch.empty((m, n), dtype=out_dtype, device="cuda"))
+    launch = lambda: tim._launch_wo_tile(
+        tim.matmul_w4, x, w, scale,
+        torch.empty((m, n), dtype=out_dtype, device="cuda"))
     got = launch()
     assert tim.matmul_w4.routes["tile"] == before["tile"] + 1
     assert _rel(got, want) < 1e-2
@@ -895,7 +900,7 @@ def test_w4_tile_one_tile_exact(gen):
     w = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
     scale = torch.ones((n,), device="cuda")
     before = tim.matmul_w4.routes["tile"]
-    got = tim._launch_w4_tile(x, w, scale, torch.empty(
+    got = tim._launch_wo_tile(tim.matmul_w4, x, w, scale, torch.empty(
         (m, n), dtype=torch.float32, device="cuda"))
     assert tim.matmul_w4.routes["tile"] == before + 1
     assert torch.equal(got, tim.matmul_w4_torch(x, w, scale, torch.float32))
@@ -977,3 +982,186 @@ def test_w4_routes_refuse_short_buffers(gen):
                       stream)
     torch.cuda.synchronize()
     assert torch.equal(cnt, torch.zeros_like(cnt))
+
+
+def _w8_tile_case(m, k, n, x, w, scale, out_dtype):
+    """KW8's TMA + wgmma tile on the given operands: through matmul_w8
+    where its route takes the tile, else (too few output tiles: matmul_w8
+    takes the block tile, checked too) launched directly; within 1e-2 of
+    the plain version's max, the same bits on repeated calls. Returns the
+    tile's output."""
+    want = tim.matmul_w8_torch(x, w, scale, out_dtype)
+    before = dict(tim.matmul_w8.routes)
+    if tim.w8_tile_route(m, n, k, x.dtype):
+        launch = lambda: tim.matmul_w8(x, w, scale, out_dtype)
+    else:
+        assert _rel(tim.matmul_w8(x, w, scale, out_dtype), want) < 1e-2
+        assert tim.matmul_w8.routes["bf_tile"] == before["bf_tile"] + 1
+        launch = lambda: tim._launch_wo_tile(
+            tim.matmul_w8, x, w, scale,
+            torch.empty((m, n), dtype=out_dtype, device="cuda"))
+    t0 = tim.matmul_w8.routes["tile"]
+    got = launch()
+    assert tim.matmul_w8.routes["tile"] == t0 + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert _rel(got, want) < 1e-2
+    for _ in range(3):
+        assert torch.equal(launch(), got)
+    return got
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 4096, 4096),        # one row past decode M (16 tiles)
+    (200, 4104, 272),        # ragged M, N; K = 4104: no whole stage
+    (4096, 4096, 6144),      # prefill QKV
+    (65, 4096, 28672),       # one row past decode M, on the route
+    (300, 1032, 2832),       # ragged M, N, K on the route
+])
+def test_w8_tile_matches_plain(gen, m, k, n, out_dtype):
+    """KW8's TMA + wgmma tile on a bf16 x of non-zero mean."""
+    x = (torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    _w8_tile_case(m, k, n, x, w, scale, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 4096, 4096),
+    (300, 100, 272),         # K = 100: the pair rows pad to 104
+    (4096, 4096, 128256),    # the lowered f32 lm_head's width
+    (65, 4096, 8192),        # one row past decode M, on the route
+])
+def test_w8_tile_takes_f32_x(gen, m, k, n, out_dtype):
+    """An f32 x on KW8's tile: its bf16 pairs (high part, residual) keep
+    the product within ~2^-16, so with an f32 output within 1e-4 of the
+    max."""
+    x = torch.randn((m, k), generator=gen, device="cuda") + 0.5
+    w = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    scale = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    got = _w8_tile_case(m, k, n, x, w, scale, out_dtype)
+    if out_dtype == torch.float32:
+        assert _rel(got, tim.matmul_w8_torch(x, w, scale, out_dtype)) < 1e-4
+
+
+def test_w8_tile_one_tile_exact(gen):
+    """KW8's tile on one 128 x 256 tile of small integers (exact f32
+    sums): the plain version's bits, so a slip of the fragment layout,
+    the int8-to-bf16 unpack or the column permutation shows."""
+    m, k, n = 128, 192, 256
+    r = torch.arange(m, device="cuda")[:, None]
+    c = torch.arange(k, device="cuda")[None, :]
+    x = ((r * 7 + c * 3) % 11 - 5).to(torch.bfloat16)
+    w = ((torch.arange(k * n, device="cuda").reshape(k, n) * 37) % 256
+         - 128).to(torch.int8)
+    scale = torch.ones((n,), device="cuda")
+    got = tim._launch_wo_tile(tim.matmul_w8, x, w, scale, torch.empty(
+        (m, n), dtype=torch.float32, device="cuda"))
+    assert torch.equal(got, tim.matmul_w8_torch(x, w, scale, torch.float32))
+
+
+def _w4a8_operands(gen, m, k2, n):
+    x = torch.randn((m, 2 * k2), generator=gen, device="cuda") + 0.5
+    xq, sx = tim.quantize_activation_per_row(x)
+    wp = torch.randint(-128, 128, (k2, n), dtype=torch.int8, generator=gen,
+                       device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda") * 1e-2
+    return xq, sx, wp, sw
+
+
+def _w4a8_tile_case(xq, sx, wp, sw, out_dtype):
+    """K2's tile bit-exact against w4a8_gemm_torch, through w4a8_gemm where
+    its route takes the tile, else launched directly (w4a8_gemm's block
+    tile checked too); repeated calls the same bits."""
+    m, (k2, n) = xq.shape[0], wp.shape
+    want = tim.w4a8_gemm_torch(xq, sx, wp, sw, out_dtype)
+    if tim.w4a8_tile_route(m, n, k2):
+        launch = lambda: tim.w4a8_gemm(xq, sx, wp, sw, out_dtype)
+    else:
+        before = tim.w4a8_gemm.routes["s8_tile"]
+        assert torch.equal(tim.w4a8_gemm(xq, sx, wp, sw, out_dtype), want)
+        assert tim.w4a8_gemm.routes["s8_tile"] == before + 1
+        launch = lambda: tim._launch_w4a8_tile(
+            xq, sx, wp, sw,
+            torch.empty((m, n), dtype=out_dtype, device="cuda"))
+    t0 = tim.w4a8_gemm.routes["tile"]
+    got = launch()
+    assert tim.w4a8_gemm.routes["tile"] == t0 + 1
+    assert torch.equal(got, want)
+    for _ in range(3):
+        assert torch.equal(launch(), got)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [65, 200, 4096])
+def test_w4a8_tile_bit_exact_at_ragged_m(gen, m, out_dtype):
+    """K2's TMA + wgmma tile at ragged M, with N and K/2 that fill no
+    whole tile or stage (N = 2832: 11 tiles + 16 columns; K/2 = 1040: 8
+    stages + 16 packed rows, whose rows past K/2 unpack to 0)."""
+    _w4a8_tile_case(*_w4a8_operands(gen, m, 1040, 2832), out_dtype)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 6144), (4096, 4096), (4096, 28672),
+                                 (14336, 4096), (4096, 128256)],
+                         ids=["qkv", "o", "gate_up", "down", "lm_head"])
+def test_w4a8_tile_bit_exact_at_llama_shapes(gen, k, n):
+    """K2's tile at each Llama-3-8B layer shape and the lm_head, M = 512
+    (a prefill wave), bf16 out."""
+    _w4a8_tile_case(*_w4a8_operands(gen, 512, k // 2, n), torch.bfloat16)
+
+
+def test_w4a8_tile_one_tile_exact(gen):
+    """K2's tile on one 128 x 256 tile, unit scales: integer sums exact in
+    f32, so the plain version's bits, and a slip of the s8 fragment
+    layout, the nibble planes, the byte transpose or the column
+    permutation shows."""
+    m, k2, n = 128, 128, 256
+    r = torch.arange(m, device="cuda")[:, None]
+    c = torch.arange(2 * k2, device="cuda")[None, :]
+    xq = ((r * 7 + c * 3) % 255 - 127).to(torch.int8)
+    lo = (torch.arange(k2 * n, device="cuda").reshape(k2, n) % 16)
+    hi = (torch.arange(k2 * n, device="cuda").reshape(k2, n) // 16 + 5) % 16
+    wp = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+    ones_m = torch.ones((m,), device="cuda")
+    ones_n = torch.ones((n,), device="cuda")
+    got = tim._launch_w4a8_tile(xq, ones_m, wp, ones_n, torch.empty(
+        (m, n), dtype=torch.float32, device="cuda"))
+    want = tim.int8_matmul_int32_torch(xq, tim.unpack_int4(wp)).float()
+    assert torch.equal(got, want)
+
+
+def test_tile_routes_refuse_misaligned_operands(gen):
+    """The tiles' C entries refuse what their TMA boxes cannot map (K2:
+    K/2 % 16; KW8: a bf16 x's rows not 16 bytes; an f32 pair workspace
+    short of 2 M x pair_ld_w8(K)): launch errors, not hangs or writes past
+    the buffers."""
+    stream = _build.stream_ptr(torch.device("cuda"))
+    m, k2, n = 200, 1032, 512
+    xq = torch.zeros((m, 2 * k2), dtype=torch.int8, device="cuda")
+    sx = torch.ones((m,), device="cuda")
+    wp = torch.zeros((k2, n), dtype=torch.int8, device="cuda")
+    sw = torch.ones((n,), device="cuda")
+    out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_w4a8_tile_gemm", xq.data_ptr(), sx.data_ptr(),
+                      wp.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n, k2,
+                      0, stream)
+    k = 4100
+    x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros((k, n), dtype=torch.int8, device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_w8_tile_gemm", x.data_ptr(), w.data_ptr(),
+                      sw.data_ptr(), out.data_ptr(), out.data_ptr(), m, n, k,
+                      0, 0, 0, stream)
+    xf = torch.zeros((m, k), device="cuda")
+    pairs = torch.empty((2 * m, tim.w8_pair_ld(k)), dtype=torch.bfloat16,
+                        device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_w8_tile_gemm", xf.data_ptr(), w.data_ptr(),
+                      sw.data_ptr(), out.data_ptr(), pairs.data_ptr(), m, n,
+                      k, 1, 0, pairs.numel() * 2 - 2, stream)
+    torch.cuda.synchronize()

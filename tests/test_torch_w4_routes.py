@@ -70,8 +70,8 @@ def test_w4_routes_never_overlap_and_cover_decode_and_prefill():
                 d = tim.w4_decode_route(m, n, 4096, dtype)
                 t = tim.w4_tile_route(m, n, 4096, dtype)
                 assert not (d and t)
-                assert t == (m >= tim.W4_TILE_MIN_M and tim.w4_tiles(
-                    m, n, dtype) >= tim.W4_TILE_MIN_TILES)
+                assert t == (m >= tim.TILE_MIN_M and tim.tile_count(
+                    m, n, dtype) >= tim.TILE_MIN_TILES)
                 assert d == (dtype == torch.bfloat16 and m <= 64)
 
 
@@ -87,21 +87,21 @@ def test_w4_routes_never_overlap_and_cover_decode_and_prefill():
 def test_w4_tiles_counts_the_persistent_grids_work(m, n, dtype, want):
     """The tile's planner: 128 map rows (an f32 x's bf16 pairs: 2 a row)
     by 256 columns a tile."""
-    assert tim.w4_tiles(m, n, dtype) == want
+    assert tim.tile_count(m, n, dtype) == want
 
 
 def test_w4_tile_route_needs_its_tile_count():
     """Right at the route's tile count the tile takes over from the block
     tile, at every layer width (the count, not M, decides: the tile never
     splits K, so below it most SMs idle)."""
-    need = tim.W4_TILE_MIN_TILES
+    need = tim.TILE_MIN_TILES
     for n in (4096, 6144, 28672, 131072):
         for dtype in (torch.bfloat16, torch.float32):
-            m = tim.W4_TILE_MIN_M
-            while tim.w4_tiles(m, n, dtype) < need:
+            m = tim.TILE_MIN_M
+            while tim.tile_count(m, n, dtype) < need:
                 m += 1
             assert tim.w4_tile_route(m, n, 4096, dtype)
-            assert m == tim.W4_TILE_MIN_M or \
+            assert m == tim.TILE_MIN_M or \
                 not tim.w4_tile_route(m - 1, n, 4096, dtype)
 
 
@@ -144,9 +144,9 @@ def test_w4_decode_plan_shares_packed_bytes_evenly(m, n, k):
 
 def test_route_counts_start_at_zero_and_name_every_route():
     assert set(tim.matmul_w4.routes) == {"decode", "tile", "bf_tile"}
-    assert set(tim.matmul_w8.routes) == {"decode", "bf_tile"}
+    assert set(tim.matmul_w8.routes) == {"decode", "tile", "bf_tile"}
     assert set(tim.matmul_w4_grouped.routes) == {"decode", "bf_tile"}
-    assert set(tim.w4a8_gemm.routes) == {"decode", "s8_tile"}
+    assert set(tim.w4a8_gemm.routes) == {"decode", "tile", "s8_tile"}
     assert set(tim.matmul_q8.routes) == {"tile", "s8_tile"}
 
 
