@@ -73,6 +73,9 @@ SIGNATURES = {
     # x, w, sw, out, ws, M, N, K, x_is_f32, out_is_bf16, ws_bytes, stream
     "aimet_w4_tile_gemm": [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong, _VP],
     "aimet_w8_tile_gemm": [_VP] * 5 + [_I] * 5 + [ctypes.c_longlong, _VP],
+    # x, w, gs, out, ws, M, N, K, group, x_is_f32, out_is_bf16, ws_bytes,
+    # stream
+    "aimet_w4g_tile_gemm": [_VP] * 5 + [_I] * 6 + [ctypes.c_longlong, _VP],
     # x, w, gs, out, ws, M, N, K, group, splits, x_is_f32, out_is_bf16,
     # decode, stream
     "aimet_w4g_gemm": [_VP] * 5 + [_I] * 8 + [_VP],
@@ -80,6 +83,8 @@ SIGNATURES = {
     "aimet_staticq_quant": [_VP, _VP, _I, _I, _F, _F, _F, _I, _VP],
     # xq, w, sv, cb, out, ws, M, N, K, splits, out_is_bf16, stream
     "aimet_staticq_gemm": [_VP] * 6 + [_I] * 5 + [_VP],
+    # xq, w, sv, cb, out, M, N, K, out_is_bf16, stream
+    "aimet_staticq_tile_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
     # xq, sx, w, sw, cb, out, ws, M, N, K, splits, out_kind, stream
     "aimet_q8_gemm": [_VP] * 7 + [_I] * 5 + [_VP],
     # xq, lda, w (N, K), ldb, out, M, N, K, splits, stream

@@ -89,10 +89,16 @@ constexpr int kHeaderBytes = 1024;
 constexpr int kSmemBytes = 220 * 1024;
 constexpr int kRingBytes = kSmemBytes - kHeaderBytes - 1024;
 
-enum Kind { kW4Bf16 = 0, kW4Int8 = 1, kW8Bf16 = 2 };
+// The weight formats. The first three are this routine's (Fmt); the last
+// two only the prefill tile's (wgmma_wo_tile.cuh): int8 weights x the
+// int8 codes of x (KSQ), and split-half INT4 with one scale a (K-group,
+// column) under a bf16 x (KW4G).
+enum Kind { kW4Bf16 = 0, kW4Int8 = 1, kW8Bf16 = 2, kW8Int8 = 3,
+            kW4Grouped = 4 };
 
 template <int kKind>
 struct Fmt {
+  static_assert(kKind <= kW8Bf16, "not a kind of the decode routine");
   static constexpr bool kW4 = kKind != kW8Bf16;
   static constexpr bool kInt8 = kKind == kW4Int8;
   static constexpr int kPlanes = kW4 ? 2 : 1;      // x halves a stage

@@ -301,9 +301,9 @@ extern "C" int aimet_w4a8_tile_gemm(const void* xq, const void* sx,
   const float* swp = static_cast<const float*>(sw);
   return out_is_bf16
              ? wot::launch_tile<kKind, __nv_bfloat16, false>(
-                   mx, mw, sxp, swp, static_cast<__nv_bfloat16*>(out), M, N,
-                   K2, K2, M, s)
+                   mx, mw, sxp, swp, nullptr,
+                   static_cast<__nv_bfloat16*>(out), M, N, K2, K2, 0, M, s)
              : wot::launch_tile<kKind, float, false>(
-                   mx, mw, sxp, swp, static_cast<float*>(out), M, N, K2, K2,
-                   M, s);
+                   mx, mw, sxp, swp, nullptr, static_cast<float*>(out), M,
+                   N, K2, K2, 0, M, s);
 }

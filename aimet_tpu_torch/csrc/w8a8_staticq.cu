@@ -20,16 +20,25 @@
 // dense); at decode M the int8 weight bytes (K x N at 3.35 TB/s).
 // Design: the TPU kernel kept a whole K row of codes in VMEM and
 // quantized it once per M block; here a first kernel writes the codes
-// (M, K) int8 (one read of x, one byte written per element) and a second
-// runs the block tile aimet::s8_tile<false> (gemm_tiles.cuh) on
-// mma.sync.m16n8k32.s8 over any K, 128 k values a step. Where M x N tiles
-// cannot fill 132 SMs the K range is split across blocks and the exact
-// int32 partial sums are combined with integer atomics (order-free, so
-// the result stays bit-exact), then an epilogue kernel applies sv and cb.
-// A TMA + wgmma pipeline is later work.
+// (M, K) int8 (one read of x, one byte written per element), then one of
+// two GEMMs, picked by the wrapper from the shapes
+// (ops/int_matmul.py, w8a8_staticq_tile_route):
+// - prefill M (M > 64, K and N multiples of 16, at least the route's count
+//   of 128 x 256 output tiles): staticq_tile_kernel, the persistent TMA +
+//   wgmma tile of wgmma_wo_tile.cuh in its kW8Int8 format: the codes by
+//   TMA as wgmma's B operand, the int8 weights by TMA, byte-transposed in
+//   registers into wgmma's A operand (m64n128k32.s32.s8.s8), no split K,
+//   exact int32 sums, this epilogue's FMA;
+// - every other shape: the block tile aimet::s8_tile<false>
+//   (gemm_tiles.cuh) on mma.sync.m16n8k32.s8 over any K, 128 k values a
+//   step. Where M x N tiles cannot fill 132 SMs the K range is split
+//   across blocks and the exact int32 partial sums are combined with
+//   integer atomics (order-free, so the result stays bit-exact), then an
+//   epilogue kernel applies sv and cb.
 #include <algorithm>
 
 #include "gemm_tiles.cuh"
+#include "wgmma_wo_tile.cuh"
 
 namespace {
 
@@ -164,4 +173,36 @@ extern "C" int aimet_staticq_gemm(const void* xq, const void* w,
                 K, splits, s);
   return gemm(x, wp, svp, cbp, static_cast<float*>(out), wsp, M, N, K, splits,
               s);
+}
+
+// KSQ's GEMM at prefill M (wgmma_wo_tile.cuh, kW8Int8): xq (M, K) int8
+// codes, rows unit-stride, w (K, N) int8, K and N multiples of 16 (the
+// codes' TMA boxes 16-byte aligned); xq, w, sv and cb 16-byte aligned; out
+// (M, N) bf16 or f32, fma(f32(sum), sv[n], cb[n]).
+extern "C" int aimet_staticq_tile_gemm(const void* xq, const void* w,
+                                       const void* sv, const void* cb,
+                                       void* out, int M, int N, int K,
+                                       int out_is_bf16, void* stream) {
+  namespace wot = aimet::wot;
+  constexpr int kKind = aimet::dec::kW8Int8;
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (K % 16 || N % 16 || !aimet::aligned16(xq) || !aimet::aligned16(w) ||
+      !aimet::aligned16(sv) || !aimet::aligned16(cb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  if (!aimet::encode_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, N,
+                        wot::Stage<kKind>::kRows, 128) ||
+      !aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K, K,
+                        wot::kBM, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* svp = static_cast<const float*>(sv);
+  const float* cbp = static_cast<const float*>(cb);
+  return out_is_bf16
+             ? wot::launch_tile<kKind, __nv_bfloat16, false>(
+                   mx, mw, nullptr, svp, cbp,
+                   static_cast<__nv_bfloat16*>(out), M, N, K, K, 0, M, s)
+             : wot::launch_tile<kKind, float, false>(
+                   mx, mw, nullptr, svp, cbp, static_cast<float*>(out), M, N,
+                   K, K, 0, M, s);
 }

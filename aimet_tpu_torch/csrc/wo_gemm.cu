@@ -31,12 +31,14 @@
 //   KW8 and KW4 stream their weights through the decode routine
 //   (wo_decode_kernel below), KW4G through its own ring
 //   (w4g_decode_kernel);
-// - KW4 and KW8 at prefill M (M > 64, operands TMA can map, at least
-//   the route's count of 128 x 256 output tiles): the persistent TMA +
-//   wgmma tile of wgmma_wo_tile.cuh, the weights unpacked in registers as
-//   wgmma's A operand, no split K;
-// - the rest (KW4G at prefill M, KW4 and KW8 with fewer tiles, ragged
-//   shapes): the block tile
+// - KW4, KW8 and KW4G at prefill M (M > 64, operands TMA can map, at
+//   least the route's count of output tiles; KW4G a group that is a
+//   multiple of 64): the persistent TMA + wgmma tile of wgmma_wo_tile.cuh,
+//   the weights unpacked in registers as wgmma's A operand, no split K
+//   (KW4G: its own kind, kW4Grouped, 128 x 128 tiles, the group scales
+//   folded into the f32 sums a stage at a time);
+// - the rest (KW4, KW8 and KW4G with fewer tiles, KW4G's other groups,
+//   ragged shapes): the block tile
 //   aimet::bf_tile (gemm_tiles.cuh) on mma.sync.m16n8k16.bf16 with f32
 //   accumulators, a 64 x 128 output tile a block. Where M x N tiles cannot
 //   fill 132 SMs the weight rows are split across blocks (the wrapper's
@@ -646,18 +648,23 @@ inline bool pairs_map(CUtensorMap* mx, const float* x, void* ws,
 }
 
 // The tile's C entries: x (M, K) bf16 or f32, rows unit-stride; w (K/2, N)
-// split-half INT4 (kKind kW4Bf16) or (K, N) int8 (kW8Bf16), N % 16; x, w
-// and sw 16-byte aligned; a bf16 x's boxes 16-byte aligned (INT4: K % 16,
-// its high half; int8: K % 8), an f32 x K % 4. An f32 x is first written
-// as bf16 pairs into ws (ws_bytes: at least 2M rows of the pair layout).
+// split-half INT4 (kKind kW4Bf16, kW4Grouped) or (K, N) int8 (kW8Bf16), N
+// % 16; x, w and sw 16-byte aligned; a bf16 x's boxes 16-byte aligned
+// (INT4: K % 16, its high half; int8: K % 8), an f32 x K % 4. An f32 x is
+// first written as bf16 pairs into ws (ws_bytes: at least 2M rows of the
+// pair layout). kW4Grouped: sw the group scales (K/group, N), group a
+// multiple of 64 (whole stages) dividing K/2.
 template <int kKind>
 int wo_tile(const void* x, const void* w, const void* sw, void* out,
-            void* ws, int M, int N, int K, int x_is_f32, int out_is_bf16,
-            long long ws_bytes, void* stream) {
+            void* ws, int M, int N, int K, int group, int x_is_f32,
+            int out_is_bf16, long long ws_bytes, void* stream) {
   namespace wot = aimet::wot;
-  constexpr bool kW4 = kKind == aimet::dec::kW4Bf16;
+  constexpr bool kGrouped = kKind == aimet::dec::kW4Grouped;
+  constexpr bool kW4 = kKind == aimet::dec::kW4Bf16 || kGrouped;
   if (M <= 0 || N <= 0 || K <= 0) return 0;
   if ((kW4 && K % 2) || N % 16 || K % (x_is_f32 ? 4 : kW4 ? 16 : 8) ||
+      (kGrouped && (group <= 0 || group % wot::Stage<kKind>::kRows ||
+                    (K / 2) % group)) ||
       !aimet::aligned16(x) || !aimet::aligned16(w) || !aimet::aligned16(sw))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -679,22 +686,23 @@ int wo_tile(const void* x, const void* w, const void* sw, void* out,
     if (e != cudaSuccess) return static_cast<int>(e);
     return out_is_bf16
                ? wot::launch_tile<kKind, __nv_bfloat16, true>(
-                     mx, mw, nullptr, swp, static_cast<__nv_bfloat16*>(out),
-                     M, N, R, hi0, 2 * M, s)
+                     mx, mw, nullptr, swp, nullptr,
+                     static_cast<__nv_bfloat16*>(out), M, N, R, hi0, group,
+                     2 * M, s)
                : wot::launch_tile<kKind, float, true>(
-                     mx, mw, nullptr, swp, static_cast<float*>(out), M, N,
-                     R, hi0, 2 * M, s);
+                     mx, mw, nullptr, swp, nullptr, static_cast<float*>(out),
+                     M, N, R, hi0, group, 2 * M, s);
   }
   if (!aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K,
                         2LL * K, wot::kBM, 128))
     return static_cast<int>(cudaErrorInvalidValue);
   return out_is_bf16
              ? wot::launch_tile<kKind, __nv_bfloat16, false>(
-                   mx, mw, nullptr, swp, static_cast<__nv_bfloat16*>(out), M,
-                   N, R, R, M, s)
+                   mx, mw, nullptr, swp, nullptr,
+                   static_cast<__nv_bfloat16*>(out), M, N, R, R, group, M, s)
              : wot::launch_tile<kKind, float, false>(
-                   mx, mw, nullptr, swp, static_cast<float*>(out), M, N, R,
-                   R, M, s);
+                   mx, mw, nullptr, swp, nullptr, static_cast<float*>(out),
+                   M, N, R, R, group, M, s);
 }
 
 template <bool kW4, bool kF32X, bool kGrouped, typename OutT>
@@ -816,8 +824,9 @@ extern "C" int aimet_w4_tile_gemm(const void* x, const void* w,
                                   int N, int K, int x_is_f32,
                                   int out_is_bf16, long long ws_bytes,
                                   void* stream) {
-  return wo_tile<aimet::dec::kW4Bf16>(x, w, sw, out, ws, M, N, K, x_is_f32,
-                                      out_is_bf16, ws_bytes, stream);
+  return wo_tile<aimet::dec::kW4Bf16>(x, w, sw, out, ws, M, N, K, 0,
+                                      x_is_f32, out_is_bf16, ws_bytes,
+                                      stream);
 }
 
 // KW8's route at prefill M: as aimet_w4_tile_gemm with w (K, N) int8
@@ -828,8 +837,9 @@ extern "C" int aimet_w8_tile_gemm(const void* x, const void* w,
                                   int N, int K, int x_is_f32,
                                   int out_is_bf16, long long ws_bytes,
                                   void* stream) {
-  return wo_tile<aimet::dec::kW8Bf16>(x, w, sw, out, ws, M, N, K, x_is_f32,
-                                      out_is_bf16, ws_bytes, stream);
+  return wo_tile<aimet::dec::kW8Bf16>(x, w, sw, out, ws, M, N, K, 0,
+                                      x_is_f32, out_is_bf16, ws_bytes,
+                                      stream);
 }
 
 // As aimet_w4_gemm with group scales gs (K/group, N) f32 in place of sw;
@@ -853,4 +863,17 @@ extern "C" int aimet_w4g_gemm(const void* x, const void* w, const void* gs,
     return run_w4g_decode<__nv_bfloat16>(x, w, gs, out, ws, M, N, K, group,
                                          splits, s);
   return run_w4g_decode<float>(x, w, gs, out, ws, M, N, K, group, splits, s);
+}
+
+// KW4G's route at prefill M (wgmma_wo_tile.cuh, kW4Grouped): as
+// aimet_w4_tile_gemm with group scales gs (K/group, N) f32 in place of sw,
+// group a multiple of 64 dividing K/2; the f32 pairs' ws as KW4's.
+extern "C" int aimet_w4g_tile_gemm(const void* x, const void* w,
+                                   const void* gs, void* out, void* ws,
+                                   int M, int N, int K, int group,
+                                   int x_is_f32, int out_is_bf16,
+                                   long long ws_bytes, void* stream) {
+  return wo_tile<aimet::dec::kW4Grouped>(x, w, gs, out, ws, M, N, K, group,
+                                         x_is_f32, out_is_bf16, ws_bytes,
+                                         stream);
 }

@@ -399,6 +399,9 @@ def _launch_bf_gemm(name, fn, x, w, w_scale, out_dtype, K, N, group=None):
     if (fn is matmul_w4 and w4_tile_route(M, N, K, x.dtype)
             or fn is matmul_w8 and w8_tile_route(M, N, K, x.dtype)):
         return _launch_wo_tile(fn, x, w, w_scale, out)
+    if (fn is matmul_w4_grouped
+            and w4g_tile_route(M, N, K, group, x.dtype)):
+        return _launch_w4g_tile(x, w, w_scale, out, group)
     return _launch_bf_tile(name, fn, x, w, w_scale, out, group)
 
 
@@ -651,6 +654,13 @@ def matmul_w4_grouped_torch(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 _W4G_DEC_N, _W4G_DEC_R = 128, 64   # columns a block, packed rows a step
+W4G_TILE_BN = 128        # KW4G's tile: weight columns (its map rows: 128)
+W4G_TILE_STAGE = 64      # packed rows a stage of KW4G's tile
+# the output tiles of KW4G's tile (128 x 128) from which it beats the
+# block tile, which splits K, measured on the H100
+# (chip_smoke.new_tile_sweep, PERF.md): with a bf16 x it loses at 16
+# tiles and wins from 24, with an f32 x it loses at 24 and wins from 32
+W4G_TILE_MIN_TILES = 32
 
 
 def w4g_decode_route(M: int, N: int, K: int, x_dtype) -> bool:
@@ -658,6 +668,47 @@ def w4g_decode_route(M: int, N: int, K: int, x_dtype) -> bool:
     of at most 64 rows, K and N multiples of 16."""
     return (x_dtype == torch.bfloat16 and M <= MAX_DECODE_ROWS
             and K % 16 == 0 and N % 16 == 0)
+
+
+def w4g_tile_count(M: int, N: int, x_dtype) -> int:
+    """The output tiles of KW4G's TMA + ``wgmma`` tile: 128 rows of its x
+    map (an f32 x maps 2 rows a row) by 128 columns (one m64 slice a
+    consumer warpgroup: its sums and each stage's group sums fill the
+    registers)."""
+    rows = 2 * M if x_dtype == torch.float32 else M
+    return -(-rows // TILE_BM) * -(-N // W4G_TILE_BN)
+
+
+def w4g_tile_route(M: int, N: int, K: int, group: int, x_dtype) -> bool:
+    """Whether KW4G takes its TMA + ``wgmma`` tile: M from ``TILE_MIN_M``
+    up; a group of whole stages (a multiple of 64) dividing K/2, so each
+    stage's sums of a plane fold with one scale; N % 16; x's boxes
+    aligned as for KW4's tile (bf16: K % 16; an f32 x becomes aligned bf16
+    pairs, K % 4); and at least ``W4G_TILE_MIN_TILES`` output tiles
+    (:func:`w4g_tile_count`). Other groups (8, 24, ...) and fewer tiles
+    keep the block tile."""
+    return (x_dtype in _GEMM_DTYPES and M >= TILE_MIN_M
+            and group % W4G_TILE_STAGE == 0 and (K // 2) % group == 0
+            and N % 16 == 0
+            and K % (16 if x_dtype == torch.bfloat16 else 4) == 0
+            and w4g_tile_count(M, N, x_dtype) >= W4G_TILE_MIN_TILES)
+
+
+def _launch_w4g_tile(x, w, scales, out, group):
+    """KW4G's TMA + ``wgmma`` tile on contiguous, aligned CUDA operands;
+    an f32 x gets KW4's pair matrix in a workspace."""
+    M, K = x.shape
+    N = w.shape[1]
+    f32 = x.dtype == torch.float32
+    ws = (torch.empty((2 * M, w4_pair_ld(K)), dtype=torch.bfloat16,
+                      device=x.device) if f32 else out)
+    _count(matmul_w4_grouped, "tile", x, out, group)
+    _build.launch("aimet_w4g_tile_gemm", x.data_ptr(), w.data_ptr(),
+                  scales.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
+                  group, int(f32), int(out.dtype == torch.bfloat16),
+                  ws.numel() * ws.element_size() if f32 else 0,
+                  _build.stream_ptr(x.device))
+    return out
 
 
 def w4g_decode_splits(M: int, N: int, K: int) -> int:
@@ -682,8 +733,13 @@ def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
     (row g covers k in [g * group_size, (g + 1) * group_size)); K must be a
     multiple of 2 * group_size. On CUDA tensors (x bf16 or f32, any group
     size) it launches kernel KW4G (``csrc/wo_gemm.cu``): bf16 MMAs with f32
-    sums, each group's sum scaled once; a bf16 x of at most 64 rows takes
-    its weight-streaming route (:func:`w4g_decode_route`). On CPU tensors
+    sums, each group's sum scaled once, by one of three routes picked from
+    the shapes: a bf16 x of at most 64 rows takes its weight-streaming
+    route (:func:`w4g_decode_route`); M above 64 with a group of whole
+    64-row stages and enough output tiles the TMA + ``wgmma`` tile
+    (:func:`w4g_tile_route`, ``csrc/wgmma_wo_tile.cuh``, no split K); the
+    rest the ``mma.sync`` block tile. ``.routes`` counts each route's
+    launches, ``.shapes`` each route's launches by shape. On CPU tensors
     it takes :func:`matmul_w4_grouped_torch`."""
     if x.dim() != 2 or w_packed.dim() != 2:
         raise ValueError("x must be (M, K) and w_packed (K//2, N)")
@@ -703,7 +759,7 @@ def matmul_w4_grouped(x: torch.Tensor, w_packed: torch.Tensor,
 
 
 matmul_w4_grouped.launches = 0
-matmul_w4_grouped.routes = {"decode": 0, "bf_tile": 0}
+matmul_w4_grouped.routes = {"decode": 0, "tile": 0, "bf_tile": 0}
 matmul_w4_grouped.shapes = {}
 
 
@@ -764,9 +820,13 @@ def matmul_w8a8_staticq(x: torch.Tensor, w_q: torch.Tensor,
     constant). With ``return_codes`` the activation codes come back too.
 
     On CUDA tensors it launches kernel KSQ (``csrc/w8a8_staticq.cu``: the
-    codes, then the int8 GEMM, splitting K by :func:`decode_splits`); on
-    CPU tensors it takes :func:`matmul_w8a8_staticq_torch`. Both give the
-    same bits."""
+    codes, then the int8 GEMM by one of two routes picked from the shapes:
+    above 64 rows with K and N multiples of 16 and at least
+    ``STATICQ_TILE_MIN_TILES`` output tiles (:func:`w8a8_staticq_tile_route`)
+    the TMA + ``wgmma`` tile (``csrc/wgmma_wo_tile.cuh``, int8 MMAs, no
+    split K), else its block tile, splitting K by :func:`decode_splits`);
+    ``.routes`` and ``.shapes`` count them. On CPU tensors it takes
+    :func:`matmul_w8a8_staticq_torch`. All give the same bits."""
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} does not match w_q "
                          f"{tuple(w_q.shape)}")
@@ -788,28 +848,72 @@ def matmul_w8a8_staticq(x: torch.Tensor, w_q: torch.Tensor,
         if t.dtype != dt:
             raise TypeError(f"expected {dt}, got {t.dtype}")
     inv, shift, hi = _staticq_constants(inv_delta, offset, num_steps)
-    x = x.contiguous()
-    w_q = w_q.contiguous()
-    w_q = w_q if w_q.data_ptr() % 16 == 0 else w_q.clone()
-    scale_vec, col_bias = scale_vec.contiguous(), col_bias.contiguous()
+    # the kernels read 16-byte vectors: contiguous, 16-byte aligned operands
+    x, w_q, scale_vec, col_bias = (
+        t.contiguous() for t in (x, w_q, scale_vec, col_bias))
+    w_q, scale_vec, col_bias = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                for t in (w_q, scale_vec, col_bias))
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    steps = -(-K // _S8_STEP_K)
-    splits = _used_splits(steps, decode_splits(M, N, steps))
-    ws = (torch.zeros((M, N), dtype=torch.int32, device=x.device)
-          if splits > 1 else out)
-    stream = _build.stream_ptr(x.device)
-    matmul_w8a8_staticq.launches += 1
+    tile = w8a8_staticq_tile_route(M, N, K)
+    _count(matmul_w8a8_staticq, "tile" if tile else "s8_tile", x, out)
     _build.launch("aimet_staticq_quant", x.data_ptr(), xq.data_ptr(), M, K,
-                  inv, shift, hi, int(x.dtype == torch.bfloat16), stream)
-    _build.launch("aimet_staticq_gemm", xq.data_ptr(), w_q.data_ptr(),
-                  scale_vec.data_ptr(), col_bias.data_ptr(), out.data_ptr(),
-                  ws.data_ptr(), M, N, K, splits,
-                  int(out_dtype == torch.bfloat16), stream)
+                  inv, shift, hi, int(x.dtype == torch.bfloat16),
+                  _build.stream_ptr(x.device))
+    (_launch_staticq_tile if tile else _launch_staticq_s8_tile)(
+        xq, w_q, scale_vec, col_bias, out)
     return (out, xq) if return_codes else out
 
 
 matmul_w8a8_staticq.launches = 0
+matmul_w8a8_staticq.routes = {"tile": 0, "s8_tile": 0}
+matmul_w8a8_staticq.shapes = {}
+
+
+# the output tiles (128 x 256) from which KSQ's tile beats its block tile,
+# measured on the H100 (chip_smoke.new_tile_sweep, PERF.md): mixed at 8
+# (slower at M = 192, N = 1024), faster at every count from 12 up, at K
+# 4096 and 14336
+STATICQ_TILE_MIN_TILES = 12
+
+
+def w8a8_staticq_tile_route(M: int, N: int, K: int) -> bool:
+    """Whether KSQ's GEMM takes its TMA + ``wgmma`` tile: M from
+    ``TILE_MIN_M`` up, K and N multiples of 16 (the codes' TMA boxes start
+    16-byte aligned: an unaligned box hangs the load) and at least
+    ``STATICQ_TILE_MIN_TILES`` output tiles (:func:`tile_count`; below, the
+    block tile, which splits K, is faster)."""
+    return (M >= TILE_MIN_M and K % 16 == 0 and N % 16 == 0
+            and tile_count(M, N, torch.int8) >= STATICQ_TILE_MIN_TILES)
+
+
+def _launch_staticq_tile(xq, w_q, scale_vec, col_bias, out):
+    """KSQ's GEMM on its TMA + ``wgmma`` tile: the codes xq (M, K) int8
+    times w_q (K, N) int8, then fma(acc, scale_vec, col_bias), on
+    contiguous, aligned CUDA operands."""
+    (M, K), N = xq.shape, w_q.shape[1]
+    _build.launch("aimet_staticq_tile_gemm", xq.data_ptr(), w_q.data_ptr(),
+                  scale_vec.data_ptr(), col_bias.data_ptr(), out.data_ptr(),
+                  M, N, K, int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(xq.device))
+    return out
+
+
+def _launch_staticq_s8_tile(xq, w_q, scale_vec, col_bias, out):
+    """KSQ's GEMM on its ``mma.sync`` block tile (as
+    :func:`_launch_staticq_tile`), splitting K by :func:`decode_splits`
+    into a zeroed int32 buffer."""
+    (M, K), N = xq.shape, w_q.shape[1]
+    steps = -(-K // _S8_STEP_K)
+    splits = _used_splits(steps, decode_splits(M, N, steps))
+    ws = (torch.zeros((M, N), dtype=torch.int32, device=xq.device)
+          if splits > 1 else out)
+    _build.launch("aimet_staticq_gemm", xq.data_ptr(), w_q.data_ptr(),
+                  scale_vec.data_ptr(), col_bias.data_ptr(), out.data_ptr(),
+                  ws.data_ptr(), M, N, K, splits,
+                  int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(xq.device))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,7 @@ from typing import Tuple, Union
 
 import torch
 
+from .._device import DeviceLike, resolve_device
 from ._common import div_ieee
 
 
@@ -24,7 +25,12 @@ class QuantizedKVCache:
 
 
 def init_quantized_kv_cache(batch: int, max_len: int, n_kv_heads: int,
-                            head_dim: int, device="cpu") -> QuantizedKVCache:
+                            head_dim: int,
+                            device: DeviceLike = None) -> QuantizedKVCache:
+    """An empty cache: zero codes, unit scales. On ``cuda`` unless
+    ``device`` says otherwise (``_device.resolve_device``: raises without
+    CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     shape = (batch, max_len, n_kv_heads, head_dim)
     return QuantizedKVCache(
         k=torch.zeros(shape, dtype=torch.int8, device=device),

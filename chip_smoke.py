@@ -10,6 +10,7 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
     python3 chip_smoke.py --layer-variants   # the whole-layer kernel's variants
     python3 chip_smoke.py --w4-slice         # KW4, the w4 prefill and step
     python3 chip_smoke.py --prefill-slice    # KW8 and K2 at prefill M
+    python3 chip_smoke.py --lowered-slice    # KSQ and KW4G, lowered w8a8 / w4g
 
 1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
    ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
@@ -35,7 +36,11 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    ``lm_head``; f32 x at the lowered ``lm_head``), each within KW4's share
    of its plain version and repeating its bits before it is timed; KW8 and
    K2 at M = 4096 on their TMA + ``wgmma`` tiles (KW8's f32 ``lm_head``
-   beside ``torch._weight_int8pack_mm`` on the same f32 x); K3 at
+   beside ``torch._weight_int8pack_mm`` on the same f32 x); KSQ
+   (bit-exact, codes and outputs, on its TMA + ``wgmma`` tile at M =
+   4096) and KW4G (on its tile at M = 4096, groups 64, 128 and 256; an
+   f32 x within TOL_W4G_F32, beside its block tile's error) at the
+   lowered forward's shapes and dtypes, with an f32 x besides; K3 at
    B = 16, 32 and 1 with S = 1024 and at S = 16,384 (with a sweep of its
    chunk); it holds the im2col convs ``conv2d_w8`` (KW8) and ``conv2d_w4``
    (KW4) at ResNet-50 conv shapes within KW8's and KW4's share; it probes
@@ -113,8 +118,12 @@ prefill M (``prefill_slice``): their rows at the serving prefill's
 shapes, KW8's f32 lm_head, both at the lowered forward's linears, the
 tiles' crossings with the block tiles (``prefill_sweep``, and KW4's
 ``tile_sweep``) and what the weight unpack and the register split cost
-them (``tile_variants``), the w8 and w4a8 prefill of 8 x 512 and the
-w4a8 batcher.
+them (``tile_variants``, KSQ's and KW4G's tiles too), the w8 and w4a8
+prefill of 8 x 512 and the w4a8 batcher; ``--lowered-slice`` for KSQ and
+KW4G (``lowered_slice``): both at the lowered forward's linears, their
+tiles' crossings with the block tiles (``new_tile_sweep``), KW8's library
+column at the prefill shapes, and the lowered w8a8 and w4g forwards of a
+float Llama-3-8B (32 layers, 8 x 512 tokens), 3 profiled each.
 """
 from __future__ import annotations
 
@@ -211,9 +220,37 @@ W8_DECODE_ROWS = (1, 32, 64)
 # KSOL (w4, next QKV) at Llama-3-8B widths, S = 1024, position 700: the
 # rows a launch takes besides 16
 SOL_ROWS = (1, 32, 64)
-# KW4G's timed rows: (tag, M) at 4096 x 14336, group 128
-W4G_ROWS = (("prefill", 4096), ("decode", 16), ("decode M=32", 32),
-            ("decode M=64", 64))
+# the lowered float Llama-3-8B computes its layers in bf16 and its lm_head
+# in f32, so lower_to_int hands the layer linears a bf16 x and the lm_head
+# an f32 one (M = 8 x 512): (K, N) of the layer linears (QKV apart, O,
+# gate, up, down)
+LOWERED_LAYER_KN = ((4096, 4096), (4096, 1024), (4096, 14336),
+                    (14336, 4096))
+# KW4G's timed rows, group 128: (tag, M, K, N, x dtype, out dtype): 4096 x
+# 14336 with a bf16 x, at prefill and decode M; the lowered forward's
+# layer linears as it calls them (bf16 x, f32 out); an f32 x at 4096 x
+# 14336
+W4G_ROWS = (("prefill", 4096, 4096, 14336, "bf16", "bf16"),
+            ("decode", 16, 4096, 14336, "bf16", "bf16"),
+            ("decode M=32", 32, 4096, 14336, "bf16", "bf16"),
+            ("decode M=64", 64, 4096, 14336, "bf16", "bf16")) + tuple(
+    (f"lowered {k}x{n}", 4096, k, n, "bf16", "f32")
+    for k, n in LOWERED_LAYER_KN) + (
+    ("f32 4096x14336", 4096, 4096, 14336, "f32", "f32"),)
+# KSQ's timed rows: (label, M, K, N, x dtype), the output in x's dtype as
+# the lowering asks: the lowered forward's layer linears (bf16 x) and its
+# lm_head (f32 x), an f32 x at 14336 x 4096, and decode M
+KSQ_ROWS = tuple(
+    (f"w8a8_staticq[{k}x{n}]", 4096, k, n, "bf16")
+    for k, n in LOWERED_LAYER_KN
+) + (("w8a8_staticq[lm_head]", 4096, 4096, 128256, "f32"),
+     ("w8a8_staticq[f32 14336x4096]", 4096, 14336, 4096, "f32"),
+     ("w8a8_staticq[decode]", 16, 4096, 14336, "bf16"))
+# KW4G on an f32 x with an f32 output, same measure as TOL_WO: its tile
+# and its block tile both take x as a bf16 high part plus residual
+# (measured on the H100 at M = 4096 and the lowered forward's linears: the
+# block tile <= 4.96e-6, the tile <= 5.03e-6)
+TOL_W4G_F32 = 1e-5
 # KW4 at decode M: (M, K, N) at W_gate|up of Llama-3-8B, its padded lm_head
 # and layer 0's QKV (the two KW4 launches of a w4 decode step)
 KW4_DECODE_SHAPES = ((16, 4096, 28672), (1, 4096, 28672), (32, 4096, 28672),
@@ -233,6 +270,8 @@ KW4_KERNELS = ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode",
                "w4_tile", "split_pairs"]
 KW8_KERNELS = ["wo_gemm_kernel", "wo_reduce_kernel", "wo_decode",
                "w8_tile", "split_pairs"]
+W4G_KERNELS = ["wo_gemm_kernel", "wo_reduce_kernel", "w4g_decode_kernel",
+               "w4g_tile", "split_pairs"]
 # KW8 and K2 at the serving prefill (8 x 512 tokens, M = 4096): (K, N) of
 # the four layer projections (QKV, O, gate|up, down) and the padded lm_head
 PREFILL_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
@@ -246,7 +285,7 @@ K1_DECODE_SHAPES = ((16, 4096), (64, 4096))
 MAIN_ROWS = {
     "act_quant[decode M=16]",
     "q8_gemm[int32, conv 3x3]", "q8_gemm[w_down]",
-    "w8a8_fusedq[conv 3x3]", "w8a8_staticq[w_down]",
+    "w8a8_fusedq[conv 3x3]",
     "decode_attention", "fused_wo_mlp[next_qkv]",
     "sol_decode_layer[w4]", "sol_decode_layer[w4a8]",
     "fused_decode_layer[next_qkv]",
@@ -259,7 +298,8 @@ ROUTE_LAUNCHES = {}
 # the kernels whose routes are scored at every shape they ran on the main
 # paths (their wrappers count launches by shape: ``fn.shapes``), and those
 # launches: (kernel, route, M, N, K, x dtype, out dtype, group) -> count
-SHAPE_KERNELS = ("w4_gemm", "w8_gemm", "w4_grouped_gemm", "w4a8_gemm")
+SHAPE_KERNELS = ("w4_gemm", "w8_gemm", "w4_grouped_gemm", "w4a8_gemm",
+                 "w8a8_staticq")
 ROUTE_SHAPES = {}
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
@@ -605,16 +645,24 @@ def route_shape_gaps(torch, tim):
     g = torch.Generator(device="cuda").manual_seed(5)
     fns = {"w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
            "w4_grouped_gemm": tim.matmul_w4_grouped,
-           "w4a8_gemm": tim.w4a8_gemm}
+           "w4a8_gemm": tim.w4a8_gemm,
+           "w8a8_staticq": tim.matmul_w8a8_staticq}
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     out = {}
     for key in sorted(k for k in ROUTE_SHAPES if k[0] in fns):
         kernel, route, m, n, k, xt, ot, group = key
         fn, odt = fns[kernel], dt[ot]
-        rows_ = k if kernel == "w8_gemm" else k // 2
+        rows_ = k if kernel in ("w8_gemm", "w8a8_staticq") else k // 2
         ws = [torch.randint(-128, 128, (rows_, n), dtype=torch.int8,
                             generator=g, device="cuda") for _ in range(3)]
-        if kernel == "w4a8_gemm":
+        if kernel == "w8a8_staticq":
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt[xt])
+            sc = torch.rand((2, n), generator=g, device="cuda") * 1e-3
+            enc = dict(inv_delta=50.0, offset=-128.0, num_steps=255.0,
+                       out_dtype=odt)
+            call = lambda i: fn(x, ws[i % 3], sc[0], sc[1], **enc)
+            x_bytes, peak = x.numel() * x.element_size(), INT8_OPS
+        elif kernel == "w4a8_gemm":
             x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
                               generator=g, device="cuda")
             sx = torch.rand((m,), generator=g, device="cuda")
@@ -1291,24 +1339,35 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
 
     for m in (4096, 16):
         for k, n in ksq_kn:
-            x_dtype = torch.float32 if n == 128256 else torch.bfloat16
-            out_dtype = x_dtype
-            x, w, sv, cb = ksq_inputs(m, k, n, x_dtype)
-            kw = dict(enc, out_dtype=out_dtype, return_codes=True)
-            got, q = tim.matmul_w8a8_staticq(x, w, sv, cb, **kw)
-            want, pq = tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw)
-            note("w8a8_staticq", got, want)
-            assert torch.equal(q, pq), ("KSQ codes", m, k, n)
-            assert torch.equal(got, want), ("KSQ", m, k, n)
-            del x, w, got, want, q, pq
-    log("KSQ w8a8_staticq: codes and outputs bit-exact at M in {4096, 16} x "
-        f"(K, N) in {ksq_kn} (lm_head f32, the rest bf16)")
+            # the lowered f32 model passes an f32 x (and takes an f32 out)
+            # at every linear; a bf16 x besides, but at the lm_head
+            for x_dtype in ((torch.float32,) if n == 128256 else
+                            (torch.float32, torch.bfloat16)):
+                out_dtype = x_dtype
+                x, w, sv, cb = ksq_inputs(m, k, n, x_dtype)
+                kw = dict(enc, out_dtype=out_dtype, return_codes=True)
+                route = ("tile" if tim.w8a8_staticq_tile_route(m, n, k)
+                         else "s8_tile")
+                before = tim.matmul_w8a8_staticq.routes[route]
+                got, q = tim.matmul_w8a8_staticq(x, w, sv, cb, **kw)
+                assert tim.matmul_w8a8_staticq.routes[route] == before + 1
+                want, pq = tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw)
+                note("w8a8_staticq", got, want)
+                assert torch.equal(q, pq), ("KSQ codes", m, k, n, x_dtype)
+                assert torch.equal(got, want), ("KSQ", m, k, n, x_dtype)
+                assert torch.equal(tim.matmul_w8a8_staticq(x, w, sv, cb,
+                                                           **kw)[0], got), \
+                    ("KSQ repeat", m, k, n, x_dtype)
+                del x, w, got, want, q, pq
+    log("KSQ w8a8_staticq: codes and outputs bit-exact, repeated calls the "
+        f"same bits, at M in {{4096 (its tile), 16}} x (K, N) in {ksq_kn} "
+        "(f32 x at each, bf16 x too but at the lm_head)")
 
-    worst = 0.0
+    worst, f32_errs = 0.0, {}
     for m in (4096, 16):
         for k, n in lin_kn:
-            for x_dtype in ((torch.bfloat16, torch.float32) if n == 14336
-                            else (torch.bfloat16,)):
+            for x_dtype in ((torch.bfloat16, torch.float32) if m == 4096
+                            or n == 14336 else (torch.bfloat16,)):
                 x = torch.randn((m, k), generator=g, device=dev).to(x_dtype)
                 w = torch.randn((k, n), generator=g, device=dev) * 0.02
                 packed, sc = tim.quantize_weight_int4_grouped(w, 128)
@@ -1318,9 +1377,22 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                 err = rel_err(got, want)
                 worst = max(worst, err)
                 assert err < TOL_WO, ("KW4G", m, k, n, x_dtype, err)
+                if m == 4096 and x_dtype == torch.float32:
+                    # the tile against the block tile it replaces, f32 out
+                    block = tim._launch_bf_tile(
+                        "aimet_w4g_gemm", tim.matmul_w4_grouped, x, packed,
+                        sc, torch.empty_like(got), 128)
+                    f32_errs[f"{k}x{n}"] = (err, rel_err(block, want))
+                    assert err < TOL_W4G_F32, ("KW4G f32", k, n, err)
+                    del block
                 del x, w, packed, got, want
+    log("KW4G on f32 x, f32 out, M=4096, group 128: tile / block tile within "
+        + ", ".join(f"{s_} {a:.2e} / {b:.2e}" for s_, (a, b) in
+                    f32_errs.items())
+        + f" of max (< {TOL_W4G_F32})")
     for m, k, grp in ((32, 4096, 128), (64, 4096, 128), (16, 4608, 8),
-                      (16, 4608, 24), (16, 4608, 64)):
+                      (16, 4608, 24), (16, 4608, 64), (300, 4096, 64),
+                      (300, 4096, 256)):
         n = 14336
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         w = torch.randn((k, n), generator=g, device=dev) * 0.02
@@ -1337,9 +1409,9 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
         del x, w, packed, got, want
     log(f"KW4G w4_grouped_gemm: within {worst:.2e} of max (< {TOL_WO}) at M "
         f"in {{4096, 16}} x (K, N) in {lin_kn}, group 128 (bf16 x; f32 x "
-        "too at N=14336); at M 32 and 64 (group 128) and M 16 with groups "
-        "8, 24 and 64 (K 4608, N 14336), repeated calls giving the same "
-        "bits")
+        "too at M=4096 and N=14336); at M 32 and 64 (group 128), M 16 with "
+        "groups 8, 24 and 64 (K 4608, N 14336) and M 300 with groups 64 and "
+        "256 (the tile), repeated calls giving the same bits")
 
     wo = {"w4_gemm": (True, tim.matmul_w4, tim.matmul_w4_torch),
           "w8_gemm": (False, tim.matmul_w8, tim.matmul_w8_torch)}
@@ -1362,10 +1434,8 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
             "at M in {4096, 16} x (K, N) in [(4096, 128256), (4096, 4096)]")
 
     # timings at the lowered model's shapes
-    for label, m, k, n, x_dtype in (
-            ("w8a8_staticq[lm_head]", 4096, 4096, 128256, torch.float32),
-            ("w8a8_staticq[w_down]", 4096, 14336, 4096, torch.bfloat16),
-            ("w8a8_staticq[decode]", 16, 4096, 14336, torch.bfloat16)):
+    for label, m, k, n, xt in KSQ_ROWS:
+        x_dtype = torch.float32 if xt == "f32" else torch.bfloat16
         x, w, sv, cb = ksq_inputs(m, k, n, x_dtype)
         kw = dict(enc, out_dtype=x_dtype)
         esz = x.element_size()
@@ -1373,7 +1443,12 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                  lambda i: tim.matmul_w8a8_staticq(x, w, sv, cb, **kw),
                  lambda i: tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw),
                  ["staticq_"], m * k * esz + k * n, INT8_OPS,
-                 out_bytes=m * n * esz, vec_bytes=2 * n * 4)
+                 out_bytes=m * n * esz, vec_bytes=2 * n * 4,
+                 iters=5 if n == 128256 else 20)
+        # the codes kernel alone (part of the row's time)
+        rows[label]["codes_ms"], _ = timed(
+            lambda i: tim.matmul_w8a8_staticq(x, w, sv, cb, **kw), 5,
+            ["staticq_quant"])
         # the library's int8 GEMM alone (no quantizer, no epilogue): not the
         # same function, so it stays out of library_ms
         if m > 16:
@@ -1384,19 +1459,25 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
             rows[label]["int_mm_ms"] = ims
             del xq
         del x, w
-    for tag, m in W4G_ROWS:
-        k, n = 4096, 14336
-        x = randn(m, k)
+    for tag, m, k, n, xt, ot in W4G_ROWS:
+        f32 = xt == "f32"
+        odt = torch.float32 if ot == "f32" else torch.bfloat16
+        x = (torch.randn((m, k), generator=g, device=dev) if f32
+             else randn(m, k))
         ws = [tim.quantize_weight_int4_grouped(
             torch.randn((k, n), generator=g, device=dev) * 0.02, 128)
             for _ in range(3)]
+        # an f32 x is two bf16 operands: twice the bf16 tensor-core work
         gemm_row(f"w4_grouped_gemm[{tag}]", "w4_grouped_gemm", m, k, n,
                  lambda i: tim.matmul_w4_grouped(x, *ws[i % 3],
-                                                 group_size=128),
-                 lambda i: tim.matmul_w4_grouped_torch(x, *ws[i % 3], 128),
-                 ["wo_gemm_kernel", "wo_reduce_kernel", "w4g_decode_kernel"],
-                 m * k * 2 + k // 2 * n, BF16_FLOPS,
-                 vec_bytes=(k // 128) * n * 4)
+                                                 group_size=128,
+                                                 out_dtype=odt),
+                 lambda i: tim.matmul_w4_grouped_torch(x, *ws[i % 3], 128,
+                                                       odt),
+                 W4G_KERNELS, m * k * x.element_size() + k // 2 * n,
+                 BF16_FLOPS / (2 if f32 else 1),
+                 out_bytes=m * n * odt.itemsize,
+                 vec_bytes=(k // 128) * n * 4, iters=5 if m > 64 else 20)
         del x, ws
     m, k, n = 4096, 4096, 128256
     x = torch.randn((m, k), generator=g, device=dev)
@@ -1631,12 +1712,15 @@ def library_probes(torch, tim, g, rows):
         except Exception as e:          # recorded: the row's library note
             row["library_note"] = f"torch._weight_int8pack_mm: {e}"[:200]
         del x, w
-    for tag, m in W4G_ROWS:
-        k, n, grp = 4096, 14336, 128
+    for tag, m, k, n, xt, _ in W4G_ROWS:
+        # tinygemm takes a bf16 x: an f32 x's row is timed on x in bf16
+        grp = 128
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         packed, sc = tim.quantize_weight_int4_grouped(
             torch.randn((k, n), generator=g, device=dev) * 0.02, grp)
         row = rows[f"w4_grouped_gemm[{tag}]"]
+        if xt == "f32":
+            row["library_x"] = "bf16"
         try:
             # tinygemm's layout: (N, K/2) uint8 of (q + 8), even k high,
             # and (K/grp, N, 2) bf16 of (scale, zero): w = (u - 8) * s + z
@@ -1657,7 +1741,7 @@ def library_probes(torch, tim, g, rows):
             f"w8_gemm[decode M={m}]" for m in W8_DECODE_ROWS] + [
             kw4_label(m, k, n) for m, k, n in
             KW4_DECODE_SHAPES + KW4_PREFILL_SHAPES] + [
-            f"w4_grouped_gemm[{tag}]" for tag, _ in W4G_ROWS]:
+            f"w4_grouped_gemm[{tag}]" for tag, *_ in W4G_ROWS]:
         r = rows[label]
         log(f"  library for {label}: "
             + (f"{r['library_ms']:.4f} ms (within {r['library_err']:.2e} of "
@@ -2252,10 +2336,15 @@ def plain_lowering(lw, tim):
             setattr(lw, k, v)
 
 
-def lowering(torch, tim, counters, g):
+def lowering(torch, tim, counters, g, modes=tuple(LOWER_MODES),
+             fake_quant=True, profiles=1):
     """Phase 5: quantsim calibration and true-INT lowering of a float
-    Llama-3-8B at full width and depth (f32: 32.1 GB). Returns (metrics,
-    launches summed over the lowered forwards)."""
+    Llama-3-8B at full width and depth (f32: 32.1 GB), in each of
+    ``modes`` (LOWER_MODES' keys, in its order); ``fake_quant``: the
+    quantized_fn comparison with the float model too; ``profiles``:
+    profiled forwards a mode (device ms by kernel from the last, the
+    device ms of each in ``device_ms_runs``). Returns (metrics, launches
+    summed over the lowered forwards)."""
     from aimet_tpu_torch import QuantizationSimModel, lower_to_int
     from aimet_tpu_torch.models.transformer import TransformerConfig
     from aimet_tpu_torch.quantsim import lowering as lw
@@ -2288,7 +2377,8 @@ def lowering(torch, tim, counters, g):
         ref = model(calib[0])
     masked = [op.name for op in sim.graph.ops_of_type("select_n")
               if any(c.type == "softmax" for c in op.output.consumers)]
-    for tag, off in (("", []), ("_masked_off", masked)):
+    for tag, off in (("", []), ("_masked_off", masked)) if fake_quant \
+            else ():
         for name in off:
             sim.set_quantizer_enabled(name, False)
         q = sim.quantized_fn(None, calib[0])
@@ -2299,18 +2389,21 @@ def lowering(torch, tim, counters, g):
         metrics[f"quantized_fn{tag}_rel_mse"] = (
             ((q - ref) ** 2).mean() / (ref ** 2).mean()).item()
         del q
-    log("[lower] quantized_fn vs the float model (2 x 512): max rel err "
-        f"{metrics['quantized_fn_rel_err']:.3e}, rel MSE "
-        f"{metrics['quantized_fn_rel_mse']:.3e}; with the {len(masked)} "
-        "masked-score quantizers off: "
-        f"{metrics['quantized_fn_masked_off_rel_err']:.3e}, "
-        f"{metrics['quantized_fn_masked_off_rel_mse']:.3e}")
+    if fake_quant:
+        log("[lower] quantized_fn vs the float model (2 x 512): max rel err "
+            f"{metrics['quantized_fn_rel_err']:.3e}, rel MSE "
+            f"{metrics['quantized_fn_rel_mse']:.3e}; with the {len(masked)} "
+            "masked-score quantizers off: "
+            f"{metrics['quantized_fn_masked_off_rel_err']:.3e}, "
+            f"{metrics['quantized_fn_masked_off_rel_mse']:.3e}")
     del ref
 
     # INT4 grids: a sim whose parameter quantizers are 4-bit (the
     # activation encodings are not read by w4 / w4a8)
-    sim4 = QuantizationSimModel(model, (calib[0],), default_param_bw=4)
-    sim4.compute_param_encodings()
+    sim4 = None
+    if any(LOWER_MODES[m][1] == 4 for m in modes):
+        sim4 = QuantizationSimModel(model, (calib[0],), default_param_bw=4)
+        sim4.compute_param_encodings()
     x = toks(8)
     with torch.no_grad():
         float_logits = model(x)
@@ -2318,6 +2411,8 @@ def lowering(torch, tim, counters, g):
     n_lin = 7 * cfg.n_layers + 1
     launches = {k: 0 for k in counters}
     for mode, (lmode, bw, expect) in LOWER_MODES.items():
+        if mode not in modes:
+            continue
         s_ = sim4 if bw == 4 else sim
         if mode == "w4g":      # blockwise 4-bit layer linears, block 128
             for op in sim.graph.ops_of_type("linear")[:-1]:
@@ -2337,22 +2432,28 @@ def lowering(torch, tim, counters, g):
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t) * 1e3
         counts = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        routes = {k: {r: v for r, v in fn.routes.items() if v}
+                  for k, fn in counters.items()
+                  if fn.launches and hasattr(fn, "routes")}
         take_routes(counters)
         for k, v in counts.items():
             launches[k] += v
         assert counts == expect(n_lin), (mode, counts)
         assert torch.isfinite(out).all() and out.shape == float_logits.shape
-        with profiled() as prof:
-            low(params, x)
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in _kernel_events(prof):
-            key = e.name.replace("(anonymous namespace)::", "")
-            key = key.removeprefix("void ").split("<")[0].split("(")[0]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() \
-                / 1e3
-        dev_ms = sum(by_name.values()) or timed(lambda i: low(params, x), 1,
-                                                warmup=0)[0]
+        runs = []
+        for _ in range(profiles):
+            with profiled() as prof:
+                low(params, x)
+                torch.cuda.synchronize()
+            by_name = {}
+            for e in _kernel_events(prof):
+                key = e.name.replace("(anonymous namespace)::", "")
+                key = key.removeprefix("void ").split("<")[0].split("(")[0]
+                by_name[key] = by_name.get(key, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+            runs.append(sum(by_name.values())
+                        or timed(lambda i: low(params, x), 1, warmup=0)[0])
+        dev_ms = runs[-1]
         with plain_lowering(lw, tim):
             plain = low(params, x)
         m = {"lower_s": t_lower, "host_ms": host_ms, "device_ms": dev_ms,
@@ -2363,12 +2464,14 @@ def lowering(torch, tim, counters, g):
                                   / (float_logits ** 2).mean()).item(),
              "top1_vs_float": (out.argmax(-1) == float_logits.argmax(-1))
              .float().mean().item(),
-             "launches": counts}
+             "launches": counts, "routes": routes, "device_ms_runs": runs,
+             "kernels_ms": by_name}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         log(f"[lower {mode}] lower_to_int {t_lower:.1f} s; forward 8 x 512: "
             f"{host_ms:.1f} ms host, {dev_ms:.2f} ms device ("
             + ", ".join(f"{k} {v:.2f}" for k, v in top) + "); launches "
-            f"{counts}; kernels vs plain {m['logits_vs_plain_rel_err']:.3e} "
+            f"{counts}, by route {routes}; kernels vs plain "
+            f"{m['logits_vs_plain_rel_err']:.3e} "
             f"(top-1 {m['top1_vs_plain']:.3f}); vs float: rel MSE "
             f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
         assert m["logits_vs_plain_rel_err"] < TOL_LOGITS, (mode, m)
@@ -2778,9 +2881,10 @@ LAYER_VARIANTS = {
 def variant_builds(_build, variants, patched, sources, tag):
     """Builds ``sources`` (``csrc`` files) once for each entry of
     ``variants`` (name -> (text, replacement, occurrences) pairs applied in
-    turn to ``patched``), one nvcc a source, all started together, each
-    variant then linked into one library under the git-ignored build root
-    (``tag``); returns name -> the library's path."""
+    turn to ``patched``; occurrences None: as many as the tree has, none
+    too), one nvcc a source, all started together, each variant then
+    linked into one library under the git-ignored build root (``tag``);
+    returns name -> the library's path."""
     import shutil
     text0 = (_build.CSRC / patched).read_text()
     nvcc = _build.find_nvcc()
@@ -2788,7 +2892,8 @@ def variant_builds(_build, variants, patched, sources, tag):
     for i, (name, subs) in enumerate(variants.items()):
         text = text0
         for old, new, count in subs:
-            assert text.count(old) == count, ("variant", name, old)
+            assert count is None or text.count(old) == count, \
+                ("variant", name, old)
             text = text.replace(old, new)
         d = _build.BUILD_ROOT / tag / str(i)
         d.mkdir(parents=True, exist_ok=True)
@@ -3329,7 +3434,8 @@ def prefill_sweep(torch, tim):
     between CUDA events) at PREFILL_SWEEP_M x PREFILL_SWEEP_KN, KW8 on a
     bf16 x (and an f32 x at 4096 x 4096), beside the tile's output tiles;
     each output checked against the plain version first (K2 bit for bit).
-    Returns {"w8_gemm": {...}, "w4a8_gemm": {...}}."""
+    Where the tree has them, KSQ's and KW4G's tiles the same way
+    (``new_tile_sweep``). Returns {kernel: {...}}."""
     g = torch.Generator(device="cuda").manual_seed(12)
     out = {"w8_gemm": {}, "w4a8_gemm": {}}
     for k, n, xt in [(k, n, "bf16") for k, n in PREFILL_SWEEP_KN] + [
@@ -3374,6 +3480,80 @@ def prefill_sweep(torch, tim):
         log(f"  {kernel} tile against {block}, ms (output tiles): "
             + ", ".join(f"{k_}: {r['tile']:.4f} / {r[block]:.4f} "
                         f"({r['tiles']})" for k_, r in out[kernel].items()))
+    if hasattr(tim, "w4g_tile_route"):
+        out.update(new_tile_sweep(torch, tim))
+    return out
+
+
+# new_tile_sweep's shapes: KSQ's (K, N) and KW4G's (K, N, x dtype), the
+# lowered forward's linears (k / v: N = 1024) besides PREFILL_SWEEP_KN's
+KSQ_SWEEP_KN = ((4096, 1024),) + PREFILL_SWEEP_KN
+W4G_SWEEP_KN = ((4096, 1024, "bf16"), (4096, 4096, "bf16"),
+                (4096, 14336, "bf16"), (14336, 4096, "bf16"),
+                (4096, 1024, "f32"), (4096, 4096, "f32"))
+
+
+def new_tile_sweep(torch, tim):
+    """Where KSQ's and KW4G's tiles take over from their block tiles
+    (``s8_tile`` / ``bf_tile``, split K): each route called directly on
+    the same operands (the median of 20 calls between CUDA events) at
+    PREFILL_SWEEP_M x KSQ_SWEEP_KN (KSQ on int8 codes, its GEMM alone; the
+    two routes' outputs equal bit for bit) and x W4G_SWEEP_KN (KW4G, group
+    128, f32 out for an f32 x; both within TOL_WO of the plain version),
+    beside the tile's output tiles. Returns {"w8a8_staticq": {...},
+    "w4_grouped_gemm": {...}}."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    out = {"w8a8_staticq": {}, "w4_grouped_gemm": {}}
+    for k, n in KSQ_SWEEP_KN:
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                          device="cuda")
+        sv = torch.rand((n,), generator=g, device="cuda") * 1e-4
+        cb = torch.randn((n,), generator=g, device="cuda")
+        for m in PREFILL_SWEEP_M:
+            xq = torch.randint(-128, 128, (m, k), dtype=torch.int8,
+                               generator=g, device="cuda")
+            o = torch.empty((m, n), device="cuda")
+            row = {"tiles": tim.tile_count(m, n, torch.int8)}
+            got = {}
+            for tag, call in (
+                    ("tile", lambda i: tim._launch_staticq_tile(
+                        xq, w, sv, cb, o)),
+                    ("s8_tile", lambda i: tim._launch_staticq_s8_tile(
+                        xq, w, sv, cb, o))):
+                got[tag] = call(0).clone()
+                row[tag], _ = event_ms(call, 20)
+            assert torch.equal(got["tile"], got["s8_tile"]), \
+                ("KSQ sweep", m, k, n)
+            out["w8a8_staticq"][f"M={m} K={k} N={n}"] = row
+            del xq, o, got
+        del w
+    for k, n, xt in W4G_SWEEP_KN:
+        dt = torch.bfloat16 if xt == "bf16" else torch.float32
+        packed, sc = tim.quantize_weight_int4_grouped(
+            torch.randn((k, n), generator=g, device="cuda") * 0.02, 128)
+        for m in PREFILL_SWEEP_M:
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            want = tim.matmul_w4_grouped_torch(x, packed, sc, 128)
+            o = torch.empty((m, n), dtype=dt, device="cuda")
+            row = {"tiles": tim.w4g_tile_count(m, n, dt)}
+            for tag, call in (
+                    ("tile", lambda i: tim._launch_w4g_tile(
+                        x, packed, sc, o, 128)),
+                    ("bf_tile", lambda i: tim._launch_bf_tile(
+                        "aimet_w4g_gemm", tim.matmul_w4_grouped, x, packed,
+                        sc, o, 128))):
+                call(0)
+                assert rel_err(o, want) < TOL_WO, ("KW4G sweep", m, k, n,
+                                                   xt, tag)
+                row[tag], _ = event_ms(call, 20)
+            out["w4_grouped_gemm"][f"M={m} K={k} N={n} {xt}"] = row
+            del x, want, o
+        del packed, sc
+    for kernel, block in (("w8a8_staticq", "s8_tile"),
+                          ("w4_grouped_gemm", "bf_tile")):
+        log(f"  {kernel} tile against {block}, ms (output tiles): "
+            + ", ".join(f"{k_}: {r['tile']:.4f} / {r[block]:.4f} "
+                        f"({r['tiles']})" for k_, r in out[kernel].items()))
     return out
 
 
@@ -3381,7 +3561,8 @@ def prefill_sweep(torch, tim):
 # replacement, occurrences) applied in turn to csrc/wgmma_wo_tile.cuh.
 # "constant A": every weight word a constant, so the A fragments are fixed
 # at compile time and no shared load or unpack runs: the MMAs and the TMA
-# ring alone (the outputs are wrong there, and only timed); "168
+# ring alone (the outputs are wrong there, and only timed; every kind
+# the tree has); "168
 # registers": the 384-thread block without setmaxnreg; "one-warp
 # producer": 288 threads, 168 registers a thread, as the tile was built
 # before its producer became a warpgroup.
@@ -3390,7 +3571,7 @@ _NREG = ("constexpr bool kSetMaxNReg = true;",
 TILE_VARIANTS = {
     "as built": (),
     "constant A": (("wv[i] = word(r);", "wv[i] = 0x11111111u * (i + 1);",
-                    2),),
+                    None),),
     "168 registers": (_NREG,),
     "one-warp producer": (_NREG, ("constexpr int kProducerWarps = 4;",
                                   "constexpr int kProducerWarps = 1;", 1)),
@@ -3401,7 +3582,10 @@ def tile_variant_child(path):
     """In a process of its own (several kernel libraries in one process
     refused launches): KW4, KW8 (bf16 x) and K2 at M = 4096, 4096 x 28672
     through the tiles of the library at ``path`` (the median of 10 calls
-    between CUDA events each); prints one JSON line {case: ms}."""
+    between CUDA events each), and where the tree has them KSQ (its GEMM
+    on int8 codes) and KW4G (bf16 x, group 128) at the same shape and
+    KW4G at 4096 x 14336 with the f32 x of the lowered forward; prints
+    one JSON line {case: ms}."""
     import ctypes
     import torch
     sys.path.insert(0, ROOT)
@@ -3409,9 +3593,11 @@ def tile_variant_child(path):
     from aimet_tpu_torch.ops import int_matmul as tim
     lib = ctypes.CDLL(path)
     for fn in ("aimet_w4_tile_gemm", "aimet_w8_tile_gemm",
-               "aimet_w4a8_tile_gemm"):
-        getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
-        getattr(lib, fn).restype = ctypes.c_int
+               "aimet_w4a8_tile_gemm", "aimet_staticq_tile_gemm",
+               "aimet_w4g_tile_gemm"):
+        if fn in _build.SIGNATURES:
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
     _build.library = lambda: lib
     g = torch.Generator(device="cuda").manual_seed(13)
     m, k, n = 4096, 4096, 28672
@@ -3428,6 +3614,21 @@ def tile_variant_child(path):
              "KW8": lambda i: tim._launch_wo_tile(tim.matmul_w8, x, w8, sw,
                                                   o),
              "K2": lambda i: tim._launch_w4a8_tile(xq, sx, w4, sw, o)}
+    if hasattr(tim, "w4g_tile_route"):
+        w8q = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                            device="cuda")
+        cb = torch.randn((n,), generator=g, device="cuda")
+        gp, gs = tim.quantize_weight_int4_grouped(
+            torch.randn((k, n), generator=g, device="cuda") * 0.02, 128)
+        n2 = 14336
+        gp2, gs2 = gp[:, :n2].contiguous(), gs[:, :n2].contiguous()
+        xf = torch.randn((m, k), generator=g, device="cuda")
+        of = torch.empty((m, n2), device="cuda")
+        cases.update({
+            "KSQ": lambda i: tim._launch_staticq_tile(xq, w8q, sw, cb, o),
+            "KW4G": lambda i: tim._launch_w4g_tile(x, gp, gs, o, 128),
+            "KW4G f32 4096x14336": lambda i: tim._launch_w4g_tile(
+                xf, gp2, gs2, of, 128)})
     res = {}
     for case, call in cases.items():
         call(0)
@@ -3445,7 +3646,8 @@ def tile_variants():
     from aimet_tpu_torch import _build
     t = time.time()
     paths = variant_builds(_build, TILE_VARIANTS, "wgmma_wo_tile.cuh",
-                           ("wo_gemm.cu", "w4a8_gemm.cu"), "tile_variants")
+                           ("wo_gemm.cu", "w4a8_gemm.cu", "w8a8_staticq.cu"),
+                           "tile_variants")
     log(f"  {len(paths)} tile variants built in {time.time() - t:.1f} s")
     res = {}
     for order in (list(paths), list(paths)[::-1]):
@@ -3537,6 +3739,130 @@ def prefill_slice() -> int:
         "lowered": lowered, "sweep": sweep, "kw4_tile_sweep": kw4_sweep,
         "tile_variants": variants,
         "e2e": metrics}}))
+    return 0
+
+
+def lowered_kernels(torch, tim, g):
+    """KSQ (at every linear and the lm_head, as in w8a8) and KW4G (group
+    128, at the layer linears, as in w4g) alone at the lowered Llama-3-8B
+    forward's shapes (KW4_LOWERED_SHAPES, M = 4096) with the x dtypes it
+    passes (KSQ's output in x's dtype, KW4G's f32), and with an f32 x at
+    each: device ms of each (the profiler over 5 calls) and the sum over
+    one forward's launches of the former. Returns a dict."""
+    m, out = 4096, {}
+    enc = dict(inv_delta=1 / 0.0213, offset=-119.0, num_steps=255.0)
+    for kernel in ("w8a8_staticq", "w4_grouped_gemm"):
+        total, res = 0.0, {}
+        for k, n, count, xt in KW4_LOWERED_SHAPES:
+            if kernel == "w4_grouped_gemm" and n == 128256:
+                continue                      # the lm_head is KSQ's
+            for x_dt in dict.fromkeys((xt, "f32")):
+                x = torch.randn((m, k), generator=g, device="cuda").to(
+                    torch.float32 if x_dt == "f32" else torch.bfloat16)
+                if kernel == "w8a8_staticq":
+                    w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                                      generator=g, device="cuda")
+                    sc = torch.rand((2, n), generator=g,
+                                    device="cuda") * 1e-4
+                    call = lambda i: tim.matmul_w8a8_staticq(
+                        x, w, sc[0], sc[1], out_dtype=x.dtype, **enc)
+                    match = ["staticq_"]
+                else:
+                    w, sc = tim.quantize_weight_int4_grouped(
+                        torch.randn((k, n), generator=g,
+                                    device="cuda") * 0.02, 128)
+                    call = lambda i: tim.matmul_w4_grouped(
+                        x, w, sc, group_size=128, out_dtype=torch.float32)
+                    match = W4G_KERNELS
+                ms, _ = timed(call, 5, match)
+                if x_dt == xt:
+                    res[f"{k}x{n} {xt}"] = dict(ms=ms, launches=count)
+                    total += ms * count
+                else:
+                    res[f"{k}x{n} f32"] = dict(ms=ms, launches=0)
+                del x, w, sc
+        res["forward_ms"] = total
+        out[kernel] = res
+        log(f"{kernel} at the lowered forward's linears (M=4096; launches "
+            "a forward, 0: an f32 x the forward does not pass): "
+            + ", ".join(f"{s_} {r['ms']:.3f} ms x {r['launches']}"
+                        for s_, r in res.items() if s_ != "forward_ms")
+            + f"; {total:.2f} ms a forward")
+    return out
+
+
+def int8pack_rows(torch, g):
+    """torch._weight_int8pack_mm (KW8's library column) at the serving
+    prefill's M = 4096 on a bf16 x, at PREFILL_KN but gate|up (the main
+    run times that one): ms (the median of 2 calls between CUDA events).
+    Returns {shape: ms, or the error's text}."""
+    m, out = 4096, {}
+    for k, n in PREFILL_KN:
+        if n == 28672:
+            continue
+        x = torch.randn((m, k), generator=g, device="cuda").to(
+            torch.bfloat16)
+        wt = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g,
+                           device="cuda")
+        sw = (torch.rand((n,), generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        try:
+            torch._weight_int8pack_mm(x, wt, sw)
+            out[f"{k}x{n}"], _ = event_ms(
+                lambda i: torch._weight_int8pack_mm(x, wt, sw), 2)
+        except Exception as e:          # recorded: the row's library note
+            out[f"{k}x{n}"] = f"torch._weight_int8pack_mm: {e}"[:200]
+        del x, wt
+    log("torch._weight_int8pack_mm at M=4096 (bf16 x), ms: " + ", ".join(
+        f"{s_} {v if isinstance(v, str) else f'{v:.3f}'}"
+        for s_, v in out.items()))
+    return out
+
+
+def lowered_slice() -> int:
+    """``python3 chip_smoke.py --lowered-slice``: KSQ and KW4G on the
+    quantsim -> lowering path, on whatever tree holds this script (copied
+    into a parent tree, it measures that tree with the same code): both
+    alone at the lowered Llama-3-8B forward's linears (``lowered_kernels``),
+    and where the tree has their tiles the tiles' crossings with the block
+    tiles (``new_tile_sweep``) and KW8's library column at the prefill
+    shapes (``int8pack_rows``); then a float Llama-3-8B (32 layers, f32)
+    calibrated and lowered in w8a8 and w4g, a forward of 8 x 512 a mode
+    against the plain versions, 3 profiled (device ms by kernel). Prints
+    one JSON line of the numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.ops import int_matmul as tim
+    counters = {"w8a8_staticq": tim.matmul_w8a8_staticq,
+                "w4_grouped_gemm": tim.matmul_w4_grouped}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"lowered slice of {ROOT}: torch {torch.__version__}; {smi}")
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    new_tree = hasattr(tim, "w4g_tile_route")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    kernels = lowered_kernels(torch, tim, g)
+    sweep = new_tile_sweep(torch, tim) if new_tree else None
+    lib8 = int8pack_rows(torch, g) if new_tree else None
+    t = time.time()
+    metrics, _ = lowering(torch, tim, counters,
+                          torch.Generator(device="cuda").manual_seed(2),
+                          modes=("w8a8", "w4g"), fake_quant=False,
+                          profiles=3)
+    log(f"[lower] phase took {time.time() - t:.1f} s")
+    log(json.dumps({"lowered_slice": {
+        "root": ROOT, "card": smi, "kernels": kernels, "sweep": sweep,
+        "int8pack": lib8, "e2e": metrics}}))
     return 0
 
 
@@ -3679,7 +4005,8 @@ def main() -> int:
     for name in SOURCES:
         assert launches[name] > 0, f"kernel {name} never launched"
     for route in ("w4_gemm:decode", "w4_gemm:tile", "w8_gemm:tile",
-                  "w4a8_gemm:tile"):
+                  "w4a8_gemm:tile", "w8a8_staticq:tile",
+                  "w4_grouped_gemm:tile"):
         assert ROUTE_LAUNCHES.get(route, 0) > 0, f"{route} never launched"
 
     kernels = []
@@ -3693,7 +4020,8 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["shape"], kernel_route=r.get("route") or "kernel",
             **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err",
-                                 "nmajor_ms", "k128_ms", "chunk") if k in r}))
+                                 "library_x", "codes_ms", "nmajor_ms",
+                                 "k128_ms", "chunk") if k in r}))
     # the order of the kernels' redesign: first those slower than one
     # PyTorch call for the same function, then each route's launches on
     # the main paths x (ms - bound) at its main-path shapes (route_ranking)
@@ -3738,4 +4066,5 @@ if __name__ == "__main__":
              else decode_slice() if sys.argv[1:] == ["--decode-slice"]
              else w4_slice() if sys.argv[1:] == ["--w4-slice"]
              else prefill_slice() if sys.argv[1:] == ["--prefill-slice"]
+             else lowered_slice() if sys.argv[1:] == ["--lowered-slice"]
              else main())

@@ -39,7 +39,13 @@ buffers. KW8's TMA + wgmma tile (M > 64) keeps KW8's 1e-2 at ragged M, N
 and K (and 1e-4 with an f32 x and an f32 output), K2's is bit-exact at M =
 65, 200, 4096 with ragged N and K/2 and at every Llama-3-8B layer shape;
 both are exact on one tile of small integers, repeat their bits, and their
-C entries refuse operands their TMA boxes cannot map.
+C entries refuse operands their TMA boxes cannot map. KSQ's TMA + wgmma
+tile (M > 64) is bit-exact, codes and outputs, with f32 and bf16 x and
+out at ragged M, N and K, the lowered forward's linears and its f32
+lm_head cut in M; KW4G's keeps 1e-2 with a bf16 x at groups 64, 128 and
+256, and with an f32 x and out W4G_F32_TOL (no worse than the block tile
+it replaces); both are exact on one tile of small integers, repeat their
+bits, and their C entries refuse what their boxes and stages cannot take.
 """
 import pytest
 import torch
@@ -1164,4 +1170,210 @@ def test_tile_routes_refuse_misaligned_operands(gen):
         _build.launch("aimet_w8_tile_gemm", xf.data_ptr(), w.data_ptr(),
                       sw.data_ptr(), out.data_ptr(), pairs.data_ptr(), m, n,
                       k, 1, 0, pairs.numel() * 2 - 2, stream)
+    torch.cuda.synchronize()
+
+
+_SQ_ENC = dict(inv_delta=1 / 0.0317, offset=-131.0, num_steps=255.0)
+
+
+def _staticq_operands(gen, m, k, n, x_dtype):
+    x = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(x_dtype)
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sv = torch.rand((n,), generator=gen, device="cuda") * 1e-4
+    cb = torch.randn((n,), generator=gen, device="cuda")
+    return x, w, sv, cb
+
+
+def _staticq_tile_case(x, w, sv, cb, out_dtype):
+    """KSQ's TMA + wgmma tile bit-exact against its plain version, codes
+    and outputs: through matmul_w8a8_staticq where its route takes the
+    tile, else launched directly on the plain codes (the wrapper's block
+    tile checked too); repeated calls the same bits."""
+    (m, k), n = x.shape, w.shape[1]
+    kw = dict(_SQ_ENC, out_dtype=out_dtype, return_codes=True)
+    want, pq = tim.matmul_w8a8_staticq_torch(x, w, sv, cb, **kw)
+    before = dict(tim.matmul_w8a8_staticq.routes)
+    if tim.w8a8_staticq_tile_route(m, n, k):
+        def launch():
+            got, q = tim.matmul_w8a8_staticq(x, w, sv, cb, **kw)
+            assert torch.equal(q, pq)
+            return got
+    else:
+        got, q = tim.matmul_w8a8_staticq(x, w, sv, cb, **kw)
+        assert torch.equal(q, pq) and torch.equal(got, want)
+        assert (tim.matmul_w8a8_staticq.routes["s8_tile"]
+                == before["s8_tile"] + 1)
+        before = dict(tim.matmul_w8a8_staticq.routes)
+        launch = lambda: tim._launch_staticq_tile(
+            pq, w, sv, cb, torch.empty((m, n), dtype=out_dtype,
+                                       device="cuda"))
+    got = launch()
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    assert tim.matmul_w8a8_staticq.routes["tile"] == (
+        before["tile"] + tim.w8a8_staticq_tile_route(m, n, k))
+    for _ in range(3):
+        assert torch.equal(launch(), got)
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 4096, 6144),        # one row past decode M, on the route
+    (200, 4112, 2832),       # ragged M, N; K: 32 stages + 16 rows
+    (4096, 4096, 4096),      # the lowered forward's linears
+    (4096, 4096, 1024),
+    (4096, 14336, 4096),
+    (65, 4096, 1024),        # 4 tiles: launched directly
+])
+def test_staticq_tile_bit_exact(gen, m, k, n, x_dtype, out_dtype):
+    _staticq_tile_case(*_staticq_operands(gen, m, k, n, x_dtype), out_dtype)
+
+
+def test_staticq_tile_at_the_f32_lm_head_cut_in_m(gen):
+    """KSQ's tile at the lowered model's f32 lm_head (4096 x 128256), M
+    cut to 512."""
+    _staticq_tile_case(*_staticq_operands(gen, 512, 4096, 128256,
+                                          torch.float32), torch.float32)
+
+
+def test_staticq_tile_one_tile_exact(gen):
+    """KSQ's tile on one 128 x 256 tile of small integers, unit scales and
+    zero biases: the int32 sums themselves, so a wrong transposed A
+    fragment or column permutation shows as a wrong bit."""
+    m, k, n = 128, 256, 256
+    r = torch.arange(m, device="cuda")[:, None]
+    c = torch.arange(k, device="cuda")[None, :]
+    xq = ((r * 7 + c * 3) % 255 - 127).to(torch.int8)
+    w = ((torch.arange(k * n, device="cuda").reshape(k, n) * 37) % 23
+         - 11).to(torch.int8)
+    got = tim._launch_staticq_tile(
+        xq, w, torch.ones((n,), device="cuda"),
+        torch.zeros((n,), device="cuda"),
+        torch.empty((m, n), dtype=torch.float32, device="cuda"))
+    assert torch.equal(got, tim.int8_matmul_int32_torch(xq, w).float())
+
+
+# KW4G's tile with an f32 x and an f32 output, max |diff| / max |plain|:
+# no worse than the block tile it replaces at the same shape (both take x
+# as a bf16 high part and residual; measured on the H100 at M = 4096 and
+# the lowered forward's linears: the block tile <= 4.96e-6, the tile
+# <= 5.03e-6)
+W4G_F32_TOL = 1e-5
+
+
+def _w4g_operands(gen, m, k, n, group, x_dtype):
+    x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    packed, scales = tim.quantize_weight_int4_grouped(w, group)
+    return x, packed, scales
+
+
+def _w4g_tile_case(x, packed, scales, group, out_dtype, tol=1e-2):
+    """KW4G's TMA + wgmma tile within ``tol`` of its plain version's max:
+    through matmul_w4_grouped where its route takes the tile, else
+    launched directly (the wrapper's block tile checked too); repeated
+    calls the same bits. Returns (the tile's output, its error)."""
+    (m, k), n = x.shape, packed.shape[1]
+    want = tim.matmul_w4_grouped_torch(x, packed, scales, group, out_dtype)
+    before = dict(tim.matmul_w4_grouped.routes)
+    if tim.w4g_tile_route(m, n, k, group, x.dtype):
+        launch = lambda: tim.matmul_w4_grouped(
+            x, packed, scales, group_size=group, out_dtype=out_dtype)
+    else:
+        assert _rel(tim.matmul_w4_grouped(x, packed, scales,
+                                          group_size=group,
+                                          out_dtype=out_dtype), want) < 1e-2
+        assert (tim.matmul_w4_grouped.routes["bf_tile"]
+                == before["bf_tile"] + 1)
+        before = dict(tim.matmul_w4_grouped.routes)
+        launch = lambda: tim._launch_w4g_tile(
+            x, packed, scales,
+            torch.empty((m, n), dtype=out_dtype, device="cuda"), group)
+    got = launch()
+    assert tim.matmul_w4_grouped.routes["tile"] == before["tile"] + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    err = _rel(got, want)
+    assert err < tol
+    for _ in range(3):
+        assert torch.equal(launch(), got)
+    return got, err
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [64, 128, 256])
+@pytest.mark.parametrize("m,k,n", [
+    (300, 4096, 4096),       # ragged M
+    (65, 4608, 2832),        # one row past decode M; N: 22 tiles + 16
+    (4096, 4096, 1024),      # the lowered forward's k / v
+])
+def test_w4g_tile_matches_plain(gen, m, k, n, group, out_dtype):
+    """KW4G's tile on a bf16 x within 1e-2 of the plain version's max, at
+    groups of one, two and four stages."""
+    _w4g_tile_case(*_w4g_operands(gen, m, k, n, group, torch.bfloat16),
+                   group, out_dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (4096, 14336, 4096),
+                                   (300, 4096, 14336), (65, 384, 272)])
+def test_w4g_tile_takes_f32_x_no_worse_than_the_block_tile(gen, m, k, n):
+    """An f32 x with an f32 output (the lowered model's linears): the tile
+    within W4G_F32_TOL of the plain version's max, and within the block
+    tile's own error at the same shape (doubled: two f32 sums in another
+    order); K = 384 with group 64: three stages, a tile of 65 rows."""
+    group = 64 if k == 384 else 128
+    x, packed, scales = _w4g_operands(gen, m, k, n, group, torch.float32)
+    want = tim.matmul_w4_grouped_torch(x, packed, scales, group)
+    block = tim._launch_bf_tile(
+        "aimet_w4g_gemm", tim.matmul_w4_grouped, x, packed, scales,
+        torch.empty((m, n), device="cuda"), group)
+    got, err = _w4g_tile_case(x, packed, scales, group, torch.float32,
+                              W4G_F32_TOL)
+    assert err <= 2 * _rel(block, want) + 1e-7
+
+
+def test_w4g_tile_one_tile_exact(gen):
+    """KW4G's tile on one 128 x 128 tile of small integers, scales powers
+    of two that differ by group, column and plane (exact f32 sums): the
+    plain version's bits, so a slip of the fragment layout, the nibble
+    planes, the column permutation or a plane's group scale shows."""
+    m, k, n, group = 128, 512, 128, 64
+    r = torch.arange(m, device="cuda")[:, None]
+    c = torch.arange(k, device="cuda")[None, :]
+    x = ((r * 7 + c * 3) % 11 - 5).to(torch.bfloat16)
+    lo = torch.arange(k // 2 * n, device="cuda").reshape(k // 2, n) % 16
+    hi = (torch.arange(k // 2 * n, device="cuda").reshape(k // 2, n) // 16
+          + 5) % 16
+    wp = (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+    gi = torch.arange(k // group, device="cuda")[:, None]
+    ci = torch.arange(n, device="cuda")[None, :]
+    scales = torch.exp2(-((gi * 3 + ci) % 5).float())
+    got = tim._launch_w4g_tile(x, wp, scales, torch.empty(
+        (m, n), dtype=torch.float32, device="cuda"), group)
+    want = tim.matmul_w4_grouped_torch(x, wp, scales, group, torch.float32)
+    assert torch.equal(got, want)
+
+
+def test_new_tiles_refuse_what_they_cannot_map(gen):
+    """KSQ's tile refuses K % 16 (its codes' TMA boxes), KW4G's a group
+    that is not whole 64-row stages: launch errors, not hangs."""
+    stream = _build.stream_ptr(torch.device("cuda"))
+    m, k, n = 200, 4104, 512
+    xq = torch.zeros((m, k), dtype=torch.int8, device="cuda")
+    w = torch.zeros((k, n), dtype=torch.int8, device="cuda")
+    sv = torch.ones((n,), device="cuda")
+    out = torch.empty((m, n), device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_staticq_tile_gemm", xq.data_ptr(), w.data_ptr(),
+                      sv.data_ptr(), sv.data_ptr(), out.data_ptr(), m, n, k,
+                      0, stream)
+    k = 4096
+    x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+    wp = torch.zeros((k // 2, n), dtype=torch.int8, device="cuda")
+    gs = torch.ones((k // 32, n), device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_w4g_tile_gemm", x.data_ptr(), wp.data_ptr(),
+                      gs.data_ptr(), out.data_ptr(), out.data_ptr(), m, n, k,
+                      32, 0, 0, 0, stream)
     torch.cuda.synchronize()

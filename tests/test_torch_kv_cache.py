@@ -13,7 +13,7 @@ B, S, KH, D = 3, 16, 2, 8
 
 def _caches():
     return (jkv.init_quantized_kv_cache(B, S, KH, D),
-            tkv.init_quantized_kv_cache(B, S, KH, D))
+            tkv.init_quantized_kv_cache(B, S, KH, D, device="cpu"))
 
 
 def _assert_same(jc, tc):
@@ -90,3 +90,12 @@ def test_append_at_rounding_ties_bit_exact():
     tkv.append_kv(tc, torch.from_numpy(k), torch.from_numpy(k), 2)
     np.testing.assert_array_equal(tc.k.numpy()[:, 2:5], want)
     _assert_same(jc, tc)
+
+
+def test_init_puts_the_cache_on_cuda_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tkv.init_quantized_kv_cache(B, S, KH, D)
+    c = tkv.init_quantized_kv_cache(B, S, KH, D, device="cpu")
+    assert {getattr(c, n).device.type
+            for n in ("k", "v", "k_scale", "v_scale")} == {"cpu"}

@@ -145,7 +145,8 @@ def test_w4_decode_plan_shares_packed_bytes_evenly(m, n, k):
 def test_route_counts_start_at_zero_and_name_every_route():
     assert set(tim.matmul_w4.routes) == {"decode", "tile", "bf_tile"}
     assert set(tim.matmul_w8.routes) == {"decode", "tile", "bf_tile"}
-    assert set(tim.matmul_w4_grouped.routes) == {"decode", "bf_tile"}
+    assert set(tim.matmul_w4_grouped.routes) == {"decode", "tile",
+                                                 "bf_tile"}
     assert set(tim.w4a8_gemm.routes) == {"decode", "tile", "s8_tile"}
     assert set(tim.matmul_q8.routes) == {"tile", "s8_tile"}
 
