@@ -11,7 +11,8 @@ one is loaded as it is. No ``--use_fast_math``: the kernels' integer codes
 must match the plain versions bit for bit, which needs IEEE division and
 round-half-to-even.
 
-The whole-layer kernels (``csrc/fused_layer.cu``) synchronise the grid with
+The whole-layer kernels (``csrc/fused_layer.cu``) and K2's fused decode
+kernel (``csrc/w4a8_gemm.cu``) synchronise the grid with
 ``cooperative_groups::this_grid().sync()`` under
 ``cudaLaunchCooperativeKernel``; since CUDA 11 that needs no relocatable
 device code (``-rdc``) and no device link, so every source builds with
@@ -52,6 +53,10 @@ SIGNATURES = {
     + [ctypes.c_longlong, _I, _I, _VP],
     # xq, sx, wp, sw, out, M, N, K2, out_is_bf16, stream
     "aimet_w4a8_tile_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
+    # x, xq, sx, wp, sw, out, ws, cnt, M, N, K2, blocks, ws_values,
+    # cnt_values, x_is_bf16, out_is_bf16, stream
+    "aimet_w4a8_fusedq_decode_gemm": [_VP] * 8 + [_I] * 4
+    + [ctypes.c_longlong, _I, _I, _I, _VP],
     # qkv, cos, sin, kc, vc, ks, vs, iks, ivs, pos, out, ws, cnt,
     # B, S, H, KH, D, chunk, ws_values, cnt_values, sqrt_d, io_is_bf16,
     # stream
@@ -87,6 +92,8 @@ SIGNATURES = {
     "aimet_staticq_tile_gemm": [_VP] * 5 + [_I] * 4 + [_VP],
     # xq, sx, w, sw, cb, out, ws, M, N, K, splits, out_kind, stream
     "aimet_q8_gemm": [_VP] * 7 + [_I] * 5 + [_VP],
+    # xq, sx, w, sw, cb, out, M, N, K, out_is_bf16, stream
+    "aimet_q8_tile_gemm": [_VP] * 6 + [_I] * 4 + [_VP],
     # xq, lda, w (N, K), ldb, out, M, N, K, splits, stream
     "aimet_q8_int32_kmajor": [_VP, _I, _VP, _I, _VP] + [_I] * 4 + [_VP],
     # attn, int8, rep, head_dim, S -> bytes (not an error code)

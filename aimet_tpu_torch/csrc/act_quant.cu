@@ -12,13 +12,16 @@
 // plain version (ops/int_matmul.quantize_activation_per_row).
 //
 // Bound on the H100: bytes. It reads x once for the max and once more for
-// the codes (the second read hits L2 for the row sizes of the main path,
+// the codes (the second read hits a cache for the main path's row sizes,
 // K <= 14336: 28 KB of bf16), and writes one byte per element; the
 // arithmetic is a handful of operations per element.
 // Design: one block per row, so the row max is a block reduction and needs
-// no second pass over device memory; loads are strided by the block so
-// neighbouring threads read neighbouring elements.
-#include "common.cuh"
+// no second pass over device memory; the row's arithmetic and its loads
+// are the shared row quantizer's (row_quant.cuh), 16 bytes a load where
+// the row is aligned, by the read-only path. At decode M a w4a8 matmul
+// quantizes its rows inside K2's fused decode kernel instead
+// (w4a8_gemm.cu); K1 serves the rest.
+#include "row_quant.cuh"
 
 namespace {
 
@@ -28,31 +31,28 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                  float* __restrict__ sx, int K) {
+  namespace rowq = aimet::rowq;
   const size_t row = blockIdx.x;
   const T* xr = x + row * K;
-  int8_t* qr = q + row * K;
   __shared__ float red[kThreads / 32];
   __shared__ float s_scale;
 
-  float amax = 0.0f;
-  for (int k = threadIdx.x; k < K; k += kThreads)
-    amax = fmaxf(amax, fabsf(aimet::to_f32(xr[k])));
-  amax = aimet::warp_max(amax);
+  float amax = aimet::warp_max(
+      rowq::absmax_share<false>(xr, K, threadIdx.x, kThreads));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = amax;
   __syncthreads();
   if (threadIdx.x < 32) {
     float v = threadIdx.x < kThreads / 32 ? red[threadIdx.x] : 0.0f;
     v = aimet::warp_max(v);
     if (threadIdx.x == 0) {
-      float scale = fmaxf(v, 1e-8f) / 127.0f;
+      const float scale = rowq::scale_of(v);
       s_scale = scale;
       sx[row] = scale;
     }
   }
   __syncthreads();
-  const float scale = s_scale;
-  for (int k = threadIdx.x; k < K; k += kThreads)
-    qr[k] = aimet::quant_i8(__fdiv_rn(aimet::to_f32(xr[k]), scale));
+  rowq::quantize_share<false>(xr, K, s_scale, q + row * K, threadIdx.x,
+                              kThreads);
 }
 
 }  // namespace

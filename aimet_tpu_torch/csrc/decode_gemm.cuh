@@ -90,11 +90,12 @@ constexpr int kSmemBytes = 220 * 1024;
 constexpr int kRingBytes = kSmemBytes - kHeaderBytes - 1024;
 
 // The weight formats. The first three are this routine's (Fmt); the last
-// two only the prefill tile's (wgmma_wo_tile.cuh): int8 weights x the
-// int8 codes of x (KSQ), and split-half INT4 with one scale a (K-group,
-// column) under a bf16 x (KW4G).
+// three only the prefill tile's (wgmma_wo_tile.cuh): int8 weights x the
+// static int8 codes of x (KSQ), split-half INT4 with one scale a
+// (K-group, column) under a bf16 x (KW4G), and int8 weights x the per-row
+// dynamic int8 codes of x (KQ8: KSQ's stage, row scales in the epilogue).
 enum Kind { kW4Bf16 = 0, kW4Int8 = 1, kW8Bf16 = 2, kW8Int8 = 3,
-            kW4Grouped = 4 };
+            kW4Grouped = 4, kQ8 = 5 };
 
 template <int kKind>
 struct Fmt {
@@ -213,6 +214,20 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 // the consumer warps' own barrier (the producer does not take part)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+}
+
+// Sum or max over the consumer warps (red: kConsumerWarps floats of
+// shared memory); each of them gets the result, in a fixed order.
+__device__ __forceinline__ float consumer_reduce(float v, bool is_max,
+                                                 float* red) {
+  v = is_max ? warp_max(v) : warp_sum(v);
+  consumer_sync();                       // red is free
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  consumer_sync();
+  float r = red[0];
+  for (int w = 1; w < kConsumerWarps; ++w)
+    r = is_max ? fmaxf(r, red[w]) : r + red[w];
+  return r;
 }
 
 // The ring in a block's shared memory `smem` (header first); make_ring

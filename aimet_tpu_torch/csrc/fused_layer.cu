@@ -65,6 +65,7 @@
 
 #include "decode_attention.cuh"
 #include "decode_gemm.cuh"
+#include "row_quant.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -163,59 +164,14 @@ __device__ __forceinline__ float round_bf(float v) {
 // next GEMM phase's first weight stages.
 constexpr int kET = 32 * dec::kConsumerWarps;
 
-// Sum or max over the consumer warps; each of them gets the result, in a
-// fixed order.
-__device__ float block_reduce(float v, bool is_max, float* red) {
-  v = is_max ? aimet::warp_max(v) : aimet::warp_sum(v);
-  dec::consumer_sync();                  // red is free
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  dec::consumer_sync();
-  float r = red[0];
-  for (int w = 1; w < dec::kConsumerWarps; ++w)
-    r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-// 8 bf16 values at p (16-byte aligned) as f32, through L2 (another block
-// may have written them in this launch)
-__device__ __forceinline__ void load8_cg(const bf16* p, float (&v)[8]) {
-  const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// This thread's share of the absmax of the K values at xr (K % 8 == 0).
-__device__ float row_absmax(const bf16* xr, int K) {
-  float amax = 0.0f;
-  for (int k = 8 * threadIdx.x; k < K; k += 8 * kET) {
-    float v[8];
-    load8_cg(xr + k, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
-  }
-  return amax;
-}
-
-// Per-row INT8 quantization of the K values at xr (as K1; K % 8 == 0)
-// with the row's absmax `amax`: codes to qr, scale to *sx.
+// Per-row INT8 quantization of the K values at xr (as K1: the shared row
+// quantizer, row_quant.cuh) with the row's absmax `amax`: codes to qr,
+// scale to *sx.
 __device__ void quantize_row(const bf16* xr, int K, float amax, int8_t* qr,
                              float* sx) {
-  const float scale = fmaxf(amax, 1e-8f) / 127.0f;
+  const float scale = aimet::rowq::scale_of(amax);
   if (threadIdx.x == 0) *sx = scale;
-  for (int k = 8 * threadIdx.x; k < K; k += 8 * kET) {
-    float v[8];
-    load8_cg(xr + k, v);
-    uint2 q;
-    int8_t* b = reinterpret_cast<int8_t*>(&q);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) b[i] = aimet::quant_i8(__fdiv_rn(v[i], scale));
-    *reinterpret_cast<uint2*>(qr + k) = q;
-  }
+  aimet::rowq::quantize_share<true>(xr, K, scale, qr, threadIdx.x, kET);
 }
 
 // A GEMM phase: this block's pieces of x @ W (and W2) into `part`,
@@ -327,8 +283,8 @@ __device__ float norm_row(const bf16* vr, float sumsq, const bf16* gamma,
   float amax = 0.0f;
   for (int n = 8 * threadIdx.x; n < D; n += 8 * kET) {
     float v[8], gm[8];
-    load8_cg(vr + n, v);
-    load8_cg(gamma + n, gm);
+    aimet::rowq::ld8<true>(vr + n, v);
+    aimet::rowq::ld8<true>(gamma + n, gm);
     uint4 o;
     __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(&o);
 #pragma unroll
@@ -416,8 +372,10 @@ fused_layer_kernel(const FusedLayerArgs a,
     if (!producer)
       for (int m = blockIdx.x; m < M; m += gridDim.x) {
         const bf16* xr = x_a + (size_t)m * A;
-        quantize_row(xr, A, block_reduce(row_absmax(xr, A), true, red),
-                     xq + (size_t)m * A, sx + m);
+        const float amax = dec::consumer_reduce(
+            aimet::rowq::absmax_share<true>(xr, A, threadIdx.x, kET), true,
+            red);
+        quantize_row(xr, A, amax, xq + (size_t)m * A, sx + m);
       }
     barrier(2);
   }
@@ -448,14 +406,14 @@ fused_layer_kernel(const FusedLayerArgs a,
         }
         *reinterpret_cast<uint2*>(y + row + n) = pack4(v);
       }
-      ss = block_reduce(ss, false, red);
+      ss = dec::consumer_reduce(ss, false, red);
       if (!row_done(cnt, rowpart, m, j, nA, ss, flag)) continue;
       const float amax = norm_row(y + row, row_total(rowpart, m, nA, false),
                                   static_cast<const bf16*>(a.mlp_gamma), D,
                                   a.eps, xbuf + row);
       if (kInt8)
-        quantize_row(xbuf + row, D, block_reduce(amax, true, red), xq + row,
-                     sx + M + m);
+        quantize_row(xbuf + row, D, dec::consumer_reduce(amax, true, red),
+                     xq + row, sx + M + m);
     }
   }
   barrier(4);
@@ -499,15 +457,15 @@ fused_layer_kernel(const FusedLayerArgs a,
            i += gridDim.x * kET) {
         const int m = i / (F / 8), n = 8 * (i % (F / 8));
         const float scale =
-            fmaxf(__int_as_float(__ldcg(rowmax + m)), 1e-8f) / 127.0f;
+            aimet::rowq::scale_of(__int_as_float(__ldcg(rowmax + m)));
         if (n == 0) sx[2 * M + m] = scale;
         float v[8];
-        load8_cg(xbuf + (size_t)m * F + n, v);
+        aimet::rowq::ld8<true>(xbuf + (size_t)m * F + n, v);
         uint2 q;
         int8_t* b = reinterpret_cast<int8_t*>(&q);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          b[e] = aimet::quant_i8(__fdiv_rn(v[e], scale));
+          b[e] = aimet::rowq::code(v[e], scale);
         *reinterpret_cast<uint2*>(xq + (size_t)m * F + n) = q;
       }
     barrier(7);
@@ -537,15 +495,15 @@ fused_layer_kernel(const FusedLayerArgs a,
         *reinterpret_cast<uint2*>(out + row + n) = pack4(v);
       }
       if (!has_next) continue;
-      ss = block_reduce(ss, false, red);
+      ss = dec::consumer_reduce(ss, false, red);
       if (!row_done(cnt + 2 * M, rowpart, m, j, nA, ss, flag)) continue;
       const float amax = norm_row(out + row,
                                   row_total(rowpart, m, nA, false),
                                   static_cast<const bf16*>(a.attn_gamma), D,
                                   a.eps, xbuf + row);
       if (kInt8)
-        quantize_row(xbuf + row, D, block_reduce(amax, true, red), xq + row,
-                     sx + 3 * M + m);
+        quantize_row(xbuf + row, D, dec::consumer_reduce(amax, true, red),
+                     xq + row, sx + 3 * M + m);
     }
   }
   if (!has_next) {

@@ -17,23 +17,31 @@
 // quantizer bit for bit) and then KQ8. The TPU kernel quantized each row
 // into VMEM so that the codes never went to HBM; a tile quantizing on its
 // way into shared memory would redo each row's division for every
-// 128-column block (224 times at N = 28672), while the int8 codes cost one
-// extra write and read of M x K bytes. A quantizing prologue in a TMA +
-// wgmma tile is later work.
+// 256-column tile (112 times at N = 28672), while the int8 codes cost one
+// extra write and read of M x K bytes.
 //
 // Bound on the H100: at prefill M the int8 tensor-core rate (1,979 TOP/s
 // dense); at decode M the int8 weight bytes (K x N at 3.35 TB/s). The
 // integer conv's int32 entry is bound by bytes: its patch matrix and its
 // int32 output (ResNet-50's 3 x 3 convs do ~180 operations a byte).
-// Design, f32 / bf16 entries and the int32 entry on an N-major (K, N)
-// weight (the JAX layout): the block tile aimet::s8_tile<false>
-// (gemm_tiles.cuh) on mma.sync.m16n8k32.s8 over any K, 128 k values a
-// step, as KSQ (w8a8_staticq.cu). Where M x N tiles cannot fill 132 SMs
-// the K range is split across blocks and the exact int32 partial sums are
-// combined with integer atomics (order-free, so the result stays
-// bit-exact), then an epilogue kernel applies the scales. The int32 entry
-// on a K-major weight (the integer conv's) takes the TMA + wgmma route
-// below.
+// Design, three routes picked by the wrapper from the shapes
+// (ops/int_matmul.py):
+// - f32 / bf16 entries at prefill M (M > 64, K and N multiples of 16, at
+//   least the route's count of 128 x 256 output tiles: q8_tile_route):
+//   q8_tile_kernel, the persistent TMA + wgmma tile of wgmma_wo_tile.cuh
+//   in its kQ8 format (KSQ's stage: the codes by TMA as wgmma's B operand,
+//   the N-major int8 weights by TMA, byte-transposed in registers into
+//   wgmma's A operand, m64n128k32.s32.s8.s8), no split K, exact int32
+//   sums and this epilogue in its order;
+// - the other f32 / bf16 calls, and the int32 entry on an N-major (K, N)
+//   weight (the JAX layout): the block tile aimet::s8_tile<false>
+//   (gemm_tiles.cuh) on mma.sync.m16n8k32.s8 over any K, 128 k values a
+//   step, as KSQ (w8a8_staticq.cu). Where M x N tiles cannot fill 132 SMs
+//   the K range is split across blocks and the exact int32 partial sums
+//   are combined with integer atomics (order-free, so the result stays
+//   bit-exact), then an epilogue kernel applies the scales;
+// - the int32 entry on a K-major weight (the integer conv's): the TMA +
+//   wgmma route below.
 #include <cuda.h>
 
 #include <algorithm>
@@ -41,6 +49,7 @@
 
 #include "gemm_tiles.cuh"
 #include "tma_wgmma.cuh"
+#include "wgmma_wo_tile.cuh"
 
 namespace {
 
@@ -540,4 +549,38 @@ extern "C" int aimet_q8_int32_kmajor(const void* xq, int lda, const void* w,
   if (N <= 64)
     return run_q8_kmajor<64>(xq, lda, w, ldb, o, M, N, K, splits, s);
   return run_q8_kmajor<128>(xq, lda, w, ldb, o, M, N, K, splits, s);
+}
+
+// KQ8's f32 / bf16 entries at prefill M (wgmma_wo_tile.cuh, kQ8): xq (M, K)
+// int8 codes, rows unit-stride; sx (M,) f32; w (K, N) int8; sw (N,) f32;
+// cb (N,) f32 or null; K and N multiples of 16 (the codes' TMA boxes
+// 16-byte aligned); xq, w, sw and cb 16-byte aligned; out (M, N) bf16 or
+// f32, (f32(sum) * sx[m]) * sw[n], or fma(f32(sum) * sx[m], sw[n], cb[n]).
+extern "C" int aimet_q8_tile_gemm(const void* xq, const void* sx,
+                                  const void* w, const void* sw,
+                                  const void* cb, void* out, int M, int N,
+                                  int K, int out_is_bf16, void* stream) {
+  namespace wot = aimet::wot;
+  constexpr int kKind = aimet::dec::kQ8;
+  if (M <= 0 || N <= 0 || K <= 0) return 0;
+  if (K % 16 || N % 16 || !aimet::aligned16(xq) || !aimet::aligned16(w) ||
+      !aimet::aligned16(sw) || (cb != nullptr && !aimet::aligned16(cb)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx, mw;
+  if (!aimet::encode_2d(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, N,
+                        wot::Stage<kKind>::kRows, 128) ||
+      !aimet::encode_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, M, K, K,
+                        wot::kBM, 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sxp = static_cast<const float*>(sx);
+  const float* swp = static_cast<const float*>(sw);
+  const float* cbp = static_cast<const float*>(cb);
+  return out_is_bf16
+             ? wot::launch_tile<kKind, __nv_bfloat16, false>(
+                   mx, mw, sxp, swp, cbp, static_cast<__nv_bfloat16*>(out),
+                   M, N, K, K, 0, M, s)
+             : wot::launch_tile<kKind, float, false>(
+                   mx, mw, sxp, swp, cbp, static_cast<float*>(out), M, N, K,
+                   K, 0, M, s);
 }

@@ -1,4 +1,4 @@
-// The GEMM tile for prefill M on Hopper, one structure for five weight
+// The GEMM tile for prefill M on Hopper, one structure for six weight
 // formats (decode_gemm.cuh's kinds), in place of aimet::bf_tile and
 // aimet::s8_tile:
 //   dec::kW4Bf16: KW4 (wo_gemm.cu, aimet_w4_tile_gemm; replaces
@@ -17,6 +17,12 @@
 //     int_matmul.py:593, matmul_w8a8_staticq): x the static int8 codes (M,
 //     K), W int8 codes (K, N); out = fma(f32(sum), sv[n], cb[n]), exact
 //     int32 sums, so bit-exact;
+//   dec::kQ8: KQ8's f32 / bf16 entries (w8a8_gemm.cu, aimet_q8_tile_gemm;
+//     replaces int_matmul.py:378, matmul_q8, and through it the GEMM of
+//     :456, matmul_w8a8_fusedq): KSQ's operands and stage, x the per-row
+//     dynamic int8 codes with row scales sx; out = (f32(sum) * sx[m]) *
+//     sw[n], or fma(f32(sum) * sx[m], sw[n], cb[n]) with a column bias,
+//     bit-exact;
 //   dec::kW4Grouped: KW4G (wo_gemm.cu, aimet_w4g_tile_gemm; replaces
 //     int_matmul.py:960, matmul_w4_grouped): x bf16 or f32, W split-half
 //     INT4 with one f32 scale a (K-group, column), gs (K/group, N); out =
@@ -49,8 +55,8 @@
 //   twice the bytes a k, so a stage holds half the k of KW4's in fewer
 //   bytes, and the ring keeps 6 in flight), K2 3 of 128 packed rows (256
 //   k, 64 KB: a 128-byte x box row is 128 int8 k, four s8 k-steps, the
-//   descriptor stride of the bf16 tile), KSQ 4 of 128 rows (128 k, 48
-//   KB), KW4G 5 of 64 packed rows (128 k, 40 KB: one weight box). The
+//   descriptor stride of the bf16 tile), KSQ and KQ8 4 of 128 rows (128
+//   k, 48 KB), KW4G 5 of 64 packed rows (128 k, 40 KB: one weight box). The
 //   producer runs on into the next tile while the consumers store, so one
 //   tile's epilogue overlaps the next one's loads.
 // - Two consumer warpgroups, 128 weight columns each (two m64 slices), 128
@@ -68,7 +74,8 @@
 //     of 32): 4 loads of packed rows 4t.. (and 16 + 4t..), the plane's
 //     nibbles sign-extended to int8 (nibbles_s8x4), then a 4 x 4 byte
 //     transpose (transpose4) gives each column its 4 k; int8 weights
-//     (kW8Int8) are the same loads and transpose without the nibble step.
+//     (kW8Int8, kQ8) are the same loads and transpose without the nibble
+//     step.
 //   A warpgroup unpacks a whole stage (64 registers of A fragments for
 //   INT4, 32 for int8 weights), then issues the stage's wgmmas and waits
 //   for them before it releases the stage: ptxas serializes wgmmas whose
@@ -169,6 +176,9 @@ struct Stage<dec::kW8Int8> {
   static constexpr int kRows = 128, kXBoxes = 1, kStages = 4, kGroup = 32;
   static constexpr int kBN = 256;
 };
+// KQ8: KSQ's stage (the same operands; only the epilogue differs)
+template <>
+struct Stage<dec::kQ8> : Stage<dec::kW8Int8> {};
 // KW4G: KW4's stage on half the columns (40 KB), one slice a warpgroup
 template <>
 struct Stage<dec::kW4Grouped> {
@@ -293,7 +303,7 @@ __device__ __forceinline__ void stage_mma(
   auto word = [&](int r) {
     return ld_u32(wb + r * 128 + ((chunk ^ (r & 7)) << 4) + cbyte);
   };
-  if constexpr (kKind == dec::kW8Int8) {
+  if constexpr (kKind == dec::kW8Int8 || kKind == dec::kQ8) {
     // a[group][slice][register]: group q is weight rows 32 q..; register
     // 0 (1) is slice s's row g (g + 8), column 2s (2s + 1) of the word, k
     // 4t..; registers 2, 3 the same at k 16 + 4t.. (K2's fragments without
@@ -478,7 +488,8 @@ __device__ __forceinline__ void stage_mma_grouped(
 }
 
 // out (M, N) = (x @ W) * sw (K2: (f32(x @ W) * sx[m]) * sw[n]; KSQ:
-// fma(f32(x @ W), sw[n], cb[n]); KW4G: sum_g (x_g @ W_g) * sw[g, n], sw
+// fma(f32(x @ W), sw[n], cb[n]); KQ8: K2's, or fma(f32(x @ W) * sx[m],
+// sw[n], cb[n]) where cb is given; KW4G: sum_g (x_g @ W_g) * sw[g, n], sw
 // then (2R / group, N)); map_x: x
 // (M rows) or its pairs (kPairX: 2M rows), boxes of 128 rows x 128 bytes,
 // box b of a stage from column b * x_hi (INT4: x's high half, 16-byte
@@ -603,7 +614,8 @@ __device__ __forceinline__ void tile_body(
     // n + 2s + h (two slices) or n + h (one)
     if (n >= N) continue;                          // N % 16: whole quads
     constexpr int kCols = 2 * kSlices;
-    // the columns' scales (KSQ: and biases), one vector load each
+    // the columns' scales (KSQ, and KQ8 with a bias: and biases), one
+    // vector load each
     auto cols = [&](const float* p, float (&d)[kCols]) {
       if constexpr (kCols == 4) {
         const float4 v4 = *reinterpret_cast<const float4*>(p + n);
@@ -616,6 +628,8 @@ __device__ __forceinline__ void tile_body(
     float s_[kCols] = {}, c_[kCols] = {};
     if constexpr (!kGrouped) cols(sw, s_);
     if constexpr (kKind == dec::kW8Int8) cols(cb, c_);
+    if constexpr (kKind == dec::kQ8)
+      if (cb != nullptr) cols(cb, c_);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -633,7 +647,11 @@ __device__ __forceinline__ void tile_body(
                              s_[c]);
           else if constexpr (kKind == dec::kW8Int8)
             v[c] = __fmaf_rn(__int2float_rn(acc[sl][i + e]), s_[c], c_[c]);
-          else if constexpr (kGrouped)
+          else if constexpr (kKind == dec::kQ8) {
+            const float a = __fmul_rn(__int2float_rn(acc[sl][i + e]), sx[m]);
+            v[c] = cb != nullptr ? __fmaf_rn(a, s_[c], c_[c])
+                                 : __fmul_rn(a, s_[c]);
+          } else if constexpr (kGrouped)
             v[c] = kPairX ? acc[sl][i] + acc[sl][i + 1] : acc[sl][i + e];
           else
             v[c] = __fmul_rn(kPairX ? acc[sl][i] + acc[sl][i + 1]
@@ -682,6 +700,7 @@ AIMET_TILE_KERNEL(w8_tile_kernel, dec::kW8Bf16)     // KW8
 AIMET_TILE_KERNEL(w4a8_tile_kernel, dec::kW4Int8)   // K2
 AIMET_TILE_KERNEL(staticq_tile_kernel, dec::kW8Int8)  // KSQ
 AIMET_TILE_KERNEL(w4g_tile_kernel, dec::kW4Grouped)   // KW4G
+AIMET_TILE_KERNEL(q8_tile_kernel, dec::kQ8)           // KQ8
 #undef AIMET_TILE_KERNEL
 
 // format kKind's kernel
@@ -695,6 +714,8 @@ auto tile_kernel() {
     return w4a8_tile_kernel<OutT, kPairX>;
   else if constexpr (kKind == dec::kW8Int8)
     return staticq_tile_kernel<OutT, kPairX>;
+  else if constexpr (kKind == dec::kQ8)
+    return q8_tile_kernel<OutT, kPairX>;
   else
     return w4g_tile_kernel<OutT, kPairX>;
 }
@@ -704,8 +725,8 @@ auto tile_kernel() {
 // tiles. mx maps x (xrows = M) or its pairs (xrows = 2M) in boxes of 128
 // rows x 128 bytes; mw the weights (R rows) in boxes of Stage::kRows rows
 // x 128 columns; x_hi: the x column of a stage's second box (INT4: K/2 or
-// the pairs' pair_hi); sx: K2's row scales, cb: KSQ's column bias, group:
-// KW4G's group (else unused).
+// the pairs' pair_hi); sx: K2's and KQ8's row scales, cb: KSQ's column
+// bias (KQ8's, or null), group: KW4G's group (else unused).
 template <int kKind, typename OutT, bool kPairX>
 int launch_tile(const CUtensorMap& mx, const CUtensorMap& mw,
                 const float* sx, const float* sw, const float* cb, OutT* out,

@@ -1,7 +1,9 @@
 """Integer matmuls — the port's part of ``aimet_tpu/ops/int_matmul.py``:
 
-- W4A8: split-half packed INT4 weights x per-row INT8 activations, kernels
-  K1 (``csrc/act_quant.cu``) then K2 (``csrc/w4a8_gemm.cu``);
+- W4A8: split-half packed INT4 weights x per-row INT8 activations
+  (``matmul_w4a8`` = ``matmul_w4a8_fusedq``): kernels K1
+  (``csrc/act_quant.cu``) then K2 (``csrc/w4a8_gemm.cu``), or at decode M
+  one launch of K2's fused decode kernel, which quantizes the rows itself;
 - weight-only INT4 (``matmul_w4``, kernel KW4), INT8 (``matmul_w8``,
   kernel KW8) and group-wise INT4 (``matmul_w4_grouped``, kernel KW4G), all
   ``csrc/wo_gemm.cu``: bf16 or f32 activations, f32 sums;
@@ -11,8 +13,9 @@
   ``quantsim.lowering``;
 - dynamic full INT8 (``matmul_w8a8`` = ``matmul_w8a8_fusedq``): per-row
   INT8 activations x int8 weights, K1 then kernel KQ8 (``matmul_q8``,
-  ``csrc/w8a8_gemm.cu``) at every K; KQ8's int32 entry
-  (``int8_matmul_int32``) carries the integer convs of ``ops.int_conv``.
+  ``csrc/w8a8_gemm.cu``; at prefill M on the TMA + ``wgmma`` tile) at
+  every K; KQ8's int32 entry (``int8_matmul_int32``) carries the integer
+  convs of ``ops.int_conv``.
 
 Host math (weight/activation quantizers, the split-half packing, the
 decode split policy) is plain PyTorch. On a CUDA tensor the wrappers
@@ -308,22 +311,104 @@ def _launch_w4a8_tile(x_q, x_scale, w_packed, w_scale, out):
     return out
 
 
-def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
-                w_scale: torch.Tensor,
-                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """W4A8 matmul: x (M, K) f32/bf16 @ split-half INT4 weights
-    (K//2, N) int8 with per-column scales (N,) f32 -> (M, N) ``out_dtype``
-    (default x's dtype).
+def w4a8_fusedq_decode_route(M: int, N: int, K2: int, x_dtype) -> bool:
+    """Whether :func:`matmul_w4a8_fusedq` takes K2's fused decode kernel
+    (K1 folded in, one launch): a bf16 or f32 x of 1..64 rows, K/2 packed
+    weight rows and N multiples of 16 (K2's decode route's shapes)."""
+    return x_dtype in _GEMM_DTYPES and w4a8_decode_route(M, N, K2)
 
-    On CUDA tensors: kernel K1 (per-row activation quantizer) then K2 (the
-    GEMM). On CPU tensors: the plain versions. Both give the same bits."""
+
+def _launch_w4a8_fusedq_decode(x, w_packed, w_scale, out_dtype):
+    """K2's fused decode kernel on CUDA tensors: one cooperative launch
+    that writes K1's codes and scales into workspaces, then runs K2's
+    decode route on them (:func:`decode_plan`'s grid, which the C entry
+    refuses unless its blocks can all be resident at once). Returns (out,
+    codes, scales)."""
+    if w_packed.dtype != torch.int8 or w_scale.dtype != torch.float32:
+        raise TypeError(f"expected int8 weights and float32 scales, got "
+                        f"{w_packed.dtype}, {w_scale.dtype}")
+    if out_dtype not in _GEMM_DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    # the kernel reads 16-byte vectors: contiguous, 16-byte aligned operands
+    x, w_packed, w_scale = (t.contiguous() for t in (x, w_packed, w_scale))
+    x, w_packed = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (x, w_packed))
+    (M, K), (K2, N) = x.shape, w_packed.shape
+    plan = decode_plan(M, N, K2, _sm_count(x.device))
+    xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    ws = torch.empty((plan.ws_values,), dtype=torch.int32, device=x.device)
+    # the slices' counters, then the rows and the blocks done
+    cnt = _zeroed_counters(x.device, plan.slices + 2)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    _count(matmul_w4a8_fusedq, "decode", x, out)
+    _build.launch("aimet_w4a8_fusedq_decode_gemm", x.data_ptr(),
+                  xq.data_ptr(), sx.data_ptr(), w_packed.data_ptr(),
+                  w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  cnt.data_ptr(), M, N, K2, plan.blocks, ws.numel(),
+                  cnt.numel(), int(x.dtype == torch.bfloat16),
+                  int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(x.device))
+    return out, xq, sx
+
+
+def matmul_w4a8_fusedq(x: torch.Tensor, w_packed: torch.Tensor,
+                       w_scale: torch.Tensor, *,
+                       block_m: Optional[int] = None,
+                       block_n: Optional[int] = None,
+                       out_dtype: Optional[torch.dtype] = None,
+                       return_codes: bool = False):
+    """W4A8 with the per-row activation quantization in the same call (the
+    counterpart of the JAX package's ``matmul_w4a8_fusedq``): x (M, K)
+    f32/bf16 @ split-half INT4 weights (K//2, N) int8 with per-column
+    scales (N,) f32 -> (M, N) ``out_dtype`` (default x's dtype). With
+    ``return_codes`` it returns (out, codes (M, K) int8, scales (M,) f32).
+    ``block_m`` and ``block_n`` are accepted for the JAX signature and
+    unused: the port plans its own tiles.
+
+    On CUDA tensors at decode M (:func:`w4a8_fusedq_decode_route`) it makes
+    one launch, K2's fused decode kernel (``csrc/w4a8_gemm.cu``: K1's
+    quantizer as its first phase, then K2's decode route; counted in
+    ``matmul_w4a8_fusedq.launches`` and ``.routes["decode"]``, not in K1's
+    or K2's counts); elsewhere K1 (:func:`quantize_activation_per_row`)
+    then K2 (:func:`w4a8_gemm`). On CPU tensors: the plain versions. All
+    give the same bits."""
+    del block_m, block_n
     if x.dim() != 2 or w_packed.dim() != 2:
         raise ValueError("x must be (M, K) and w_packed (K//2, N)")
     if x.shape[1] != 2 * w_packed.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} does not match w_packed "
                          f"{tuple(w_packed.shape)}")
-    x_q, x_scale = quantize_activation_per_row(x)
-    return w4a8_gemm(x_q, x_scale, w_packed, w_scale, out_dtype or x.dtype)
+    out_dtype = out_dtype or x.dtype
+    (M, _), (K2, N) = x.shape, w_packed.shape
+    if on_cuda(x, w_packed, w_scale) and w4a8_fusedq_decode_route(
+            M, N, K2, x.dtype):
+        if w_scale.shape != (N,):
+            raise ValueError(f"w_scale must be ({N},), got "
+                             f"{tuple(w_scale.shape)}")
+        out, x_q, x_scale = _launch_w4a8_fusedq_decode(x, w_packed, w_scale,
+                                                       out_dtype)
+    else:
+        x_q, x_scale = quantize_activation_per_row(x)
+        out = w4a8_gemm(x_q, x_scale, w_packed, w_scale, out_dtype)
+    return (out, x_q, x_scale) if return_codes else out
+
+
+matmul_w4a8_fusedq.launches = 0
+matmul_w4a8_fusedq.routes = {"decode": 0}
+matmul_w4a8_fusedq.shapes = {}
+
+
+def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
+                w_scale: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """W4A8 matmul: x (M, K) f32/bf16 @ split-half INT4 weights
+    (K//2, N) int8 with per-column scales (N,) f32 -> (M, N) ``out_dtype``
+    (default x's dtype): :func:`matmul_w4a8_fusedq` (on CUDA tensors one
+    fused launch at decode M, else K1 then K2; on CPU tensors the plain
+    versions; the same bits)."""
+    return matmul_w4a8_fusedq(x, w_packed, w_scale, out_dtype=out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -467,6 +552,26 @@ def matmul_w8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     :func:`matmul_w8_torch`."""
     return _weight_only("aimet_w8_gemm", x, w_q, w_scale, out_dtype, False,
                         matmul_w8)
+
+
+def matmul_w4_decode(x: torch.Tensor, w_packed: torch.Tensor,
+                     w_scale: torch.Tensor, *,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Decode-shape weight-only INT4 (the JAX package's single tuned decode
+    dispatch, ``matmul_w4_decode``): KW4's decode weight-streaming route
+    (:func:`w4_decode_route`: a bf16 x of 1..64 rows, K/2 and N multiples
+    of 16), which plans its own split (:func:`decode_plan`); other shapes
+    go to :func:`matmul_w4`'s other routes. The same bits as
+    :func:`matmul_w4`, which picks the same route."""
+    return matmul_w4(x, w_packed, w_scale, out_dtype)
+
+
+def decode_blocks(n_out: int) -> Tuple[int, int]:
+    """The JAX package's (block_n, packed block_k) for weight-only decode
+    shapes of ``n_out`` columns, for callers that pass them on. No port
+    kernel takes them: the decode routine cuts its own slices and stages
+    (:func:`decode_plan`)."""
+    return (4096 if n_out >= 16384 else 2048), 512
 
 
 matmul_w4.launches = 0
@@ -987,21 +1092,77 @@ def _q8_buffers(x, w_q, dtype):
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
+# the output tiles (128 x 256) from which KQ8's tile beats its block tile
+# (which splits K), measured on the H100 (chip_smoke.q8_tile_sweep,
+# PERF.md): faster from 16 at K 1152, 4096 and 14336; at 12 faster at K =
+# 4096 and slower at K = 14336; at 8 slower but at K = 1152, N = 512
+Q8_TILE_MIN_TILES = 16
+
+
+def q8_tile_route(M: int, N: int, K: int) -> bool:
+    """Whether KQ8's f32 / bf16 entries take the TMA + ``wgmma`` tile: M
+    from ``TILE_MIN_M`` up, K and N multiples of 16 (the codes' TMA boxes
+    start 16-byte aligned: an unaligned box hangs the load) and at least
+    ``Q8_TILE_MIN_TILES`` output tiles (:func:`tile_count`; below, the
+    block tile, which splits K, is faster)."""
+    return (M >= TILE_MIN_M and K % 16 == 0 and N % 16 == 0
+            and tile_count(M, N, torch.int8) >= Q8_TILE_MIN_TILES)
+
+
+def _q8_vectors(*vs):
+    """KQ8's f32 vectors, contiguous and 16-byte aligned (None stays
+    None)."""
+    out = []
+    for v in vs:
+        if v is not None:
+            v = v.to(torch.float32).contiguous()
+            v = v if v.data_ptr() % 16 == 0 else v.clone()
+        out.append(v)
+    return out
+
 
 def _launch_q8(x_q, x_scale, w_q, w_scale, col_bias, dtype):
     if x_q.dtype != torch.int8:
         raise TypeError(f"x_q must be int8, got {x_q.dtype}")
     x_q = x_q.contiguous()
     x_q = x_q if x_q.data_ptr() % 16 == 0 else x_q.clone()
+    (M, K), N = x_q.shape, w_q.shape[1]
+    if dtype != torch.int32 and q8_tile_route(M, N, K):
+        out = torch.empty((M, N), dtype=dtype, device=x_q.device)
+        return _launch_q8_tile(x_q, x_scale, w_q, w_scale, col_bias, out)
+    return _launch_q8_s8_tile(x_q, x_scale, w_q, w_scale, col_bias, dtype)
+
+
+def _launch_q8_s8_tile(x_q, x_scale, w_q, w_scale, col_bias, dtype):
+    """KQ8's ``mma.sync`` block tile (any entry) on a contiguous, aligned
+    x_q, splitting K by :func:`decode_splits`."""
     w_q, out, ws, splits = _q8_buffers(x_q, w_q, dtype)
-    ptrs = [0 if t is None else t.to(torch.float32).contiguous()
-            for t in (x_scale, w_scale, col_bias)]
-    sx, sw, cb = (p if isinstance(p, int) else p.data_ptr() for p in ptrs)
+    sx, sw, cb = (0 if t is None else t.data_ptr()
+                  for t in _q8_vectors(x_scale, w_scale, col_bias))
     (M, K), N = x_q.shape, w_q.shape[1]
     _count(matmul_q8, "s8_tile", x_q, out)
     _build.launch("aimet_q8_gemm", x_q.data_ptr(), sx, w_q.data_ptr(), sw,
                   cb, out.data_ptr(), ws.data_ptr(), M, N, K, splits,
                   _OUT_KIND[dtype], _build.stream_ptr(x_q.device))
+    return out
+
+
+def _launch_q8_tile(x_q, x_scale, w_q, w_scale, col_bias, out):
+    """KQ8's TMA + ``wgmma`` tile on a contiguous, aligned x_q: the codes
+    x_q (M, K) int8 times w_q (K, N) int8, then (acc * sx) * sw or
+    fma(acc * sx, sw, col_bias), into ``out`` (f32 or bf16)."""
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"w_q must be int8, got {w_q.dtype}")
+    w_q = w_q.contiguous()
+    w_q = w_q if w_q.data_ptr() % 16 == 0 else w_q.clone()
+    sx, sw, cb = _q8_vectors(x_scale, w_scale, col_bias)
+    (M, K), N = x_q.shape, w_q.shape[1]
+    _count(matmul_q8, "tile", x_q, out)
+    _build.launch("aimet_q8_tile_gemm", x_q.data_ptr(), sx.data_ptr(),
+                  w_q.data_ptr(), sw.data_ptr(),
+                  0 if cb is None else cb.data_ptr(), out.data_ptr(), M, N,
+                  K, int(out.dtype == torch.bfloat16),
+                  _build.stream_ptr(x_q.device))
     return out
 
 
@@ -1011,9 +1172,15 @@ def matmul_q8(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     """int8 x int8 -> int32 matmul with a per-row x per-column scale
     epilogue: x_q (M, K) int8, x_scale (M,) f32, w_q (K, N) int8, w_scale
     (N,) f32, optional col_bias (N,) f32 -> (M, N) ``out_dtype`` (f32 or
-    bf16). On CUDA tensors it launches kernel KQ8 (``csrc/w8a8_gemm.cu``,
-    splitting K by :func:`decode_splits`); on CPU tensors it takes
-    :func:`matmul_q8_torch`. Both give the same bits."""
+    bf16). On CUDA tensors it launches kernel KQ8 (``csrc/w8a8_gemm.cu``)
+    by one of two routes picked from the shapes: above 64 rows with K and
+    N multiples of 16 and at least ``Q8_TILE_MIN_TILES`` output tiles
+    (:func:`q8_tile_route`) the TMA + ``wgmma`` tile
+    (``csrc/wgmma_wo_tile.cuh``, int8 MMAs, no split K), else its block
+    tile, splitting K by :func:`decode_splits`; ``.routes`` and ``.shapes``
+    count them (the int32 entry's K-major route as ``int32_kmajor``). On
+    CPU tensors it takes :func:`matmul_q8_torch`. All give the same
+    bits."""
     _check_q8(x_q, w_q, w_scale, col_bias)
     if x_scale.shape != (x_q.shape[0],):
         raise ValueError(f"x_scale must be ({x_q.shape[0]},), got "
@@ -1028,7 +1195,7 @@ def matmul_q8(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
 
 
 matmul_q8.launches = 0
-matmul_q8.routes = {"tile": 0, "s8_tile": 0}
+matmul_q8.routes = {"tile": 0, "s8_tile": 0, "int32_kmajor": 0}
 matmul_q8.shapes = {}
 
 
@@ -1076,7 +1243,7 @@ def int8_matmul_int32(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     splits = q8_kmajor_splits(M, N, K)
     out = (torch.zeros if splits > 1 else torch.empty)(
         (M, N), dtype=torch.int32, device=x_q.device)
-    _count(matmul_q8, "tile", x_q, out)
+    _count(matmul_q8, "int32_kmajor", x_q, out)
     _build.launch("aimet_q8_int32_kmajor", x_q.data_ptr(), x_q.stride(0),
                   wt.data_ptr(), wt.stride(0), out.data_ptr(), M, N, K,
                   splits, _build.stream_ptr(x_q.device))
@@ -1090,11 +1257,12 @@ def matmul_w8a8_fusedq(x: torch.Tensor, w_q: torch.Tensor,
     """Full INT8 with the per-row dynamic activation quantization in f32:
     x (M, K) f32/bf16, w_q (K, N) int8, w_scale (N,) f32 -> (M, N)
     ``out_dtype`` (default x's dtype). On CUDA tensors it launches K1
-    (:func:`quantize_activation_per_row`) then KQ8 (:func:`matmul_q8`),
-    counted once here as KW8A8 and once in each of theirs; on CPU tensors
-    it takes :func:`matmul_w8a8_torch`. Both give the same bits. (The TPU
-    kernel quantizes each row into VMEM so the codes never reach HBM; here
-    they take one extra write and read of M x K bytes, ROADMAP queue D.)"""
+    (:func:`quantize_activation_per_row`) then KQ8 (:func:`matmul_q8`, on
+    its tile at prefill M), counted once here as KW8A8 and once in each of
+    theirs; on CPU tensors it takes :func:`matmul_w8a8_torch`. Both give
+    the same bits. (The TPU kernel quantizes each row into VMEM so the
+    codes never reach HBM; here they take one extra write and read of M x
+    K bytes.)"""
     _check_q8(x, w_q, w_scale)
     out_dtype = out_dtype or x.dtype
     if not on_cuda(x, w_q, w_scale):

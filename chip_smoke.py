@@ -11,12 +11,15 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
     python3 chip_smoke.py --w4-slice         # KW4, the w4 prefill and step
     python3 chip_smoke.py --prefill-slice    # KW8 and K2 at prefill M
     python3 chip_smoke.py --lowered-slice    # KSQ and KW4G, lowered w8a8 / w4g
+    python3 chip_smoke.py --q8-slice         # KQ8 and K1 / K2 at decode M
 
 1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
    ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
    ``w4_gemm``, KW8 ``w8_gemm`` and KW4G ``w4_grouped_gemm``
    (``wo_gemm.cu``), KSQ ``w8a8_staticq`` (``w8a8_staticq.cu``), KQ8
-   ``q8_gemm`` (``w8a8_gemm.cu``), KFL ``fused_wo_mlp``, KSOL
+   ``q8_gemm`` (``w8a8_gemm.cu``; its float entries' TMA + ``wgmma``
+   tile listed as ``q8_tile``), K2's fused decode kernel ``w4a8_fusedq``
+   (``w4a8_gemm.cu``: K1 folded in), KFL ``fused_wo_mlp``, KSOL
    ``sol_decode_layer`` and KDL ``fused_decode_layer`` (``fused_layer.cu``;
    KDL is KSOL's code, weight-only, counted on its own), KGQA
    ``gqa_decode_attention`` (``gqa_attention.cu``); KW8A8 ``w8a8_fusedq``
@@ -30,8 +33,13 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    bound the card's peaks set and, beside the int8 GEMMs,
    ``torch._int_mm``; K1 at decode M (16 and 64 rows); K2 at decode M (1,
    16, 32, 64 at 4096 x 28672 and the padded ``lm_head``, bit-exact
-   before timing); KW4 on each of its routes at the main paths' shapes
-   (decode M 1, 16, 32, 64 at 4096 x 28672, the padded ``lm_head`` and
+   before timing), and K2's fused decode kernel at the same shapes with
+   bf16 and f32 x (codes, scales and outputs bit-exact with K1 + K2's
+   decode route and the plain version, one launch, timed beside K1 +
+   K2); KQ8's tile bit-exact at 14336 x 4096 and the 3 x 3 conv patches
+   with and without a bias, f32 and bf16 out, and through ``matmul_w8a8``
+   at M = 4096, timed beside its block tile; KW4 on each of its routes
+   at the main paths' shapes (decode M 1, 16, 32, 64 at 4096 x 28672, the padded ``lm_head`` and
    layer 0's QKV; M = 4096 at the four layer projections and the
    ``lm_head``; f32 x at the lowered ``lm_head``), each within KW4's share
    of its plain version and repeating its bits before it is timed; KW8 and
@@ -56,7 +64,9 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
      requests through ``ContinuousBatcher(num_slots=16, step_chunk=4)``
      (KW4 + K3 + KFL);
    - ``w4a8`` on the same weights: the same phases (decode through KSOL
-     with int8 dots, the batcher per op through K1 + K2 + K3);
+     with int8 dots, the batcher per op through K2's fused decode kernel
+     + K3, K1 + K2 in its prefills; the per-slot step must launch the
+     fused kernel 4 x 32 + 1 times and K1 never);
    - the decode step of ``scripts/sweep_r5_merged.py`` (``build_step``)
      on the same w4 weights: a 512-token prefill of batch 16, then 8 steps
      of one ``fused_decode_layer`` a layer (KDL, flat caches, gate|up one
@@ -96,8 +106,9 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    (the dynamic full-INT8 ops API: K1 + KQ8, equal to its plain
    version);
    then a MobileNetV2 lowered in ``w8a8`` (its depthwise convs);
-7. times the GEMM routes (KW4, KW8, KW4G, K2) alone at every shape they
-   ran at on the main paths (``route_shape_gaps``) and prints the
+7. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
+   decode kernel) alone at every shape they ran at on the main paths
+   (``route_shape_gaps``) and prints the
    measurements, each kernel route's redesign score (its launches on the
    main paths, counted by the wrappers per route and shape, times its ms -
    bound there: ``route_ranking``), the card's
@@ -123,7 +134,15 @@ prefill of 8 x 512 and the w4a8 batcher; ``--lowered-slice`` for KSQ and
 KW4G (``lowered_slice``): both at the lowered forward's linears, their
 tiles' crossings with the block tiles (``new_tile_sweep``), KW8's library
 column at the prefill shapes, and the lowered w8a8 and w4g forwards of a
-float Llama-3-8B (32 layers, 8 x 512 tokens), 3 profiled each.
+float Llama-3-8B (32 layers, 8 x 512 tokens), 3 profiled each;
+``--q8-slice`` for KQ8 and K1 / K2 at decode M (``q8_slice``, through
+``matmul_q8``, ``matmul_w8a8`` and ``matmul_w4a8`` only): their rows with
+digests of the outputs (and of K1's and KSOL's int8 bits) to compare two
+trees, KQ8's tile crossing (``q8_tile_sweep``) and the fused decode
+kernel beside K1 + K2 at the step's shapes (``fused_step_rows``) where
+the tree has them, the ResNet-50 ops-API forward and the w4a8 per-slot
+step (profiled, then its wall time unprofiled: ``step_ab``, the fused
+route against K1 + K2 in one process where the tree has both).
 """
 from __future__ import annotations
 
@@ -186,6 +205,14 @@ SOURCES = {
                     "aimet_tpu/ops/int_matmul.py:456"),
     "q8_gemm": ("aimet_tpu_torch/csrc/w8a8_gemm.cu",
                 "aimet_tpu/ops/int_matmul.py:378"),
+    # KQ8's float entries on the TMA + wgmma tile (kind kQ8 of
+    # wgmma_wo_tile.cuh, C entry in w8a8_gemm.cu): KQ8's "tile" route,
+    # listed on its own (ROUTE_KERNELS)
+    "q8_tile": ("aimet_tpu_torch/csrc/w8a8_gemm.cu",
+                "aimet_tpu/ops/int_matmul.py:378"),
+    # K1 folded into K2's decode route (matmul_w4a8_fusedq at decode M)
+    "w4a8_fusedq": ("aimet_tpu_torch/csrc/w4a8_gemm.cu",
+                    "aimet_tpu/ops/int_matmul.py:692"),
     "fused_decode_layer": ("aimet_tpu_torch/csrc/fused_layer.cu",
                            "aimet_tpu/ops/fused_layer.py:457, "
                            "aimet_tpu/ops/fused_layer.py:502"),
@@ -228,15 +255,16 @@ LOWERED_LAYER_KN = ((4096, 4096), (4096, 1024), (4096, 14336),
                     (14336, 4096))
 # KW4G's timed rows, group 128: (tag, M, K, N, x dtype, out dtype): 4096 x
 # 14336 with a bf16 x, at prefill and decode M; the lowered forward's
-# layer linears as it calls them (bf16 x, f32 out); an f32 x at 4096 x
-# 14336
+# layer linears as it calls them (bf16 x, f32 out), and with an f32 x
 W4G_ROWS = (("prefill", 4096, 4096, 14336, "bf16", "bf16"),
             ("decode", 16, 4096, 14336, "bf16", "bf16"),
             ("decode M=32", 32, 4096, 14336, "bf16", "bf16"),
             ("decode M=64", 64, 4096, 14336, "bf16", "bf16")) + tuple(
     (f"lowered {k}x{n}", 4096, k, n, "bf16", "f32")
     for k, n in LOWERED_LAYER_KN) + (
-    ("f32 4096x14336", 4096, 4096, 14336, "f32", "f32"),)
+    ("f32 4096x14336", 4096, 4096, 14336, "f32", "f32"),) + tuple(
+    (f"f32 {k}x{n}", 4096, k, n, "f32", "f32")
+    for k, n in LOWERED_LAYER_KN if (k, n) != (4096, 14336))
 # KSQ's timed rows: (label, M, K, N, x dtype), the output in x's dtype as
 # the lowering asks: the lowered forward's layer linears (bf16 x) and its
 # lm_head (f32 x), an f32 x at 14336 x 4096, and decode M
@@ -284,7 +312,6 @@ K1_DECODE_SHAPES = ((16, 4096), (64, 4096))
 # are not
 MAIN_ROWS = {
     "act_quant[decode M=16]",
-    "q8_gemm[int32, conv 3x3]", "q8_gemm[w_down]",
     "w8a8_fusedq[conv 3x3]",
     "decode_attention", "fused_wo_mlp[next_qkv]",
     "sol_decode_layer[w4]", "sol_decode_layer[w4a8]",
@@ -299,13 +326,16 @@ ROUTE_LAUNCHES = {}
 # paths (their wrappers count launches by shape: ``fn.shapes``), and those
 # launches: (kernel, route, M, N, K, x dtype, out dtype, group) -> count
 SHAPE_KERNELS = ("w4_gemm", "w8_gemm", "w4_grouped_gemm", "w4a8_gemm",
-                 "w8a8_staticq")
+                 "w8a8_staticq", "q8_gemm", "w4a8_fusedq")
+# kernels of the kernels line that are one route of a wrapper: name ->
+# (the wrapper's kernel name, route); their launches are that route's
+ROUTE_KERNELS = {"q8_tile": ("q8_gemm", "tile")}
 ROUTE_SHAPES = {}
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
     "w4": ("w4_gemm", "sol_decode_layer", "decode_attention",
            "fused_wo_mlp"),
-    "w4a8": ("act_quant", "w4a8_gemm", "sol_decode_layer",
+    "w4a8": ("act_quant", "w4a8_gemm", "w4a8_fusedq", "sol_decode_layer",
              "decode_attention"),
     "w8": ("w8_gemm", "decode_attention"),
     "decode_step": ("w4_gemm", "fused_decode_layer"),
@@ -646,16 +676,46 @@ def route_shape_gaps(torch, tim):
     fns = {"w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
            "w4_grouped_gemm": tim.matmul_w4_grouped,
            "w4a8_gemm": tim.w4a8_gemm,
-           "w8a8_staticq": tim.matmul_w8a8_staticq}
-    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+           "w8a8_staticq": tim.matmul_w8a8_staticq,
+           "q8_gemm": tim.matmul_q8,
+           "w4a8_fusedq": tim.matmul_w4a8_fusedq}
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int32": torch.int32}
     out = {}
     for key in sorted(k for k in ROUTE_SHAPES if k[0] in fns):
         kernel, route, m, n, k, xt, ot, group = key
         fn, odt = fns[kernel], dt[ot]
-        rows_ = k if kernel in ("w8_gemm", "w8a8_staticq") else k // 2
+        rows_ = (k if kernel in ("w8_gemm", "w8a8_staticq", "q8_gemm")
+                 else k // 2)
         ws = [torch.randint(-128, 128, (rows_, n), dtype=torch.int8,
                             generator=g, device="cuda") for _ in range(3)]
-        if kernel == "w8a8_staticq":
+        if kernel == "q8_gemm" and ot == "int32":
+            # the int32 entry; on its K-major route in the integer conv's
+            # layout (patch rows padded to 16 bytes, the weight K-major)
+            x = torch.randint(-128, 128, (m, k), dtype=torch.int8,
+                              generator=g, device="cuda")
+            if route == "int32_kmajor":
+                kp = -(-k // 16) * 16
+                x = torch.zeros((m, kp), dtype=torch.int8,
+                                device="cuda")[:, :k].copy_(x)
+                ws = [torch.zeros((n, kp), dtype=torch.int8,
+                                  device="cuda")[:, :k].copy_(w_.t()).t()
+                      for w_ in ws]
+            call = lambda i: tim.int8_matmul_int32(x, ws[i % 3])
+            x_bytes, peak, sc = m * k, INT8_OPS, torch.empty(0)
+        elif kernel == "q8_gemm":
+            x = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              generator=g, device="cuda")
+            sx = torch.rand((m,), generator=g, device="cuda")
+            sc = torch.rand((n,), generator=g, device="cuda") * 1e-3
+            call = lambda i: fn(x, sx, ws[i % 3], sc, out_dtype=odt)
+            x_bytes, peak = m * k + m * 4, INT8_OPS
+        elif kernel == "w4a8_fusedq":
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt[xt])
+            sc = torch.rand((n,), generator=g, device="cuda") * 1e-3
+            call = lambda i: fn(x, ws[i % 3], sc, out_dtype=odt)
+            x_bytes, peak = x.numel() * x.element_size(), INT8_OPS
+        elif kernel == "w8a8_staticq":
             x = torch.randn((m, k), generator=g, device="cuda").to(dt[xt])
             sc = torch.rand((2, n), generator=g, device="cuda") * 1e-3
             enc = dict(inv_delta=50.0, offset=-128.0, num_steps=255.0,
@@ -687,7 +747,7 @@ def route_shape_gaps(torch, tim):
         assert fn.routes[route] == before + 1, (key, "took another route")
         ms, _ = event_ms(call, 5)
         b, _ = bound_ms(x_bytes + rows_ * n + sc.numel() * 4
-                        + m * n * (4 if ot == "float32" else 2),
+                        + m * n * (2 if ot == "bfloat16" else 4),
                         (2 * m * n * k, peak))
         out[key] = (ms, b)
         del ws, x, sc
@@ -764,6 +824,64 @@ def k2_decode_rows(torch, tim, g, gemm_row, note):
                                                torch.bfloat16),
                  K2_KERNELS, m * k + m * 4 + k // 2 * n, INT8_OPS)
         del ws, got, want
+
+
+def fused_decode_rows(torch, tim, g, rows, gemm_row, note):
+    """K2's fused decode kernel (``matmul_w4a8_fusedq`` at decode M) at
+    each (M, K, N) of K2_DECODE_SHAPES, bf16 and f32 x: one launch, its
+    codes and scales K1's and its output K2's decode route's on them and
+    the plain version's, bit for bit, repeated calls the same bits; then
+    timed with 3 weight copies rotated (bf16 x; f32 x at M = 16), beside
+    K1 + K2's decode route on the same inputs (``k1_k2_ms``)."""
+    for m, k, n in K2_DECODE_SHAPES:
+        ws = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 0.02 \
+            / k ** 0.5
+        for xt in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=g, device="cuda").to(xt)
+            before = (tim.matmul_w4a8_fusedq.launches,
+                      tim.quantize_activation_per_row.launches)
+            got, q, s_ = tim.matmul_w4a8_fusedq(x, ws[0], sw,
+                                                out_dtype=torch.bfloat16,
+                                                return_codes=True)
+            assert (tim.matmul_w4a8_fusedq.launches,
+                    tim.quantize_activation_per_row.launches) == (
+                        before[0] + 1, before[1]), ("fused: one launch", m)
+            kq, ks = tim.quantize_activation_per_row(x)
+            assert torch.equal(q, kq) and torch.equal(s_, ks), \
+                ("fused codes", m, k, n, xt)
+            k2 = tim.w4a8_gemm(kq, ks, ws[0], sw, torch.bfloat16)
+            want = tim.matmul_w4a8_torch(x, ws[0], sw, torch.bfloat16)
+            note("w4a8_fusedq", got, want)
+            assert torch.equal(got, k2) and torch.equal(got, want), \
+                ("fused", m, k, n, xt)
+            for _ in range(2):
+                assert torch.equal(tim.matmul_w4a8_fusedq(
+                    x, ws[0], sw, out_dtype=torch.bfloat16), got), \
+                    ("fused repeat", m, k, n, xt)
+            log(f"w4a8_fusedq at M={m}, K={k}, N={n}, {xt} x: one launch; "
+                "codes, scales and output bit-exact with K1 + K2's decode "
+                "route and the plain version; repeated calls the same bits")
+            if xt == torch.float32 and m != 16:
+                continue
+            tag = "" if xt == torch.bfloat16 else " f32 x"
+            label = ((f"w4a8_fusedq[decode M={m}{tag}]" if n == 28672 else
+                      f"w4a8_fusedq[lm_head M={m}{tag}]"))
+            gemm_row(label, "w4a8_fusedq", m, k, n,
+                     lambda i: tim.matmul_w4a8_fusedq(
+                         x, ws[i % 3], sw, out_dtype=torch.bfloat16),
+                     lambda i: tim.matmul_w4a8_torch(x, ws[i % 3], sw,
+                                                     torch.bfloat16),
+                     ["w4a8_fusedq_decode"], x.numel() * x.element_size()
+                     + k // 2 * n, INT8_OPS)
+
+            def k1_k2(i):
+                xq, sx = tim.quantize_activation_per_row(x)
+                return tim.w4a8_gemm(xq, sx, ws[i % 3], sw, torch.bfloat16)
+            rows[label]["k1_k2_ms"], rows[label]["k1_k2_call_ms"] = timed(
+                k1_k2, 20, ["act_quant_kernel", "w4a8_decode_kernel"])
+        del ws, x, got, want, k2
 
 
 def attn_inputs(torch, g, B, S, pos, H=32, KH=8, D=128):
@@ -987,6 +1105,7 @@ def check_kernels(torch, ops):
 
     gemm_row = gemm_timer(rows)
     k2_decode_rows(torch, tim, g, gemm_row, note)
+    fused_decode_rows(torch, tim, g, rows, gemm_row, note)
     kw4_rows(torch, tim, g, rows, gemm_row, note)
     for m, tag in ((16, "decode"), (4096, "prefill")):
         k, n = 4096, 28672
@@ -1493,6 +1612,43 @@ def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
     w8_f32_lm_head(torch, tim, g, rows, gemm_row, note)
 
 
+def q8_tile_checks(torch, tim, xq, sx, w, sw, cb, note, what):
+    """KQ8's float entries on its tile (the route must take it) bit-exact
+    against matmul_q8_torch, with and without the column bias cb, f32 and
+    bf16 out; a repeated call the same bits."""
+    (m, k), n = xq.shape, w.shape[1]
+    assert tim.q8_tile_route(m, n, k), ("KQ8 tile route", m, k, n)
+    for bias in (None, cb):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            tiles = tim.matmul_q8.routes["tile"]
+            got = tim.matmul_q8(xq, sx, w, sw, bias, out_dtype)
+            assert tim.matmul_q8.routes["tile"] == tiles + 1
+            want = tim.matmul_q8_torch(xq, sx, w, sw, bias, out_dtype)
+            note("q8_tile", got, want)
+            assert torch.equal(got, want), ("KQ8 tile", what, bias is None,
+                                            out_dtype)
+            assert torch.equal(tim.matmul_q8(xq, sx, w, sw, bias, out_dtype),
+                               got), ("KQ8 tile repeat", what)
+    log(f"KQ8 q8_tile at {what} (M={m} K={k} N={n}): bit-exact with and "
+        "without col_bias, f32 and bf16 out; repeated calls the same bits")
+
+
+def q8_tile_row(torch, tim, rows, gemm_row, label, xq, sx, w, sw, out_dtype):
+    """KQ8's tile timed at (xq, w) as ``label``, beside the block tile it
+    replaces on the same operands (``s8_tile_ms``, with its zeroed split-K
+    buffer where it splits)."""
+    (m, k), n = xq.shape, w.shape[1]
+    gemm_row(label, "q8_tile", m, k, n,
+             lambda i: tim.matmul_q8(xq, sx, w, sw, out_dtype=out_dtype),
+             lambda i: tim.matmul_q8_torch(xq, sx, w, sw,
+                                           out_dtype=out_dtype),
+             ["q8_"], m * k + k * n, INT8_OPS, vec_bytes=(m + n) * 4,
+             out_bytes=m * n * (2 if out_dtype == torch.bfloat16 else 4))
+    rows[label]["s8_tile_ms"], _ = timed(
+        lambda i: tim._launch_q8_s8_tile(xq, sx, w, sw, None, out_dtype), 5,
+        ["q8_", "FillFunctor"])
+
+
 def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
     """KW8A8 and KQ8 (with and without a column bias, and its int32 entry)
     against their plain versions, bit for bit, at Llama-3-8B prefill shapes
@@ -1511,6 +1667,7 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
         return x, w, sw
 
     shapes = ((4096, 4096, 6144), (4096, 4096, 28672), (4096, 14336, 4096))
+    tiles = tim.matmul_q8.routes["tile"]
     for m, k, n in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             x, w, sw = operands(m, k, n, dtype)
@@ -1520,24 +1677,22 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
             assert got.dtype == dtype and torch.equal(got, want), \
                 ("matmul_w8a8", m, k, n, dtype)
             del x, w, got, want
-    log("KW8A8 w8a8_fusedq (K1 + KQ8): matmul_w8a8 bit-exact at M=4096 x "
-        f"(K, N) in {[s_[1:] for s_ in shapes]}, bf16 and f32 x")
+    assert tim.matmul_q8.routes["tile"] == tiles + 2 * len(shapes), \
+        "KW8A8 at M=4096 off KQ8's tile"
+    log("KW8A8 w8a8_fusedq (K1 + KQ8's tile): matmul_w8a8 bit-exact at "
+        f"M=4096 x (K, N) in {[s_[1:] for s_ in shapes]}, bf16 and f32 x")
     m, k, n = 4096, 14336, 4096
     xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g,
                        device=dev)
     _, w, sw = operands(1, k, n)
     sx = torch.rand((m,), generator=g, device=dev) * 1e-2
     cb = torch.randn((n,), generator=g, device=dev)
-    for bias in (None, cb):
-        for out_dtype in (torch.float32, torch.bfloat16):
-            got = tim.matmul_q8(xq, sx, w, sw, bias, out_dtype)
-            want = tim.matmul_q8_torch(xq, sx, w, sw, bias, out_dtype)
-            note("q8_gemm", got, want)
-            assert torch.equal(got, want), ("KQ8", bias is None, out_dtype)
-    got = tim.int8_matmul_int32(xq, w)
-    assert torch.equal(got, tim.int8_matmul_int32_torch(xq, w)), "KQ8 int32"
-    log(f"KQ8 q8_gemm: bit-exact at M={m} K={k} N={n} with and without "
-        "col_bias, f32 and bf16 out, and its int32 entry")
+    q8_tile_checks(torch, tim, xq, sx, w, sw, cb, note, "w_down")
+    got, want = tim.int8_matmul_int32(xq, w), tim.int8_matmul_int32_torch(
+        xq, w)
+    note("q8_gemm", got, want)
+    assert torch.equal(got, want), "KQ8 int32"
+    log(f"KQ8 q8_gemm: its int32 entry bit-exact at M={m} K={k} N={n}")
     del xq, got
     # a ResNet-50 3x3 conv (layer2's) through conv2d_w8a8: im2col + K1 + KQ8
     x = torch.randn((32, 128, 28, 28), generator=g, device=dev)
@@ -1549,9 +1704,11 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
     note("w8a8_fusedq", got, want)
     assert torch.equal(got, want), "conv2d_w8a8"
     p, _ = tic._patches(x, (3, 3), (1, 1), "SAME")
-    pq, _ = tim.quantize_activation_per_row(p)
+    pq, psx = tim.quantize_activation_per_row(p)
     assert torch.equal(tim.int8_matmul_int32(pq, wq),
                        tim.int8_matmul_int32_torch(pq, wq)), "KQ8 int32 conv"
+    q8_tile_checks(torch, tim, pq, psx, wq, s_, cb[:wq.shape[1]], note,
+                   "conv 3x3")
     log("conv2d_w8a8 (32 x 128 x 28 x 28, 3x3 -> 128): im2col + K1 + KQ8 "
         "bit-exact with the plain version; KQ8's int32 entry on its codes "
         "too")
@@ -1602,12 +1759,9 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
     m, k, n = 4096, 14336, 4096
     xq, sx = tim.quantize_activation_per_row(operands(m, k, 1)[0])
     _, w, sw = operands(1, k, n)
-    gemm_row("q8_gemm[w_down]", "q8_gemm", m, k, n,
-             lambda i: tim.matmul_q8(xq, sx, w, sw, out_dtype=torch.bfloat16),
-             lambda i: tim.matmul_q8_torch(xq, sx, w, sw,
-                                           out_dtype=torch.bfloat16),
-             ["q8_"], m * k + k * n, INT8_OPS, vec_bytes=(m + n) * 4)
-    int_mm("q8_gemm[w_down]", xq, w)
+    q8_tile_row(torch, tim, rows, gemm_row, "q8_tile[w_down]", xq, sx, w, sw,
+                torch.bfloat16)
+    int_mm("q8_tile[w_down]", xq, w)
     del xq, w
     # the conv through conv2d_w8a8: K1 + KQ8 on its f32 patch matrix
     M, K = p.shape
@@ -1617,6 +1771,9 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
              ["act_quant_kernel", "q8_"], M * K * 4 + wq.numel(), INT8_OPS,
              out_bytes=M * wq.shape[1] * 4)
     int_mm("w8a8_fusedq[conv 3x3]", pq, wq)
+    q8_tile_row(torch, tim, rows, gemm_row, "q8_tile[conv 3x3]", pq, psx, wq,
+                s_, torch.float32)
+    int_mm("q8_tile[conv 3x3]", pq, wq)
     # the int32 entry at the conv's patch matrix, with the weight K-major
     # as the integer conv passes it (the TMA + wgmma route); torch._int_mm
     # computes the same function, so it is this row's library call; the
@@ -1910,8 +2067,13 @@ def serve(torch, llm, cfg, mode, counters, g, decode_batches):
             c0 = counts()
             logits, caches = llm.decode(tok, caches, slots)
             assert torch.isfinite(logits).all(), "per-slot logits"
-            log(f"[{mode}] launches per step at per-slot positions "
-                f"{diff(c0, counts())}")
+            step = diff(c0, counts())
+            log(f"[{mode}] launches per step at per-slot positions {step}")
+            if mode == "w4a8":
+                # four projections a layer and the lm_head, each one fused
+                # launch at decode M: K1 never runs in the step
+                assert step.get("act_quant", 0) == 0 and \
+                    step.get("w4a8_fusedq") == 4 * cfg.n_layers + 1, step
             # where a decode step's time goes: device busy share and the
             # device time of each kernel, over 4 profiled steps at a scalar
             # position, then 4 at per-slot positions
@@ -3493,17 +3655,67 @@ W4G_SWEEP_KN = ((4096, 1024, "bf16"), (4096, 4096, "bf16"),
                 (4096, 1024, "f32"), (4096, 4096, "f32"))
 
 
+# q8_tile_sweep's crossing of KQ8's tile and block tile: x rows, and (K, N)
+# at ResNet-50's 3 x 3 conv patches (layer2, 1152 x 128, and wider) and at
+# K 4096 and 14336 (the Llama-3-8B widths of KW8A8)
+Q8_SWEEP_M = PREFILL_SWEEP_M + (2048,)
+Q8_SWEEP_KN = ((1152, 128), (1152, 512), (4096, 1024), (4096, 2048),
+               (14336, 1024), (14336, 4096))
+
+
+def q8_tile_sweep(torch, tim):
+    """Where KQ8's tile takes over from its block tile (``s8_tile``, split
+    K): both routes called directly on the same int8 codes (the median of
+    20 calls between CUDA events, f32 out, no bias; the block tile's
+    zeroed split-K buffer included, as its route allocates it) at
+    Q8_SWEEP_M x Q8_SWEEP_KN, outputs equal bit for bit, beside the tile's
+    output tiles. Returns {"M=.. K=.. N=..": {"tiles", "tile",
+    "s8_tile"}}."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+    for k, n in Q8_SWEEP_KN:
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                          device="cuda")
+        sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+        for m in Q8_SWEEP_M:
+            xq = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                               generator=g, device="cuda")
+            sx = torch.rand((m,), generator=g, device="cuda")
+            o = torch.empty((m, n), device="cuda")
+            row = {"tiles": tim.tile_count(m, n, torch.int8)}
+            got = {}
+            for tag, call in (
+                    ("tile", lambda i: tim._launch_q8_tile(
+                        xq, sx, w, sw, None, o)),
+                    ("s8_tile", lambda i: tim._launch_q8_s8_tile(
+                        xq, sx, w, sw, None, torch.float32))):
+                got[tag] = call(0).clone()
+                row[tag], _ = event_ms(call, 20)
+            assert torch.equal(got["tile"], got["s8_tile"]), \
+                ("KQ8 sweep", m, k, n)
+            out[f"M={m} K={k} N={n}"] = row
+            del xq, o, got
+        del w
+    log("  q8_gemm tile against s8_tile, ms (output tiles): " + ", ".join(
+        f"{k_}: {r['tile']:.4f} / {r['s8_tile']:.4f} ({r['tiles']})"
+        for k_, r in out.items()))
+    return out
+
+
 def new_tile_sweep(torch, tim):
-    """Where KSQ's and KW4G's tiles take over from their block tiles
+    """Where KSQ's, KW4G's and KQ8's tiles take over from their block tiles
     (``s8_tile`` / ``bf_tile``, split K): each route called directly on
     the same operands (the median of 20 calls between CUDA events) at
     PREFILL_SWEEP_M x KSQ_SWEEP_KN (KSQ on int8 codes, its GEMM alone; the
     two routes' outputs equal bit for bit) and x W4G_SWEEP_KN (KW4G, group
     128, f32 out for an f32 x; both within TOL_WO of the plain version),
-    beside the tile's output tiles. Returns {"w8a8_staticq": {...},
-    "w4_grouped_gemm": {...}}."""
+    beside the tile's output tiles; KQ8's on a tree that has its tile
+    (``q8_tile_sweep``). Returns {"w8a8_staticq": {...},
+    "w4_grouped_gemm": {...}, "q8_gemm": {...} or None}."""
     g = torch.Generator(device="cuda").manual_seed(14)
-    out = {"w8a8_staticq": {}, "w4_grouped_gemm": {}}
+    out = {"w8a8_staticq": {}, "w4_grouped_gemm": {},
+           "q8_gemm": (q8_tile_sweep(torch, tim)
+                       if hasattr(tim, "q8_tile_route") else None)}
     for k, n in KSQ_SWEEP_KN:
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
                           device="cuda")
@@ -3866,6 +4078,302 @@ def lowered_slice() -> int:
     return 0
 
 
+# the shapes of the w4a8 per-slot step's projections at batch 16: (label,
+# K, N), Llama-3-8B (QKV, O, gate|up, down, the padded lm_head)
+STEP_KN = (("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
+           ("down", 14336, 4096), ("lm_head", 4096, 131072))
+
+
+# K1 at ResNet-50's conv patch shapes at 32 images (f32 patches, (M, K)):
+# the stem, 1 x 1 and 3 x 3 convs of its four stages
+K1_CONV_SHAPES = ((401408, 147), (100352, 64), (100352, 256), (100352, 576),
+                  (25088, 128), (25088, 512), (25088, 1152), (6272, 2304),
+                  (1568, 4608))
+
+
+def fused_step_rows(torch, tim):
+    """K2's fused decode kernel against K1 + K2's decode route at M = 16
+    and each STEP_KN shape (bf16 x and out, 3 weight copies rotated),
+    outputs equal bit for bit: the median span of a call between CUDA
+    events (all its kernels and the gap between them, 40 calls) and the
+    sum of its kernels' device times (the profiler). Returns {shape:
+    {"fused" / "k1_k2": [span, sum]}}."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    res = {}
+    for label, k, n in STEP_KN:
+        ws = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        sw = torch.rand((n,), generator=g, device="cuda") * 1e-3
+        x = torch.randn((16, k), generator=g, device="cuda").to(
+            torch.bfloat16)
+
+        def fused(i):
+            return tim.matmul_w4a8_fusedq(x, ws[i % 3], sw)
+
+        def k1_k2(i):
+            xq, sx = tim.quantize_activation_per_row(x)
+            return tim.w4a8_gemm(xq, sx, ws[i % 3], sw, torch.bfloat16)
+        assert torch.equal(fused(0), k1_k2(0)), ("fused step row", label)
+        res[label] = {name: [event_ms(call, 40)[0], timed(call, 20)[0]]
+                      for name, call in (("fused", fused), ("k1_k2", k1_k2))}
+        log(f"  fused / K1 + K2, M=16 {label} (span / kernel sum, ms): "
+            + "; ".join(f"{a} {v[0]:.5f} / {v[1]:.5f}"
+                        for a, v in res[label].items()))
+        del ws, x
+    return res
+
+
+def step_ab(torch, tim, llm, state, rounds=160):
+    """The per-slot decode step's wall ms without the profiler, one step
+    (then a sync) a sample, ``rounds`` samples a path. On a tree with the
+    fused decode route, that route ("fused") and K1 + K2 ("k1_k2": the
+    route switched off, the parent's path) alternate step by step in ABBA
+    order in the same process, so the host's load drifts out of their
+    difference; else the tree's own path ("as is"). Returns {arm: [ms,
+    ...]}, and on such a tree "diff": k1_k2 - fused a step pair, [mean,
+    standard error of the mean]."""
+    route = getattr(tim, "w4a8_fusedq_decode_route", None)
+    arms = ({"fused": route, "k1_k2": lambda *a: False} if route
+            else {"as is": None})
+    tok, caches, slots = state
+    res = {a: [] for a in arms}
+    try:
+        for r in range(rounds):
+            for arm in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+                if route:
+                    tim.w4a8_fusedq_decode_route = arms[arm]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = llm.decode(tok, caches, slots)
+                tok = logits[:, -1].argmax(-1)[:, None]
+                slots = slots + 1
+                torch.cuda.synchronize()
+                res[arm].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        if route:
+            tim.w4a8_fusedq_decode_route = route
+    text = "; ".join(f"{a} {sorted(v)[len(v) // 2]:.3f}"
+                     for a, v in res.items())
+    if route:
+        d = [b - a for a, b in zip(res["fused"], res["k1_k2"])]
+        mean = sum(d) / len(d)
+        sd = (sum((x - mean) ** 2 for x in d) / (len(d) - 1)) ** 0.5
+        res["diff"] = [mean, sd / len(d) ** 0.5]
+        text += f"; k1_k2 - fused {mean:.3f} +- {res['diff'][1]:.3f}"
+    log(f"  step without the profiler, wall ms ({rounds} steps a path; "
+        f"medians, then the mean difference +- its standard error): {text}")
+    return res
+
+
+def digest(t):
+    """A short hash of a tensor's bytes, to hold bits across two trees."""
+    import hashlib
+
+    import torch
+    raw = t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def ksol_int8_digest(torch, dsol, g):
+    """KSOL with int8 dots (its row quantizer) at B = 16, S = 1024,
+    position 700, Llama-3-8B widths, next QKV: digests of its outputs and
+    of the caches it appended to."""
+    from aimet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    rope_freqs)
+    B, S, H, KH, D, Dm, F = 16, 1024, 32, 8, 128, 4096, 14336
+    A, Nq, pos = H * D, (H + 2 * KH) * D, 700
+
+    def pair(rows_, n):
+        return (torch.randint(-128, 128, (rows_, n), dtype=torch.int8,
+                              generator=g, device="cuda"),
+                (torch.rand((n,), generator=g, device="cuda") + 0.5) * 0.02
+                / (2 * rows_) ** 0.5)
+    w = dict(wo_pair=pair(A // 2, Dm), gateup_pair=pair(Dm // 2, 2 * F),
+             down_pair=pair(F // 2, Dm),
+             mlp_gamma=torch.ones(Dm, dtype=torch.bfloat16, device="cuda"),
+             next_qkv=(pair(Dm // 2, Nq),
+                       torch.ones(Dm, dtype=torch.bfloat16, device="cuda")))
+    a = attn_inputs(torch, g, B, S, torch.full((B,), pos, device="cuda",
+                                               dtype=torch.int32))
+    resid = torch.randn((B, Dm), generator=g, device="cuda").to(
+        torch.bfloat16)
+    cos, sin = rope_freqs(TransformerConfig.llama3_8b(),
+                          torch.full((B,), pos, device="cuda"))
+    out = dsol.sol_decode_layer(a[0], resid, a[3], a[4], a[5], a[6], pos, cos,
+                                sin, **w, n_heads=H, n_kv_heads=KH,
+                                int8_dots=True)
+    return [digest(t) for t in (out[0], out[1], a[3], a[4])]
+
+
+def q8_slice() -> int:
+    """``python3 chip_smoke.py --q8-slice``: KQ8 and K1 / K2 at decode M on
+    whatever tree holds this script, with only APIs a parent tree has too
+    (``matmul_q8``, ``matmul_w8a8``, ``matmul_w4a8``; copied into a parent
+    tree, it measures that tree with the same code): KQ8 at M = 4096, 14336
+    x 4096 (with and without a column bias), ``matmul_w8a8`` at 4096 x
+    28672 and at ResNet-50's 3 x 3 conv patches (25088 x 1152 x 128, f32),
+    ``matmul_w4a8`` at K2_DECODE_SHAPES (bf16 x; f32 x at M = 16): each
+    checked against its plain version, timed (device ms of all its
+    kernels, the profiler over the calls) and its output's digest (the
+    same seeded inputs on both trees: the digests hold the bits across
+    them), K1's codes and KSOL's int8-dot outputs as digests; where the
+    tree has KQ8's tile its crossing sweep (``q8_tile_sweep``) and the
+    fused decode kernel at the step's shapes (``fused_step_rows``); then
+    the float ResNet-50 with every conv through ``conv2d_w8a8`` (one
+    forward counted, 3 profiled) and the ``w4a8`` per-slot decode step of
+    Llama-3-8B (32 layers, batch 16: launches by wrapper, 4 profiled, then
+    160 unprofiled steps a path, ``step_ab``). Prints one JSON line of the
+    numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.resnet import ResNet50
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    from aimet_tpu_torch.ops import decode_layer_sol as dsol
+    from aimet_tpu_torch.ops import int_matmul as tim
+    from aimet_tpu_torch.serving import quantized_llm as qllm
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"q8 slice of {ROOT}: torch {torch.__version__}; {smi}")
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {k: fn for k, fn in (
+        ("act_quant", tim.quantize_activation_per_row),
+        ("w4a8_gemm", tim.w4a8_gemm), ("q8_gemm", tim.matmul_q8),
+        ("w8a8_fusedq", tim.matmul_w8a8_fusedq),
+        ("w4a8_fusedq", getattr(tim, "matmul_w4a8_fusedq", None)))
+        if fn is not None and hasattr(fn, "launches")}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+
+    def row(label, call, plain, iters):
+        got = call(0)
+        assert torch.equal(got, plain()), (label, "against plain")
+        assert torch.equal(call(0), got), (label, "repeat")
+        ms, host = timed(call, iters)
+        rows[label] = dict(ms=ms, call_ms=host, digest=digest(got))
+        log(f"  {label}: {ms:.5f} device ms ({host:.4f} host ms a call), "
+            f"bit-exact with the plain version, digest {digest(got)}")
+
+    m, k, n = 4096, 14336, 4096
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g,
+                       device="cuda")
+    sx = torch.rand((m,), generator=g, device="cuda") * 1e-2
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                      device="cuda")
+    sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 2e-3
+    cb = torch.randn((n,), generator=g, device="cuda")
+    for bias, tag in ((None, ""), (cb, " bias")):
+        row(f"q8_gemm[w_down{tag}]",
+            lambda i, b=bias: tim.matmul_q8(xq, sx, w, sw, b,
+                                            torch.bfloat16),
+            lambda b=bias: tim.matmul_q8_torch(xq, sx, w, sw, b,
+                                               torch.bfloat16), 10)
+    del xq, w
+    for label, (m, k, n, xt) in {
+            "w8a8_fusedq[gate_up]": (4096, 4096, 28672, torch.bfloat16),
+            "w8a8_fusedq[conv 3x3 patches]": (25088, 1152, 128,
+                                              torch.float32)}.items():
+        x = (torch.randn((m, k), generator=g, device="cuda") * 2).to(xt)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=g,
+                          device="cuda")
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 2e-3
+        row(label, lambda i: tim.matmul_w8a8(x, w, sw),
+            lambda: tim.matmul_w8a8_torch(x, w, sw), 10)
+        del x, w
+    for m, k, n in K2_DECODE_SHAPES:
+        ws = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
+                            generator=g, device="cuda") for _ in range(3)]
+        sw = (torch.rand((n,), generator=g, device="cuda") + 0.5) * 0.02 \
+            / k ** 0.5
+        for xt in (torch.bfloat16, torch.float32):
+            if xt == torch.float32 and m != 16:
+                continue
+            x = torch.randn((m, k), generator=g, device="cuda").to(xt)
+            row(f"w4a8[M={m} {k}x{n} {str(xt).split('.')[-1]}]",
+                lambda i: tim.matmul_w4a8(x, ws[i % 3], sw, torch.bfloat16),
+                lambda: tim.matmul_w4a8_torch(x, ws[0], sw, torch.bfloat16),
+                20)
+        del ws
+    bits = {}
+    for m, k in ((16, 4096), (4096, 4096)):
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        q, sc = tim.quantize_activation_per_row(x)
+        pq, ps = tim._quantize_activation_plain(x)
+        assert torch.equal(q, pq) and torch.equal(sc, ps), ("K1", m, k)
+        bits[f"act_quant ({m}, {k})"] = [digest(q), digest(sc)]
+    bits["sol_decode_layer int8_dots"] = ksol_int8_digest(
+        torch, dsol, torch.Generator(device="cuda").manual_seed(3))
+    log(f"  digests: {bits}")
+    for m, k in K1_CONV_SHAPES:
+        x = torch.randn((m, k), generator=g, device="cuda") * 2
+        row(f"act_quant[conv ({m}, {k}) f32]",
+            lambda i: tim.quantize_activation_per_row(x)[0],
+            lambda: tim._quantize_activation_plain(x)[0], 10)
+        del x
+    new_tree = hasattr(tim, "q8_tile_route")
+    sweep = q8_tile_sweep(torch, tim) if new_tree else None
+
+    # ResNet-50 through the dynamic full-INT8 ops API (K1 + KQ8 per conv)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xs = resnet_inputs(torch, g, 2)
+    model = float_cnn(torch, ResNet50, xs[1], seed=4)
+    with torch.no_grad(), ops_api_convs(torch, tim, model):
+        out, counts, _, _, _ = forward_stats(
+            torch, lambda: model(xs[0]), counters)
+        zero_counts(counters)
+        model(xs[0])
+        routes = dict(tim.matmul_q8.routes)
+        wall, busy, dev, by_name = profile_steps(
+            torch, lambda: model(xs[0]), n=3)
+    cnn_m = dict(launches=counts, q8_routes=routes, host_ms=wall,
+                 device_ms=dev, busy=busy, kernels=by_name,
+                 digest=digest(out))
+    log(f"[q8 slice] ResNet-50 ops API (32 images): launches {counts}; "
+        f"3 profiled forwards: {wall:.2f} host ms, {dev:.3f} device ms, "
+        f"busy {busy:.3f}; logits digest {digest(out)}")
+    del model, xs, out
+    torch.cuda.empty_cache()
+
+    # the w4a8 per-slot decode step (w4 weights, as the main run serves)
+    cfg = TransformerConfig.llama3_8b()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qw = qllm.random_quantized_weights(cfg, mode="w4", seed=0)
+    llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode="w4a8",
+                                           max_len=1024)
+    toks = torch.randint(0, cfg.vocab_size, (16, 512), generator=g,
+                         device="cuda")
+    logits, caches = llm.prefill(toks, llm.new_caches(16))
+    tok = logits[:, -1].argmax(-1)[:, None]
+    slots = torch.arange(16, device="cuda", dtype=torch.int32) + 512
+    zero_counts(counters)
+    logits, caches = llm.decode(tok, caches, slots)
+    step = {k_: fn.launches for k_, fn in counters.items() if fn.launches}
+    log(f"[q8 slice] w4a8 per-slot step launches by wrapper: {step}")
+    slot_m = {"launches": step}
+    state = slot_step_profile(torch, llm, "w4a8",
+                              logits[:, -1].argmax(-1)[:, None], caches,
+                              slots + 1, slot_m, 16)
+    slot_m["host_ab"] = step_ab(torch, tim, llm, state)
+    del llm, caches, qw, state
+    torch.cuda.empty_cache()
+    fused_rows = fused_step_rows(torch, tim) if new_tree else None
+    log(json.dumps({"q8_slice": {"root": ROOT, "card": smi, "rows": rows,
+                                 "bits": bits, "sweep": sweep,
+                                 "fused_step_rows": fused_rows,
+                                 "resnet50_ops_api": cnn_m,
+                                 "w4a8_slot_step": slot_m}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3891,10 +4399,13 @@ def main() -> int:
                 "w4_grouped_gemm": tim.matmul_w4_grouped,
                 "w8a8_fusedq": tim.matmul_w8a8_fusedq,
                 "q8_gemm": tim.matmul_q8,
+                "w4a8_fusedq": tim.matmul_w4a8_fusedq,
                 "fused_decode_layer": flay.fused_decode_layer,
                 "gqa_decode_attention": gqa.fused_gqa_decode_attention}
 
     KERNEL_FNS.update(counters)
+    KERNEL_FNS.update({name: counters[kern] for name, (kern, _) in
+                       ROUTE_KERNELS.items()})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4002,11 +4513,14 @@ def main() -> int:
     for k, v in counts.items():
         launches[k] += v
     log(f"[cnn] phase took {time.time() - t:.1f} s")
+    for name, (kern, route) in ROUTE_KERNELS.items():
+        launches[name] = ROUTE_LAUNCHES.get(f"{kern}:{route}", 0)
     for name in SOURCES:
         assert launches[name] > 0, f"kernel {name} never launched"
     for route in ("w4_gemm:decode", "w4_gemm:tile", "w8_gemm:tile",
                   "w4a8_gemm:tile", "w8a8_staticq:tile",
-                  "w4_grouped_gemm:tile"):
+                  "w4_grouped_gemm:tile", "q8_gemm:tile",
+                  "w4a8_fusedq:decode"):
         assert ROUTE_LAUNCHES.get(route, 0) > 0, f"{route} never launched"
 
     kernels = []
@@ -4021,7 +4535,8 @@ def main() -> int:
             shape=r["shape"], kernel_route=r.get("route") or "kernel",
             **{k: r[k] for k in ("int_mm_ms", "library_note", "library_err",
                                  "library_x", "codes_ms", "nmajor_ms",
-                                 "k128_ms", "chunk") if k in r}))
+                                 "k128_ms", "chunk", "s8_tile_ms",
+                                 "k1_k2_ms") if k in r}))
     # the order of the kernels' redesign: first those slower than one
     # PyTorch call for the same function, then each route's launches on
     # the main paths x (ms - bound) at its main-path shapes (route_ranking)
@@ -4067,4 +4582,5 @@ if __name__ == "__main__":
              else w4_slice() if sys.argv[1:] == ["--w4-slice"]
              else prefill_slice() if sys.argv[1:] == ["--prefill-slice"]
              else lowered_slice() if sys.argv[1:] == ["--lowered-slice"]
+             else q8_slice() if sys.argv[1:] == ["--q8-slice"]
              else main())

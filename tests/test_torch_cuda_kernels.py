@@ -46,6 +46,14 @@ lm_head cut in M; KW4G's keeps 1e-2 with a bf16 x at groups 64, 128 and
 256, and with an f32 x and out W4G_F32_TOL (no worse than the block tile
 it replaces); both are exact on one tile of small integers, repeat their
 bits, and their C entries refuse what their boxes and stages cannot take.
+KQ8's float entries on the TMA + wgmma tile (M > 64) are bit-exact with
+and without a column bias, f32 and bf16 out, at ragged M, N and K, at the
+ResNet-50 conv patches and at M = 4096, through ``matmul_w8a8`` too; exact
+on one tile of small integers; their C entry refuses what its boxes cannot
+map. K2's fused decode kernel (``matmul_w4a8_fusedq`` at M <= 64) gives K1
++ K2's decode route's codes, scales and outputs bit for bit, bf16 and f32
+x, at ragged M, N and K, in one launch; it repeats its bits and refuses a
+grid that cannot be resident at once.
 """
 import pytest
 import torch
@@ -967,7 +975,7 @@ def test_w4_routes_refuse_short_buffers(gen):
     out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
     plan = tim.decode_plan(m, n, k // 2, tim._sm_count(x.device))
     ws = torch.empty((plan.ws_values,), dtype=torch.float32, device="cuda")
-    cnt = torch.zeros((plan.slices,), dtype=torch.int32, device="cuda")
+    cnt = torch.zeros((plan.slices + 2,), dtype=torch.int32, device="cuda")
     stream = _build.stream_ptr(x.device)
     for ws_values, cnt_values in ((plan.ws_values - 1, plan.slices),
                                   (plan.ws_values, plan.slices - 1)):
@@ -1377,3 +1385,199 @@ def test_new_tiles_refuse_what_they_cannot_map(gen):
                       gs.data_ptr(), out.data_ptr(), out.data_ptr(), m, n, k,
                       32, 0, 0, 0, stream)
     torch.cuda.synchronize()
+
+
+def _q8_operands(gen, m, k, n):
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen,
+                       device="cuda")
+    sx = torch.rand((m,), generator=gen, device="cuda") * 1e-2
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sw = (torch.rand((n,), generator=gen, device="cuda") + 0.5) * 2e-3
+    cb = torch.randn((n,), generator=gen, device="cuda")
+    return xq, sx, w, sw, cb
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (65, 4096, 6144),        # one row past decode M, on the route
+    (200, 4112, 2832),       # ragged M, N; K: 32 stages + 16 rows
+    (4096, 14336, 4096),     # q8_gemm[w_down]
+    (25088, 1152, 128),      # ResNet-50's 3 x 3 conv patches
+    (65, 4096, 1024),        # 4 tiles: launched directly
+])
+def test_q8_tile_bit_exact(gen, m, k, n, out_dtype, bias):
+    """KQ8's TMA + wgmma tile bit-exact against matmul_q8_torch: through
+    matmul_q8 where its route takes the tile, else launched directly (the
+    wrapper's block tile checked too); repeated calls the same bits."""
+    xq, sx, w, sw, cb = _q8_operands(gen, m, k, n)
+    cb = cb if bias else None
+    want = tim.matmul_q8_torch(xq, sx, w, sw, cb, out_dtype)
+    before = dict(tim.matmul_q8.routes)
+    if tim.q8_tile_route(m, n, k):
+        launch = lambda: tim.matmul_q8(xq, sx, w, sw, cb, out_dtype)
+    else:
+        assert torch.equal(tim.matmul_q8(xq, sx, w, sw, cb, out_dtype), want)
+        assert tim.matmul_q8.routes["s8_tile"] == before["s8_tile"] + 1
+        before = dict(tim.matmul_q8.routes)
+        launch = lambda: tim._launch_q8_tile(
+            xq, sx, w, sw, cb,
+            torch.empty((m, n), dtype=out_dtype, device="cuda"))
+    got = launch()
+    assert tim.matmul_q8.routes["tile"] == before["tile"] + 1
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    for _ in range(3):
+        assert torch.equal(launch(), got)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_fusedq_takes_the_q8_tile(gen, x_dtype):
+    """KW8A8 (K1 + KQ8) at 4096 x 28672 on KQ8's tile: bit-exact."""
+    x = (torch.randn((4096, 4096), generator=gen, device="cuda") * 2).to(
+        x_dtype)
+    w = torch.randint(-127, 128, (4096, 28672), dtype=torch.int8,
+                      generator=gen, device="cuda")
+    sw = (torch.rand((28672,), generator=gen, device="cuda") + 0.5) * 2e-3
+    before = tim.matmul_q8.routes["tile"]
+    got = tim.matmul_w8a8(x, w, sw)
+    assert tim.matmul_q8.routes["tile"] == before + 1
+    assert got.dtype == x_dtype
+    assert torch.equal(got, tim.matmul_w8a8_torch(x, w, sw))
+
+
+def test_q8_tile_one_tile_exact(gen):
+    """KQ8's tile on one 128 x 256 tile of small integers, unit scales:
+    the int32 sums themselves, so a wrong fragment or column shows."""
+    m, k, n = 128, 256, 256
+    r = torch.arange(m, device="cuda")[:, None]
+    c = torch.arange(k, device="cuda")[None, :]
+    xq = ((r * 5 + c * 3) % 255 - 127).to(torch.int8)
+    w = ((torch.arange(k * n, device="cuda").reshape(k, n) * 37) % 23
+         - 11).to(torch.int8)
+    one_m, one_n = (torch.ones((d,), device="cuda") for d in (m, n))
+    got = tim._launch_q8_tile(xq, one_m, w, one_n, None, torch.empty(
+        (m, n), dtype=torch.float32, device="cuda"))
+    assert torch.equal(got, tim.int8_matmul_int32_torch(xq, w).float())
+
+
+def test_q8_tile_refuses_what_it_cannot_map(gen):
+    """KQ8's tile entry refuses K % 16 (its codes' TMA boxes) and a
+    misaligned column bias: launch errors, not hangs."""
+    stream = _build.stream_ptr(torch.device("cuda"))
+    m, k, n = 200, 4104, 512
+    xq = torch.zeros((m, k), dtype=torch.int8, device="cuda")
+    w = torch.zeros((k, n), dtype=torch.int8, device="cuda")
+    v = torch.ones((n + 4,), device="cuda")
+    out = torch.empty((m, n), device="cuda")
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_q8_tile_gemm", xq.data_ptr(), v.data_ptr(),
+                      w.data_ptr(), v.data_ptr(), 0, out.data_ptr(), m, n, k,
+                      0, stream)
+    k = 4096
+    xq, w = xq[:, :k].contiguous(), w[:k].contiguous()
+    with pytest.raises(RuntimeError):
+        _build.launch("aimet_q8_tile_gemm", xq.data_ptr(), v.data_ptr(),
+                      w.data_ptr(), v.data_ptr(), v[1:].data_ptr(),
+                      out.data_ptr(), m, n, k, 0, stream)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("m,k2,n", [
+    (1, 2048, 6144),         # one row: layer 0's QKV width
+    (16, 2048, 28672),       # the per-slot step's gate|up
+    (17, 528, 1296),         # ragged M; no whole slice or stage
+    (33, 7168, 4096),        # W_down: slices split across blocks
+    (64, 2048, 131072),      # the padded lm_head at the last M tile
+])
+def test_w4a8_fusedq_decode_bit_exact(gen, m, k2, n, x_dtype, out_dtype):
+    """K2's fused decode kernel: one launch (no K1, no K2 launch), codes
+    and scales K1's, the output K2's decode route's on them and the plain
+    version's, bit for bit; repeated calls the same bits."""
+    x = (torch.randn((m, 2 * k2), generator=gen, device="cuda") * 3).to(
+        x_dtype)
+    x[0, : min(8, 2 * k2)] = 0.0
+    w = torch.randint(-128, 128, (k2, n), dtype=torch.int8, generator=gen,
+                      device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+    counts = lambda: (tim.matmul_w4a8_fusedq.launches,
+                      tim.quantize_activation_per_row.launches,
+                      tim.w4a8_gemm.launches)
+    before = counts()
+    got, q, s = tim.matmul_w4a8_fusedq(x, w, sw, out_dtype=out_dtype,
+                                       return_codes=True)
+    assert counts() == (before[0] + 1, before[1], before[2])
+    k1q, k1s = tim.quantize_activation_per_row(x)
+    assert torch.equal(q, k1q) and torch.equal(s, k1s)
+    assert got.dtype == out_dtype
+    assert torch.equal(got, tim.w4a8_gemm(k1q, k1s, w, sw, out_dtype))
+    assert torch.equal(got, tim.matmul_w4a8_torch(x, w, sw, out_dtype))
+    for _ in range(3):
+        again, q2, s2 = tim.matmul_w4a8_fusedq(x, w, sw, out_dtype=out_dtype,
+                                               return_codes=True)
+        assert torch.equal(again, got) and torch.equal(q2, q)
+        assert torch.equal(s2, s)
+
+
+def test_w4a8_fusedq_off_the_route_is_k1_then_k2(gen):
+    """A ragged N (the route needs N % 16) and M = 65 keep K1 + K2: the
+    same bits as the plain version, no fused launch."""
+    for m, k2, n in ((16, 1024, 1000), (65, 2048, 4096)):
+        x = torch.randn((m, 2 * k2), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = torch.randint(-128, 128, (k2, n), dtype=torch.int8,
+                          generator=gen, device="cuda")
+        sw = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+        before = (tim.matmul_w4a8_fusedq.launches,
+                  tim.quantize_activation_per_row.launches)
+        assert torch.equal(tim.matmul_w4a8_fusedq(x, w, sw),
+                           tim.matmul_w4a8_torch(x, w, sw))
+        assert (tim.matmul_w4a8_fusedq.launches,
+                tim.quantize_activation_per_row.launches) == (
+                    before[0], before[1] + 1)
+
+
+def test_w4a8_fusedq_refuses_what_it_cannot_take(gen):
+    """The fused entry refuses a grid that cannot be resident at once (two
+    blocks an SM of 220 KB), operands its boxes cannot map (K/2 % 16) and
+    a misaligned x: launch errors, never a hang or a fallback."""
+    stream = _build.stream_ptr(torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m, k2, n = 16, 2048, 4096
+    x = torch.zeros((m, 2 * k2 + 8), dtype=torch.bfloat16, device="cuda")
+    xq = torch.empty((m, 2 * k2), dtype=torch.int8, device="cuda")
+    sx = torch.empty((m,), device="cuda")
+    w = torch.zeros((k2, n), dtype=torch.int8, device="cuda")
+    sw = torch.ones((n,), device="cuda")
+    out = torch.empty((m, n), device="cuda")
+    blocks = 2 * sms + 1
+    plan = tim.decode_plan(m, n, k2, blocks)
+    ws = torch.empty(((plan.slices + blocks) * m * 256,), dtype=torch.int32,
+                     device="cuda")
+    cnt = torch.zeros((plan.slices + 2,), dtype=torch.int32, device="cuda")
+
+    def launch(xp, k2_, grid):
+        _build.launch("aimet_w4a8_fusedq_decode_gemm", xp, xq.data_ptr(),
+                      sx.data_ptr(), w.data_ptr(), sw.data_ptr(),
+                      out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), m, n,
+                      k2_, grid, ws.numel(), cnt.numel(), 1, 0, stream)
+    with pytest.raises(RuntimeError):
+        launch(x.data_ptr(), k2, blocks)
+    with pytest.raises(RuntimeError):
+        launch(x.data_ptr(), k2 - 8, sms)
+    with pytest.raises(RuntimeError):
+        launch(x[:, 1:].data_ptr(), k2, sms)
+    with pytest.raises(RuntimeError):             # no room for the counts
+        _build.launch("aimet_w4a8_fusedq_decode_gemm", x.data_ptr(),
+                      xq.data_ptr(), sx.data_ptr(), w.data_ptr(),
+                      sw.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                      cnt.data_ptr(), m, n, k2, sms, ws.numel(),
+                      plan.slices + 1, 1, 0, stream)
+    torch.cuda.synchronize()
+    launch(x.data_ptr(), k2, tim.decode_plan(m, n, k2, sms).blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+    assert not cnt.any()                          # the counts left 0

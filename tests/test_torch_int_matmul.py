@@ -79,7 +79,10 @@ def test_matmul_w4a8_f32_matches_xla(m, k2, n):
                                   got.numpy())
 
 
-@pytest.mark.parametrize("m,k2,n", [(9, 64, 24), (32, 160, 130)])
+@pytest.mark.parametrize("m,k2,n", [
+    (9, 64, 24), (32, 160, 130),
+    (1, 32, 16), (16, 64, 48), (64, 32, 32),   # decode M: the fused route
+])
 def test_matmul_w4a8_bf16_matches_fusedq_kernel(m, k2, n):
     rs = np.random.RandomState(k2)
     x32 = rs.randn(m, 2 * k2).astype(np.float32)
@@ -94,9 +97,13 @@ def test_matmul_w4a8_bf16_matches_fusedq_kernel(m, k2, n):
     jq, js = jim.quantize_activation_per_row(jnp.asarray(x_bf16_as_f32))
     np.testing.assert_array_equal(tq.numpy(), _np(jq))
     np.testing.assert_array_equal(ts.numpy(), _np(js))
-    got = tim.matmul_w4a8(xt, torch.from_numpy(packed),
-                          torch.from_numpy(scale))
+    got, fq, fs = tim.matmul_w4a8_fusedq(xt, torch.from_numpy(packed),
+                                         torch.from_numpy(scale),
+                                         return_codes=True)
     assert got.dtype == torch.bfloat16
+    assert torch.equal(fq, tq) and torch.equal(fs, ts)
+    assert torch.equal(tim.matmul_w4a8(xt, torch.from_numpy(packed),
+                                       torch.from_numpy(scale)), got)
     got = got.to(torch.float32).numpy()
     # XLA's CPU fusion of x / scale is not always an IEEE division: in a
     # fused (jit / interpret-mode) program a row's codes can shift by one
@@ -113,11 +120,29 @@ def test_matmul_w4a8_bf16_matches_fusedq_kernel(m, k2, n):
     assert np.all(diff[~same] <= 1e-2 * np.abs(want).max())
 
 
+def test_matmul_w4a8_fusedq_takes_the_jax_signature():
+    """Block sizes are accepted and unused; the output dtype defaults to
+    x's; the route needs nothing of the CPU (the plain versions, no
+    launch counted)."""
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(16, 64).astype(np.float32))
+    packed, scale = (torch.from_numpy(a) for a in _weights(64, 32, 4))
+    before = tim.matmul_w4a8_fusedq.launches
+    got = tim.matmul_w4a8_fusedq(x, packed, scale, block_m=8, block_n=128)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, tim.matmul_w4a8_torch(x, packed, scale))
+    assert torch.equal(tim.matmul_w4a8_fusedq(
+        x, packed, scale, out_dtype=torch.bfloat16),
+        tim.matmul_w4a8_torch(x, packed, scale, torch.bfloat16))
+    assert tim.matmul_w4a8_fusedq.launches == before
+    assert tim.w4a8_fusedq_decode_route(16, 32, 32, x.dtype)
+
+
 def test_matmul_w4a8_rejects_bad_shapes():
     x = torch.zeros(4, 10)
-    with pytest.raises(ValueError):
-        tim.matmul_w4a8(x, torch.zeros(4, 8, dtype=torch.int8),
-                        torch.ones(8))
+    for fn in (tim.matmul_w4a8, tim.matmul_w4a8_fusedq):
+        with pytest.raises(ValueError):
+            fn(x, torch.zeros(4, 8, dtype=torch.int8), torch.ones(8))
 
 
 

@@ -148,7 +148,8 @@ def test_route_counts_start_at_zero_and_name_every_route():
     assert set(tim.matmul_w4_grouped.routes) == {"decode", "tile",
                                                  "bf_tile"}
     assert set(tim.w4a8_gemm.routes) == {"decode", "tile", "s8_tile"}
-    assert set(tim.matmul_q8.routes) == {"tile", "s8_tile"}
+    assert set(tim.matmul_q8.routes) == {"tile", "s8_tile", "int32_kmajor"}
+    assert set(tim.matmul_w4a8_fusedq.routes) == {"decode"}
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

@@ -1,6 +1,8 @@
-"""KW8's (``matmul_w8``) and K2's (``w4a8_gemm``) routes: which shapes
-take the decode weight-streaming route, which the TMA + ``wgmma`` tile and
-which the ``mma.sync`` block tile (``bf_tile`` / ``s8_tile``). The kernels
+"""KW8's (``matmul_w8``), K2's (``w4a8_gemm``, and its fused decode
+kernel under ``matmul_w4a8_fusedq``) and KQ8's (``matmul_q8``) routes:
+which shapes take the decode weight-streaming route, which the TMA +
+``wgmma`` tile and which the ``mma.sync`` block tile (``bf_tile`` /
+``s8_tile``). The kernels
 run only on the card (``test_torch_cuda_kernels.py``); here the routes are
 pure shape logic, and the plain versions, which carry the arithmetic, are
 held against the JAX package in ``test_torch_weight_only.py`` and
@@ -57,15 +59,18 @@ def test_the_tile_counts_of_each_route_decide():
     """Right at each route's tile count the tile takes over from the block
     tile, at every layer width (the count, not M, decides: the tile never
     splits K, so below it most SMs idle); an f32 x maps 2 rows a row."""
-    for n in (4096, 6144, 14336, 28672, 131072):
-        for route, dtype in (
+    for n in (1024, 4096, 6144, 14336, 28672, 131072):
+        for route, dtype, least in (
                 (lambda m: tim.w8_tile_route(m, n, 4096, torch.bfloat16),
-                 torch.bfloat16),
+                 torch.bfloat16, tim.TILE_MIN_TILES),
                 (lambda m: tim.w8_tile_route(m, n, 4096, torch.float32),
-                 torch.float32),
-                (lambda m: tim.w4a8_tile_route(m, n, 2048), torch.int8)):
+                 torch.float32, tim.TILE_MIN_TILES),
+                (lambda m: tim.w4a8_tile_route(m, n, 2048), torch.int8,
+                 tim.TILE_MIN_TILES),
+                (lambda m: tim.q8_tile_route(m, n, 4096), torch.int8,
+                 tim.Q8_TILE_MIN_TILES)):
             m = tim.TILE_MIN_M
-            while tim.tile_count(m, n, dtype) < tim.TILE_MIN_TILES:
+            while tim.tile_count(m, n, dtype) < least:
                 assert not route(m)
                 m += 1
             assert route(m)
@@ -130,8 +135,11 @@ def test_route_counts_name_the_tile_and_start_at_zero():
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
-    before = (tim.matmul_w8.launches, dict(tim.matmul_w8.routes),
-              tim.w4a8_gemm.launches, dict(tim.w4a8_gemm.routes))
+    fns = (tim.matmul_w8, tim.w4a8_gemm, tim.matmul_w4a8_fusedq,
+           tim.matmul_q8, tim.quantize_activation_per_row)
+    counts = lambda: [(f.launches, dict(getattr(f, "routes", {})))
+                      for f in fns]
+    before = counts()
     g = torch.Generator().manual_seed(0)
     x = torch.randn(130, 256, generator=g)
     w = torch.randint(-127, 128, (256, 512), dtype=torch.int8, generator=g)
@@ -141,5 +149,46 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     wp = torch.randint(-128, 128, (128, 512), dtype=torch.int8, generator=g)
     assert torch.equal(tim.w4a8_gemm(xq, sx, wp, s),
                        tim.w4a8_gemm_torch(xq, sx, wp, s))
-    assert (tim.matmul_w8.launches, tim.matmul_w8.routes,
-            tim.w4a8_gemm.launches, tim.w4a8_gemm.routes) == before
+    assert torch.equal(tim.matmul_w4a8_fusedq(x[:16], wp, s),
+                       tim.matmul_w4a8_torch(x[:16], wp, s))
+    cb = torch.randn(512, generator=g)
+    assert torch.equal(tim.matmul_q8(xq, sx, w, s, cb),
+                       tim.matmul_q8_torch(xq, sx, w, s, cb))
+    assert counts() == before
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (4096, 4096, 14336, True),                   # q8_gemm[w_down]
+    (4096, 28672, 4096, True),                   # KW8A8's gate|up
+    (25088, 128, 1152, True),                    # 3 x 3 conv patches
+    (65, 28672, 4096, True),                     # just above decode M
+    (64, 28672, 4096, False),                    # decode M: block tile
+    (0, 4096, 4096, False),
+    (1568, 2048, 512, True),                     # ResNet-50 layer4 1x1
+    (32, 1000, 2048, False),                     # its fc: M and N
+    (401408, 64, 147, False),                    # the stem's K = 147
+    (300, 4104, 4096, False),                    # N % 16
+    (300, 4096, 4104, False),                    # K % 16: the codes' boxes
+    (300, 4096, 4112, True),
+])
+def test_q8_tile_route_edges(m, n, k, want):
+    assert tim.q8_tile_route(m, n, k) is want
+
+
+@pytest.mark.parametrize("m,n,k2,dtype,want", [
+    (16, 28672, 2048, torch.bfloat16, True),     # the per-slot step's gate|up
+    (1, 6144, 2048, torch.bfloat16, True),
+    (64, 131072, 2048, torch.float32, True),     # lm_head, an f32 x
+    (64, 4096, 7168, torch.bfloat16, True),      # W_down at the last tile
+    (65, 4096, 2048, torch.bfloat16, False),     # prefill M: K1 + K2
+    (0, 4096, 2048, torch.bfloat16, False),
+    (16, 1000, 1024, torch.float32, False),      # N % 16 (a CNN's fc)
+    (16, 4096, 1032, torch.bfloat16, False),     # K/2 % 16
+    (17, 1296, 528, torch.bfloat16, True),       # no whole slice or stage
+    (16, 4096, 2048, torch.float16, False),      # K1 takes f32 / bf16
+])
+def test_w4a8_fusedq_decode_route_edges(m, n, k2, dtype, want):
+    """The fused decode kernel takes exactly K2's decode route's shapes,
+    for a bf16 or f32 x."""
+    assert tim.w4a8_fusedq_decode_route(m, n, k2, dtype) is want
+    assert not want or tim.w4a8_decode_route(m, n, k2)

@@ -172,3 +172,34 @@ def test_weight_only_rejects_bad_shapes():
         tim.matmul_w4(x, torch.zeros(4, 8, dtype=torch.int8), torch.ones(8))
     with pytest.raises(ValueError):
         tim.matmul_w8(x, torch.zeros(10, 8, dtype=torch.int8), torch.ones(7))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 256, 256), (16, 256, 2048),
+                                   (40, 384, 200)])
+def test_matmul_w4_decode_matches_jax(m, k, n):
+    """``matmul_w4_decode`` against the JAX package's (its Pallas kernel in
+    interpret mode with the swept decode blocks) at KW4's tolerances: f32 at
+    rtol = atol = 1e-4, bf16 within 1e-2 of its max; the same bits as
+    ``matmul_w4``."""
+    x, wq, s = _inputs(m, k, n, True, m + n)
+    jargs = (jnp.asarray(x), jnp.asarray(wq), jnp.asarray(s))
+    targs = (torch.from_numpy(x), torch.from_numpy(wq), torch.from_numpy(s))
+    got = tim.matmul_w4_decode(*targs)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jim.matmul_w4_decode(*jargs)),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, tim.matmul_w4(*targs))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jim.matmul_w4_decode(xb, *jargs[1:]).astype(
+        jnp.float32))
+    gotb = tim.matmul_w4_decode(
+        torch.from_numpy(np.asarray(xb.astype(jnp.float32))).to(
+            torch.bfloat16), *targs[1:])
+    assert gotb.dtype == torch.bfloat16
+    err = np.abs(gotb.float().numpy() - want).max() / np.abs(want).max()
+    assert err < 1e-2, err
+
+
+@pytest.mark.parametrize("n", [1, 4096, 6144, 16383, 16384, 28672, 131072])
+def test_decode_blocks_is_the_jax_tuple(n):
+    assert tim.decode_blocks(n) == jim.decode_blocks(n)
