@@ -42,8 +42,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Every function returns cudaError_t.
 SIGNATURES = {
-    # x, q, sx, M, K, x_is_bf16, stream
-    "aimet_act_quant": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # x, q, sx, M, K, lanes, rows, x_is_bf16, stream
+    "aimet_act_quant": [_VP, _VP, _VP] + [_I] * 5 + [_VP],
     # xq, sx, wp, sw, out, ws, M, N, K2, splits, out_is_bf16, stream
     "aimet_w4a8_gemm": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                         _VP],
@@ -62,10 +62,10 @@ SIGNATURES = {
     # stream
     "aimet_decode_attention": [_VP] * 13 + [_I] * 6
     + [ctypes.c_longlong, _I, _F, _I, _VP],
-    # q, kc, vc, ks, vs, pos, out, scores, B, S, KH, rep, D, sqrt_d,
-    # q_is_bf16, stream
-    "aimet_gqa_attention": [_VP] * 5 + [_I, _VP, _VP] + [_I] * 5
-    + [_F, _I, _VP],
+    # q, kc, vc, ks, vs, pos, out, ws, cnt, B, S, KH, rep, D, chunk,
+    # ws_values, cnt_values, sqrt_d, q_is_bf16, stream
+    "aimet_gqa_attention": [_VP] * 5 + [_I] + [_VP] * 3 + [_I] * 6
+    + [ctypes.c_longlong, _I, _F, _I, _VP],
     # x, w, sw, out, ws, M, N, K, splits, x_is_f32, out_is_bf16, stream
     "aimet_w4_gemm": [_VP] * 5 + [_I] * 6 + [_VP],
     "aimet_w8_gemm": [_VP] * 5 + [_I] * 6 + [_VP],

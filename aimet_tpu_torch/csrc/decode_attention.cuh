@@ -1,9 +1,9 @@
 // One-token GQA decode attention as a block-level device function, one
 // block a (batch row, kv head): phase 0 of the whole-layer decode kernels
-// KSOL / KDL (fused_layer.cu); its scores, softmax and context (attend) are
-// also KGQA's (gqa_attention.cu). K3 (decode_attention.cu) computes the
-// same function split across blocks (split_attention.cuh) and uses only
-// rope_at from here. What it computes is described in decode_attention.cu.
+// KSOL / KDL (fused_layer.cu). K3 (decode_attention.cu, split_attention.cuh)
+// and KGQA (gqa_attention.cu) split S across blocks instead and use only
+// rope_at and the limits from here. What it computes is described in
+// decode_attention.cu.
 //
 // Design: the rep query heads of one kv head share every K/V byte they read
 // (GQA reuse in registers); for the scores and for the context the warps
@@ -13,7 +13,7 @@
 // (S <= 12,352 at rep 4, D 128, with 16 warps); for a longer cache the
 // caller passes a (B, KH, rep, S) f32 workspace and the rows live there,
 // with the same arithmetic, so every cache length is taken. Splitting S
-// across blocks as K3 does is open for these callers.
+// across blocks as K3 and KGQA do is open for these callers.
 #pragma once
 #include "common.cuh"
 
@@ -48,19 +48,6 @@ __device__ __forceinline__ float rope_at(const T* x, const float* c,
   return __fadd_rn(__fmul_rn(x2, c[e]), __fmul_rn(x1, s[e]));
 }
 
-// How a softmax row is normalised: K3 multiplies by the reciprocal of the
-// sum; KGQA divides and rounds each prob to its query dtype T (the
-// reference's probs.astype(q.dtype)).
-struct ProbsByReciprocal {
-  __device__ static float norm(float e, float, float inv) { return e * inv; }
-};
-template <typename T>
-struct ProbsRounded {
-  __device__ static float norm(float e, float sum, float) {
-    return to_f32(from_f32<T>(__fdiv_rn(e, sum)));
-  }
-};
-
 // Steps 4-5 for the rep query rows of one kv head: smem starts with them
 // ([rep][D] f32, scaled, written before a block barrier), then holds the
 // score rows and the warps' partial contexts (attention_smem_floats). With
@@ -72,7 +59,7 @@ struct ProbsRounded {
 // are live, all n masked to -1e30 when `masked`. Writes
 // out[r * D + d] = from_f32<OutT>(context * vscale); the caller puts a
 // block barrier before reusing smem.
-template <int kThreads, typename Probs, typename OutT>
+template <int kThreads, typename OutT>
 __device__ __forceinline__ void attend(float* smem, float* scores,
                                        const int8_t* kcb, const int8_t* vcb,
                                        size_t stride_s, int S, int n,
@@ -142,7 +129,7 @@ __device__ __forceinline__ void attend(float* smem, float* scores,
     }
     sum = warp_sum(sum);
     const float inv = 1.0f / sum;
-    for (int i = lane; i < n; i += 32) p[i] = Probs::norm(p[i], sum, inv);
+    for (int i = lane; i < n; i += 32) p[i] *= inv;
   }
   __syncthreads();
 
@@ -242,7 +229,7 @@ __device__ __forceinline__ void attention_body(
 
   const bool masked = pos < 0;
   const int n = masked ? S : min(pos + 1, S);
-  attend<kThreads, ProbsByReciprocal>(
+  attend<kThreads>(
       smem, scores ? scores + bj * rep * S : nullptr, kcb, vcb, stride_s, S,
       n, masked, rep, D, vscale,
       out + (size_t)b * H * D + (size_t)j * rep * D);

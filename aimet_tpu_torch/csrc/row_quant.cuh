@@ -10,10 +10,12 @@
 //
 // A block's threads each take a share of a row (thread tid of nthr): its
 // share of the absmax (the caller reduces the shares: a max is exact in any
-// order), then its share of the codes. Rows of K % 8 == 0 from K = 512 at
-// a 16-byte aligned address go 8 values a load and 8 codes a store; other
-// rows one value at a time (the same bits). HeldRow keeps a row's values in
-// registers between the two passes, so the row is read once.
+// order), then its share of the codes. Rows of K % 8 == 0 at a 16-byte
+// aligned address go 8 values a load and 8 codes a store; other rows one
+// value at a time (the same bits). HeldRow keeps a row's values in
+// registers between the two passes, so the row is read once. K1's narrow
+// rows (act_quant.cu) use only scale_of and code_by_inv (code's bits):
+// several rows share a block there.
 //
 // kCG: the loads go through L2 (ld.global.cg), for a row that another
 // block may have written in the same launch (KSOL); else through the
@@ -62,16 +64,10 @@ __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
-// Rows shorter than this go one value a thread: 8 values a thread would
-// leave most of a 256-thread block idle (on the H100, K1 at K = 64 took
-// 26 % longer 8 at a time, at K = 512-1152 19-27 % less; PERF.md §6 PR 12)
-constexpr int kMinVectorK = 512;
-
 // whether the K values at xr are read 8 at a time
 template <typename T>
 __device__ __forceinline__ bool read8(const T* xr, int K) {
-  return K >= kMinVectorK && K % 8 == 0 &&
-         (reinterpret_cast<uintptr_t>(xr) & 15) == 0;
+  return K % 8 == 0 && (reinterpret_cast<uintptr_t>(xr) & 15) == 0;
 }
 // whether a row of K values at xr (codes at qr) goes 8 values at a time
 template <typename T>
@@ -85,6 +81,17 @@ __device__ __forceinline__ float scale_of(float amax) {
 }
 __device__ __forceinline__ int8_t code(float v, float scale) {
   return quant_i8(__fdiv_rn(v, scale));
+}
+// code(v, scale) from inv = 1 / scale (IEEE): |v| <= scale * 127 (1 +
+// 2^-23), so y = v * inv lies within 3e-5 of the IEEE quotient v / scale,
+// and both round to the same integer unless that quotient is within
+// 3e-5 of a half-integer: where y is within 1e-4 of one (or is not
+// finite), the quotient is taken by IEEE division. The same bits as code()
+// for a multiply where code() divides.
+__device__ __forceinline__ int8_t code_by_inv(float v, float scale,
+                                              float inv) {
+  const float y = v * inv;
+  return fabsf(y - floorf(y) - 0.5f) > 1e-4f ? quant_i8(y) : code(v, scale);
 }
 
 // This thread's share of max_k |x[k]| over the K values at xr.

@@ -2,17 +2,21 @@
 counterpart of ``aimet_tpu/ops/decode_attention.py``.
 
 On CUDA tensors ``fused_gqa_decode_attention`` launches kernel KGQA
-(``csrc/gqa_attention.cu``, one launch a call: the TPU version's scale
-folds around its kernel happen inside); on CPU tensors it takes the plain
-version ``fused_gqa_decode_attention_torch``, the counterpart of the JAX
+(``csrc/gqa_attention.cu``: the TPU version's scale folds around its
+kernel happen inside); on CPU tensors it takes the plain version
+``fused_gqa_decode_attention_torch``, the counterpart of the JAX
 package's ``fused_gqa_decode_attention_xla`` (the serving
 decode-attention math) with its rounding points: q scaled in q's dtype,
 f32 scores and softmax, probs rounded to q's dtype, f32 context times
 v_scale.
 
-Unlike the TPU kernel, none of its layout constraints apply; the card
-takes rep <= 8, D % 4 == 0, D <= 128 and any cache length (score rows too
-long for shared memory go to a global workspace), and raises otherwise.
+KGQA splits each (row, kv head)'s cache into chunks of :func:`gqa_chunk`
+rows (32 to 256), a block a chunk, in two launches: the scores and each
+chunk's softmax statistics, then the probabilities (rounded with the
+row's global max and sum) and the context, the chunks' sums added in
+chunk order. Unlike the TPU kernel, none of its layout constraints
+apply; the card takes rep <= 8, D % 4 == 0, D <= 128 and any cache
+length, and raises otherwise.
 """
 from __future__ import annotations
 
@@ -24,9 +28,34 @@ from .. import _build
 from .._device import on_cuda
 from ._common import div_ieee
 from .decode_attention_fused import (attention_kernel_shape_ok,
-                                     scalar_position, score_workspace)
+                                     scalar_position)
+from .int_matmul import _SMS, _zeroed_counters
 
-_WARPS = 16
+# a chunk's (max, sum) slots in KGQA's workspace: 8 heads each
+_STAT_FLOATS = 16
+# KGQA's chunks, the smallest first: the largest that still gives every SM
+# GQA_MIN_BLOCKS_PER_SM blocks is taken
+GQA_CHUNKS = (32, 64, 128, 256)
+GQA_MIN_BLOCKS_PER_SM = 2
+
+
+def gqa_chunk(B: int, KH: int, S: int, sms: int = _SMS) -> int:
+    """KGQA's chunk, the cache rows one block takes: the largest of
+    ``GQA_CHUNKS`` whose grid (B x KH x ceil(S / chunk) blocks) still puts
+    ``GQA_MIN_BLOCKS_PER_SM`` blocks on each SM, else the smallest. It
+    depends on the shapes alone, never on the position."""
+    fit = [c for c in GQA_CHUNKS
+           if B * KH * -(-S // c) >= GQA_MIN_BLOCKS_PER_SM * sms]
+    return fit[-1] if fit else GQA_CHUNKS[0]
+
+
+def gqa_workspace_floats(B: int, KH: int, rep: int, D: int, S: int,
+                         chunk: int) -> int:
+    """f32 values of KGQA's workspace: the score rows (B, KH, rep, S
+    rounded up to 4), each chunk's max and sum (16 floats) and its partial
+    context (rep, D)."""
+    return B * KH * (rep * -(-S // 4) * 4
+                     + -(-S // chunk) * (_STAT_FLOATS + rep * D))
 
 
 def _check(q, kc, vc, k_scale, v_scale):
@@ -72,7 +101,8 @@ def fused_gqa_decode_attention(q, kc, vc, k_scale, v_scale, pos):
     averages all S rows, as the reference's softmax of masked scores does).
     Returns (B, KH, rep, D) f32, v_scale applied.
 
-    On CUDA tensors it launches kernel KGQA; on CPU tensors it takes
+    On CUDA tensors it launches kernel KGQA (its two launches count as
+    one in ``.launches``); on CPU tensors it takes
     :func:`fused_gqa_decode_attention_torch`."""
     _check(q, kc, vc, k_scale, v_scale)
     pos = int(scalar_position(pos))
@@ -87,18 +117,28 @@ def fused_gqa_decode_attention(q, kc, vc, k_scale, v_scale, pos):
     for t in (kc, vc):
         if t.dtype != torch.int8 or not t.is_contiguous():
             raise ValueError("caches must be contiguous int8")
-    q = q.contiguous()
-    ks = k_scale.to(torch.float32).contiguous()
-    vs = v_scale.to(torch.float32).contiguous()
+    return _launch_gqa(q.contiguous(), kc, vc,
+                       k_scale.to(torch.float32).contiguous(),
+                       v_scale.to(torch.float32).contiguous(), pos,
+                       gqa_chunk(B, KH, S))
+
+
+def _launch_gqa(q, kc, vc, ks, vs, pos: int, chunk: int):
+    """KGQA on checked, contiguous CUDA operands with chunks of ``chunk``
+    rows (:func:`gqa_chunk`'s, or another one, as a sweep passes)."""
+    B, KH, rep, D = q.shape
+    S = kc.shape[1]
     out = torch.empty((B, KH, rep, D), dtype=torch.float32, device=q.device)
-    ws = score_workspace(B, KH, rep, D, S, _WARPS, q.device)
+    ws = torch.empty((gqa_workspace_floats(B, KH, rep, D, S, chunk),),
+                     dtype=torch.float32, device=q.device)
+    cnt = _zeroed_counters(q.device, B * KH)
     fused_gqa_decode_attention.launches += 1
     _build.launch(
         "aimet_gqa_attention", q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         ks.data_ptr(), vs.data_ptr(), min(pos, S), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), B, S, KH, rep, D,
-        float(np.float32(np.sqrt(D))), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        ws.data_ptr(), cnt.data_ptr(), B, S, KH, rep, D, chunk, ws.numel(),
+        cnt.numel(), float(np.float32(np.sqrt(D))),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     return out
 
 

@@ -7,10 +7,10 @@ blocks (:func:`split_chunk`); on a CPU tensor it takes the plain version
 ``fused_decode_attention_torch``, which follows the JAX package's XLA decode
 path (``serving/quantized_llm._attention_from_qkv``) op for op.
 
-``attention_kernel_shape_ok``, ``scores_fit`` and ``score_workspace``
-serve the kernels that keep one block a (row, kv head): KSOL / KDL
-(``ops/decode_layer_sol.py``, ``ops/fused_layer.py``) and KGQA
-(``ops/decode_attention.py``).
+``scores_fit`` and ``score_workspace`` serve the kernels that keep one
+block a (row, kv head): KSOL / KDL (``ops/decode_layer_sol.py``,
+``ops/fused_layer.py``); ``attention_kernel_shape_ok`` those and K3 and
+KGQA (``ops/decode_attention.py``).
 
 Unlike the TPU kernel, positions may differ per row (continuous batching),
 and none of the TPU's layout constraints (D % 128, S % 32, batch groups)

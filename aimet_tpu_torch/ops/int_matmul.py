@@ -112,29 +112,69 @@ def _quantize_activation_plain(x: torch.Tensor):
     return q, scale
 
 
+# K1's narrow-row kernel takes rows of at most this many values (its own
+# limit: 32 lanes of 32), by x's dtype; above, a block a row (where the two
+# cross on the H100: chip_smoke.k1_route_sweep). It holds about this many
+# bytes of x a block.
+ACT_QUANT_NARROW_MAX_K = {torch.float32: 1024, torch.bfloat16: 512}
+ACT_QUANT_STAGE_BYTES = 32768
+_ACT_QUANT_THREADS = 256
+
+
+def act_quant_plan(K: int, x_dtype, narrow_max_k: Optional[int] = None,
+                   stage_bytes: Optional[int] = None
+                   ) -> Optional[Tuple[int, int]]:
+    """K1's kernel for rows of K values of ``x_dtype``: None for the wide
+    rows' kernel (a block a row), else (lanes a row, rows a block) of the
+    narrow rows' kernel: lanes a power of two up to 32, about 8 values a
+    lane; rows a multiple of 256 / lanes, about ``stage_bytes`` of x (at
+    least one row a group of lanes). ``narrow_max_k`` and ``stage_bytes``
+    default to ``ACT_QUANT_NARROW_MAX_K[x_dtype]`` and
+    ``ACT_QUANT_STAGE_BYTES`` (other values: a sweep's)."""
+    if K > min(narrow_max_k or ACT_QUANT_NARROW_MAX_K[x_dtype], 1024):
+        return None
+    row_bytes = K * torch.empty((), dtype=x_dtype).element_size()
+    lanes = min(32, 1 << max(0, -(-K // 8) - 1).bit_length())
+    groups = _ACT_QUANT_THREADS // lanes
+    return lanes, groups * max(1, (stage_bytes or ACT_QUANT_STAGE_BYTES)
+                               // (groups * row_bytes))
+
+
 def quantize_activation_per_row(x: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row INT8 in f32: x (M, K) -> (codes (M, K)
     int8, scale (M,) f32), scale = max(amax, 1e-8) / 127. On a CUDA tensor
-    this launches kernel K1 (``csrc/act_quant.cu``)."""
+    this launches kernel K1 (``csrc/act_quant.cu``): its narrow-row kernel
+    (several rows a block) or its wide-row one (a block a row), as
+    :func:`act_quant_plan` says; ``.routes`` counts "narrow" and "wide"."""
     if x.dim() != 2:
         raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
     if not on_cuda(x):
         return _quantize_activation_plain(x)
     if x.dtype not in _GEMM_DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    x = x.contiguous()
+    return _launch_act_quant(x.contiguous(), act_quant_plan(x.shape[1],
+                                                            x.dtype))
+
+
+def _launch_act_quant(x, plan):
+    """K1 on a contiguous CUDA x with ``plan`` (:func:`act_quant_plan`'s
+    answer, or another one, as a sweep passes)."""
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     sx = torch.empty((M,), dtype=torch.float32, device=x.device)
-    quantize_activation_per_row.launches += 1
+    lanes, rows = plan or (0, 0)
+    _count(quantize_activation_per_row, "narrow" if plan else "wide", x, q)
     _build.launch("aimet_act_quant", x.data_ptr(), q.data_ptr(),
-                  sx.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
+                  sx.data_ptr(), M, K, lanes, rows,
+                  int(x.dtype == torch.bfloat16),
                   _build.stream_ptr(x.device))
     return q, sx
 
 
 quantize_activation_per_row.launches = 0
+quantize_activation_per_row.routes = {"narrow": 0, "wide": 0}
+quantize_activation_per_row.shapes = {}
 
 
 def _exact_rows(xq: torch.Tensor, w_q: torch.Tensor, epilogue,

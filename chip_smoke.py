@@ -11,7 +11,7 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
     python3 chip_smoke.py --w4-slice         # KW4, the w4 prefill and step
     python3 chip_smoke.py --prefill-slice    # KW8 and K2 at prefill M
     python3 chip_smoke.py --lowered-slice    # KSQ and KW4G, lowered w8a8 / w4g
-    python3 chip_smoke.py --q8-slice         # KQ8 and K1 / K2 at decode M
+    python3 chip_smoke.py --q8-slice         # KQ8, K1, K2 at decode M, KGQA
 
 1. builds the hand-written kernels from ``aimet_tpu_torch/csrc``: K1
    ``act_quant``, K2 ``w4a8_gemm``, K3 ``decode_attention``, KW4
@@ -306,12 +306,23 @@ PREFILL_KN = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
               (4096, 131072))
 # K1 at decode M (the per-op w4a8 decode step's rows): (M, K)
 K1_DECODE_SHAPES = ((16, 4096), (64, 4096))
+# K1 at ResNet-50's conv patch shapes at 32 images ((M, K), the patches of
+# the ops API's conv2d_w8a8): the stem, 1 x 1 and 3 x 3 convs of its four
+# stages
+K1_CONV_SHAPES = ((401408, 147), (100352, 64), (100352, 256), (100352, 576),
+                  (25088, 128), (25088, 512), (25088, 1152), (6272, 2304),
+                  (1568, 4608))
+# K1's kernels (narrow rows, wide rows) and KGQA's two, by name
+K1_KERNELS = ["act_quant_kernel", "act_quant_rows_kernel"]
+GQA_KERNELS = ["gqa_scores_kernel", "gqa_context_kernel"]
+# bytes of inputs a timed call rotates through, so they come from HBM and
+# not from the 50 MB L2
+ROTATE_BYTES = 128e6
 # the rows at the shapes that carry most of a route's launches on the main
 # paths (several only where they launch equally often), by which a route
 # of a kernel outside SHAPE_KERNELS is scored; the rest (sweeps of M or B)
 # are not
 MAIN_ROWS = {
-    "act_quant[decode M=16]",
     "w8a8_fusedq[conv 3x3]",
     "decode_attention", "fused_wo_mlp[next_qkv]",
     "sol_decode_layer[w4]", "sol_decode_layer[w4a8]",
@@ -326,7 +337,7 @@ ROUTE_LAUNCHES = {}
 # paths (their wrappers count launches by shape: ``fn.shapes``), and those
 # launches: (kernel, route, M, N, K, x dtype, out dtype, group) -> count
 SHAPE_KERNELS = ("w4_gemm", "w8_gemm", "w4_grouped_gemm", "w4a8_gemm",
-                 "w8a8_staticq", "q8_gemm", "w4a8_fusedq")
+                 "w8a8_staticq", "q8_gemm", "w4a8_fusedq", "act_quant")
 # kernels of the kernels line that are one route of a wrapper: name ->
 # (the wrapper's kernel name, route); their launches are that route's
 ROUTE_KERNELS = {"q8_tile": ("q8_gemm", "tile")}
@@ -630,7 +641,7 @@ def k1_decode_rows(torch, tim, g, rows, note):
         note("act_quant", q, pq)
         assert torch.equal(q, pq) and torch.equal(s_, ps), ("K1", m, k)
         ms, call = timed(lambda i: tim.quantize_activation_per_row(
-            xs[i % 4]), 50, ["act_quant_kernel"])
+            xs[i % 4]), 50, K1_KERNELS)
         pms, _ = timed(lambda i: tim._quantize_activation_plain(xs[i % 4]),
                        10)
         b, how = bound_ms(m * k * 2 + m * k + m * 4, (3 * m * k, F32_FLOPS))
@@ -638,6 +649,47 @@ def k1_decode_rows(torch, tim, g, rows, note):
             kernel="act_quant", shape=f"x ({m},{k}) bf16", ms=ms,
             call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how)
         log(f"K1 act_quant at ({m}, {k}): codes and scales bit-exact")
+
+
+def rotated(x):
+    """x and as many copies as make ROTATE_BYTES (at most 8), for a timed
+    call to take in turn."""
+    nbytes = x.numel() * x.element_size()
+    n = min(8, max(1, -(-int(ROTATE_BYTES) // nbytes)))
+    return [x] + [x.clone() for _ in range(n - 1)]
+
+
+def k1_conv_rows(torch, tim, g, rows, note):
+    """K1 at every K1_CONV_SHAPES entry, f32 and bf16 x: codes and scales
+    bit-exact against its plain version and on a repeated call, then timed
+    (x and copies of it rotated: ``rotated``) with the route it took."""
+    fn = tim.quantize_activation_per_row
+    for m, k in K1_CONV_SHAPES:
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = (torch.randn((m, k), generator=g, device="cuda") * 2).to(dt)
+            before = dict(fn.routes)
+            q, s_ = fn(x)
+            route = [r for r, v in fn.routes.items() if v != before[r]][0]
+            pq, ps = tim._quantize_activation_plain(x)
+            note("act_quant", q, pq)
+            assert torch.equal(q, pq) and torch.equal(s_, ps), ("K1", m, k,
+                                                               tag)
+            q2, s2 = fn(x)
+            assert torch.equal(q2, q) and torch.equal(s2, s_), ("K1 repeat",
+                                                                m, k, tag)
+            xs = rotated(x)
+            ms, call = timed(lambda i: fn(xs[i % len(xs)]), 20, K1_KERNELS)
+            pms, _ = timed(lambda i: tim._quantize_activation_plain(
+                xs[i % len(xs)]), 3, warmup=1)
+            b, how = bound_ms(m * k * x.element_size() + m * k + m * 4,
+                              (3 * m * k, F32_FLOPS))
+            rows[f"act_quant[conv ({m},{k}) {tag}]"] = dict(
+                kernel="act_quant", shape=f"x ({m},{k}) {tag}", ms=ms,
+                call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how,
+                route=route)
+            del x, xs, q, pq, q2
+    log("K1 act_quant at ResNet-50's conv patch shapes, f32 and bf16 x: "
+        "codes and scales bit-exact, repeat bits equal")
 
 
 def kw4_lowered(torch, tim, g):
@@ -670,10 +722,12 @@ def route_shape_gaps(torch, tim):
     """Every main-path shape of the SHAPE_KERNELS' routes (ROUTE_SHAPES),
     on seeded operands, checked to take the route it took there, then
     timed alone (``event_ms``: the median of 5 calls, 3 weight copies
-    rotated so decode shapes stream their weights from HBM), with its
-    bound. Returns {ROUTE_SHAPES key: (ms, bound ms)}."""
+    rotated so decode shapes stream their weights from HBM; K1 its x and
+    copies, ``rotated``), with its bound. Returns {ROUTE_SHAPES key: (ms,
+    bound ms)}."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    fns = {"w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
+    fns = {"act_quant": tim.quantize_activation_per_row,
+           "w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
            "w4_grouped_gemm": tim.matmul_w4_grouped,
            "w4a8_gemm": tim.w4a8_gemm,
            "w8a8_staticq": tim.matmul_w8a8_staticq,
@@ -684,7 +738,21 @@ def route_shape_gaps(torch, tim):
     out = {}
     for key in sorted(k for k in ROUTE_SHAPES if k[0] in fns):
         kernel, route, m, n, k, xt, ot, group = key
-        fn, odt = fns[kernel], dt[ot]
+        fn = fns[kernel]
+        if kernel == "act_quant":
+            xs = rotated(torch.randn((m, k), generator=g,
+                                     device="cuda").to(dt[xt]))
+            call = lambda i: fn(xs[i % len(xs)])
+            before = fn.routes[route]
+            call(0)
+            assert fn.routes[route] == before + 1, (key, "another route")
+            ms, _ = event_ms(call, 5)
+            b, _ = bound_ms(m * k * (xs[0].element_size() + 1) + m * 4,
+                            (3 * m * k, F32_FLOPS))
+            out[key] = (ms, b)
+            del xs
+            continue
+        odt = dt[ot]
         rows_ = (k if kernel in ("w8_gemm", "w8a8_staticq", "q8_gemm")
                  else k // 2)
         ws = [torch.randint(-128, 128, (rows_, n), dtype=torch.int8,
@@ -880,7 +948,7 @@ def fused_decode_rows(torch, tim, g, rows, gemm_row, note):
                 xq, sx = tim.quantize_activation_per_row(x)
                 return tim.w4a8_gemm(xq, sx, ws[i % 3], sw, torch.bfloat16)
             rows[label]["k1_k2_ms"], rows[label]["k1_k2_call_ms"] = timed(
-                k1_k2, 20, ["act_quant_kernel", "w4a8_decode_kernel"])
+                k1_k2, 20, K1_KERNELS + ["w4a8_decode_kernel"])
         del ws, x, got, want, k2
 
 
@@ -1052,13 +1120,14 @@ def check_kernels(torch, ops):
     m, k = 4096, 4096
     xs = [randn(m, k) for _ in range(4)]
     ms, call = timed(lambda i: tim.quantize_activation_per_row(xs[i % 4]),
-                     50, ["act_quant_kernel"])
+                     50, K1_KERNELS)
     pms, _ = timed(lambda i: tim._quantize_activation_plain(xs[i % 4]), 10)
     b, how = bound_ms(m * k * 2 + m * k + m * 4, (3 * m * k, F32_FLOPS))
     rows["act_quant"] = dict(kernel="act_quant", shape=f"x ({m},{k}) bf16",
                              ms=ms, call_ms=call, plain_ms=pms, bound_ms=b,
                              bound_by=how)
     k1_decode_rows(torch, tim, g, rows, note)
+    k1_conv_rows(torch, tim, g, rows, note)
 
     # --- K2, KW4, KW8 at every main-path (K, N), plus a ragged shape
     kn = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
@@ -1344,7 +1413,7 @@ def check_kernels(torch, ops):
             + f" Nq={Nq}" * nxt + ", flat caches, gate|up one array",
             ms=ms, call_ms=call, plain_ms=pms, bound_ms=b, bound_by=how,
             phases=phase_split(torch, flay, kdl))
-    check_gqa_kernel(torch, gqa, g, rows, note, attn_inputs_, pos)
+    check_gqa_kernel(torch, gqa, g, rows, note, pos)
     del sets, lw
     check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
                            gemm_row)
@@ -1385,9 +1454,13 @@ def gqa_flip_bound(torch, q, kc, vc, ks, vs, pos):
 
 
 def check_gqa(torch, gqa, q, kc, vc, ks, vs, pos):
-    """KGQA against its plain version on one input; returns (kernel out,
-    plain out, max |diff| / max |plain|). Raises beyond the tolerance."""
+    """KGQA against its plain version on one input, and a repeated call
+    against the first; returns (kernel out, plain out, max |diff| / max
+    |plain|). Raises beyond the tolerance or on other bits."""
     got = gqa.fused_gqa_decode_attention(q, kc, vc, ks, vs, pos)
+    assert torch.equal(gqa.fused_gqa_decode_attention(q, kc, vc, ks, vs,
+                                                      pos), got), \
+        ("KGQA repeat", pos)
     want = gqa.fused_gqa_decode_attention_torch(q, kc, vc, ks, vs, pos)
     err = rel_err(got, want)
     if q.dtype == torch.float32:
@@ -1399,31 +1472,41 @@ def check_gqa(torch, gqa, q, kc, vc, ks, vs, pos):
     return got, want, err
 
 
-def check_gqa_kernel(torch, gqa, g, rows, note, attn_inputs, pos):
+def check_gqa_kernel(torch, gqa, g, rows, note, pos):
     """KGQA at Llama-3-8B decode shapes (B 16, S 1024, KH 8, rep 4, D 128)
-    against its plain version, f32 and bf16 q, at a live position, a
-    negative one and one past S; then its timings."""
+    against its plain version, f32 and bf16 q, at a live position, the
+    last and first rows of a chunk, a negative position and one past S,
+    and at S = 1 and 4097 (positions on and around its chunk edges, the
+    last row, past S, negative); then its timings."""
     dev = "cuda"
     B, S, KH, rep, D = 16, 1024, 8, 4, 128
+    zero = torch.zeros((B,), device=dev, dtype=torch.int32)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        a = attn_inputs(torch.zeros((B,), device=dev, dtype=torch.int32))
-        kc, vc, ks, vs = a[3:7]
+        kc, vc, ks, vs = attn_inputs(torch, g, B, S, zero)[3:7]
         q = torch.randn((B, KH, rep, D), generator=g, device=dev).to(dtype)
-        worst = 0.0
-        for p_ in (pos, -1, S + 5):
-            got, want, err = check_gqa(torch, gqa, q, kc, vc, ks, vs, p_)
-            note("gqa_decode_attention", got, want)
-            worst = max(worst, err)
+        worst, tried = 0.0, []
+        for s_len in (S, 1, 4097):
+            if s_len != S:
+                kc, vc, ks, vs = attn_inputs(torch, g, B, s_len, zero)[3:7]
+            c = gqa.gqa_chunk(B, KH, s_len)
+            cases = ((pos, c - 1, c, -1, S + 5) if s_len == S else
+                     (0, -1, 3) if s_len == 1 else
+                     (c - 1, c, 3 * c + 1, s_len - 1, -1, s_len + 7))
+            for p_ in cases:
+                got, want, err = check_gqa(torch, gqa, q, kc, vc, ks, vs,
+                                           p_)
+                note("gqa_decode_attention", got, want)
+                worst = max(worst, err)
+            tried.append(f"S={s_len} (chunk {c}) at "
+                         + ", ".join(map(str, cases)))
         log(f"KGQA gqa_decode_attention ({tag} q): within {worst:.3e} of max "
-            f"at positions {pos}, -1, {S + 5} ("
+            f"at {'; '.join(tried)} ("
             + (f"< {TOL_GQA_F32}" if tag == "f32" else
-               "one bf16 ulp a prob") + ")")
+               "one bf16 ulp a prob") + "), repeat bits equal")
         # timing: 4 cache sets so reads come from HBM
-        sets = [attn_inputs(torch.zeros((B,), device=dev,
-                                        dtype=torch.int32))[3:7]
-                for _ in range(4)]
+        sets = [attn_inputs(torch, g, B, S, zero)[3:7] for _ in range(4)]
         ms, call = timed(lambda i: gqa.fused_gqa_decode_attention(
-            q, *sets[i % 4], pos), 40, ["gqa_attention_kernel"])
+            q, *sets[i % 4], pos), 40, GQA_KERNELS)
         pms, _ = timed(lambda i: gqa.fused_gqa_decode_attention_torch(
             q, *sets[i % 4], pos), 10)
         live = B * (pos + 1)
@@ -1435,8 +1518,8 @@ def check_gqa_kernel(torch, gqa, g, rows, note, attn_inputs, pos):
             kernel="gqa_decode_attention",
             shape=f"B={B} S={S} KH={KH} rep={rep} D={D} position {pos}, "
             f"{tag} q", ms=ms, call_ms=call, plain_ms=pms, bound_ms=b,
-            bound_by=how)
-        del a, sets
+            bound_by=how, chunk=gqa.gqa_chunk(B, KH, S))
+        del kc, vc, sets
 
 
 def check_lowering_kernels(torch, tim, g, rows, errs, note, randn, codes,
@@ -1753,7 +1836,7 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
         gemm_row(label, "w8a8_fusedq", m, k, n,
                  lambda i: tim.matmul_w8a8_fusedq(x, w, sw),
                  lambda i: tim.matmul_w8a8_torch(x, w, sw),
-                 ["act_quant_kernel", "q8_"], m * k * 2 + k * n, INT8_OPS)
+                 K1_KERNELS + ["q8_"], m * k * 2 + k * n, INT8_OPS)
         int_mm(label, tim.quantize_activation_per_row(x)[0], w)
         del x, w
     m, k, n = 4096, 14336, 4096
@@ -1768,7 +1851,7 @@ def check_w8a8_kernels(torch, tim, g, rows, note, gemm_row):
     gemm_row("w8a8_fusedq[conv 3x3]", "w8a8_fusedq", M, K, wq.shape[1],
              lambda i: tim.matmul_w8a8_fusedq(p, wq, s_),
              lambda i: tim.matmul_w8a8_torch(p, wq, s_),
-             ["act_quant_kernel", "q8_"], M * K * 4 + wq.numel(), INT8_OPS,
+             K1_KERNELS + ["q8_"], M * K * 4 + wq.numel(), INT8_OPS,
              out_bytes=M * wq.shape[1] * 4)
     int_mm("w8a8_fusedq[conv 3x3]", pq, wq)
     q8_tile_row(torch, tim, rows, gemm_row, "q8_tile[conv 3x3]", pq, psx, wq,
@@ -2446,7 +2529,7 @@ def long_cache_path(torch, qllm, ops, cfg, counters, g):
     q = torch.randn((B, KH, H // KH, D), generator=g,
                     device="cuda").to(torch.bfloat16)
     m["long_cache_gqa_ms"], _ = timed(lambda i: gqa.fused_gqa_decode_attention(
-        q, c.k, c.v, c.k_scale, c.v_scale, pos), 10, ["gqa_attention_kernel"])
+        q, c.k, c.v, c.k_scale, c.v_scale, pos), 10, GQA_KERNELS)
     m["long_cache_ksol_ms"], _ = timed(lambda i: dsol.sol_decode_layer(
         qkv, resid, kv3[2][0], kv3[2][1], c.k_scale, c.v_scale, pos, cos,
         sin, layer["wo"], layer["w_gateup"], layer["w_down"],
@@ -4084,13 +4167,6 @@ STEP_KN = (("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672),
            ("down", 14336, 4096), ("lm_head", 4096, 131072))
 
 
-# K1 at ResNet-50's conv patch shapes at 32 images (f32 patches, (M, K)):
-# the stem, 1 x 1 and 3 x 3 convs of its four stages
-K1_CONV_SHAPES = ((401408, 147), (100352, 64), (100352, 256), (100352, 576),
-                  (25088, 128), (25088, 512), (25088, 1152), (6272, 2304),
-                  (1568, 4608))
-
-
 def fused_step_rows(torch, tim):
     """K2's fused decode kernel against K1 + K2's decode route at M = 16
     and each STEP_KN shape (bf16 x and out, 3 weight copies rotated),
@@ -4205,20 +4281,121 @@ def ksol_int8_digest(torch, dsol, g):
     return [digest(t) for t in (out[0], out[1], a[3], a[4])]
 
 
+def k1_route_sweep(torch, tim):
+    """K1's two kernels on about ROTATE_BYTES of x a shape (so from HBM),
+    rows of K = 64..4608 f32 and 64..8192 bf16: the wide rows' kernel and,
+    up to its K = 1024, the narrow rows' kernel holding 8, 16 and 32 KB of
+    x a block, codes and scales equal across them; the median device ms of
+    20 calls each (CUDA events). Returns {"K dtype": {variant: ms}}."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    res = {}
+    for xt, tag, ks_ in ((torch.float32, "f32", (64, 147, 256, 576, 1024,
+                                                  1152, 2048, 4608)),
+                         (torch.bfloat16, "bf16", (64, 147, 512, 1024, 2048,
+                                                   4096))):
+        for k in ks_:
+            elem = torch.empty((), dtype=xt).element_size()
+            x = torch.randn((int(ROTATE_BYTES // (k * elem)), k),
+                            generator=g, device="cuda").to(xt)
+            want = tim._launch_act_quant(x, None)
+            r = {"wide": event_ms(lambda i: tim._launch_act_quant(x, None),
+                                  20)[0]}
+            for stage in (8192, 16384, 32768) if k <= 1024 else ():
+                plan = tim.act_quant_plan(k, xt, narrow_max_k=1024,
+                                          stage_bytes=stage)
+                got = tim._launch_act_quant(x, plan)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    ("K1 sweep", k, tag, stage)
+                r[f"narrow {stage // 1024} KB"] = event_ms(
+                    lambda i, p_=plan: tim._launch_act_quant(x, p_), 20)[0]
+            res[f"{k} {tag}"] = r
+            log(f"  K1 at ({x.shape[0]}, {k}) {tag}, ms: "
+                + ", ".join(f"{a} {v:.5f}" for a, v in r.items()))
+            del x, want
+    return res
+
+
+def gqa_slice_rows(torch):
+    """KGQA with only the API a parent tree has too: at B = 16, S = 1024,
+    position 700 with a bf16 and an f32 q, and at S = 16,384, position
+    16,000 with a bf16 q, each checked against its plain version
+    (``check_gqa``), then timed with 4 cache sets rotated (device ms of all
+    its kernels). Where the tree has ``gqa_chunk``, every chunk of
+    GQA_CHUNKS at those shapes and at B = 32 and 1 (S = 1024): each within
+    the bf16 tolerance of the plain version, the median of 20 calls (CUDA
+    events). Returns a dict."""
+    from aimet_tpu_torch.ops import decode_attention as gqa
+    g = torch.Generator(device="cuda").manual_seed(14)
+    KH, rep, D = 8, 4, 128
+    res = {"rows": {}, "chunks": {}}
+    for B, S, pos, dts in ((16, 1024, 700, ("bf16", "f32")),
+                           (16, 16384, 16000, ("bf16",)),
+                           (32, 1024, 700, ()), (1, 1024, 700, ())):
+        zero = torch.zeros((B,), device="cuda", dtype=torch.int32)
+        sets = [attn_inputs(torch, g, B, S, zero)[3:7] for _ in range(4)]
+        for tag in dts or ("bf16",):
+            xt = torch.bfloat16 if tag == "bf16" else torch.float32
+            q = torch.randn((B, KH, rep, D), generator=g,
+                            device="cuda").to(xt)
+            label = f"B={B} S={S} position {pos} {tag} q"
+            want = None
+            if dts:
+                _, want, err = check_gqa(torch, gqa, q, *sets[0], pos)
+                ms, host = timed(lambda i: gqa.fused_gqa_decode_attention(
+                    q, *sets[i % 4], pos), 20)
+                res["rows"][label] = dict(ms=ms, call_ms=host, rel_err=err)
+                log(f"  KGQA {label}: {ms:.5f} device ms, within {err:.3e} "
+                    "of the plain version's max")
+            if not hasattr(gqa, "gqa_chunk") or tag != "bf16":
+                continue
+            if want is None:
+                want = gqa.fused_gqa_decode_attention_torch(q, *sets[0],
+                                                            pos)
+            bound = gqa_flip_bound(torch, q, *sets[0], pos) \
+                + TOL_GQA_F32 * want.abs().max()
+            if dts:
+                res["rows"][label]["passes_ms"] = [timed(
+                    lambda i: gqa.fused_gqa_decode_attention(
+                        q, *sets[i % 4], pos), 20, [name])[0]
+                    for name in GQA_KERNELS]
+                log(f"  KGQA {label} by launch (scores, context), ms: "
+                    + ", ".join(f"{v:.5f}" for v in
+                                res["rows"][label]["passes_ms"]))
+            r = {}
+            for c in gqa.GQA_CHUNKS:
+                got = gqa._launch_gqa(q, *sets[0], pos, c)
+                assert ((got - want).abs() <= bound).all(), ("KGQA chunk",
+                                                             c)
+                r[c] = event_ms(lambda i, c=c: gqa._launch_gqa(
+                    q, *sets[i % 4], pos, c), 20)[0]
+            res["chunks"][label] = r
+            log(f"  KGQA {label} by chunk (default "
+                f"{gqa.gqa_chunk(B, KH, S)}), ms: "
+                + ", ".join(f"{c} {v:.5f}" for c, v in r.items()))
+        del sets
+        torch.cuda.empty_cache()
+    return res
+
+
 def q8_slice() -> int:
-    """``python3 chip_smoke.py --q8-slice``: KQ8 and K1 / K2 at decode M on
-    whatever tree holds this script, with only APIs a parent tree has too
-    (``matmul_q8``, ``matmul_w8a8``, ``matmul_w4a8``; copied into a parent
-    tree, it measures that tree with the same code): KQ8 at M = 4096, 14336
+    """``python3 chip_smoke.py --q8-slice``: KQ8, K1, K2 at decode M and
+    KGQA on whatever tree holds this script, with only APIs a parent tree
+    has too (``matmul_q8``, ``matmul_w8a8``, ``matmul_w4a8``,
+    ``fused_gqa_decode_attention``; copied into a parent tree, it measures
+    that tree with the same code): KQ8 at M = 4096, 14336
     x 4096 (with and without a column bias), ``matmul_w8a8`` at 4096 x
     28672 and at ResNet-50's 3 x 3 conv patches (25088 x 1152 x 128, f32),
     ``matmul_w4a8`` at K2_DECODE_SHAPES (bf16 x; f32 x at M = 16): each
     checked against its plain version, timed (device ms of all its
     kernels, the profiler over the calls) and its output's digest (the
     same seeded inputs on both trees: the digests hold the bits across
-    them), K1's codes and KSOL's int8-dot outputs as digests; where the
-    tree has KQ8's tile its crossing sweep (``q8_tile_sweep``) and the
-    fused decode kernel at the step's shapes (``fused_step_rows``); then
+    them), K1's codes and KSOL's int8-dot outputs as digests, K1 at
+    ResNet-50's conv patch shapes (f32 and bf16 x); where the tree has
+    KQ8's tile its crossing sweep (``q8_tile_sweep``) and the fused decode
+    kernel at the step's shapes (``fused_step_rows``), where it has K1's
+    two kernels their crossing (``k1_route_sweep``); KGQA at S = 1024 and
+    16,384 (``gqa_slice_rows``, with a chunk sweep where the tree has
+    one); then
     the float ResNet-50 with every conv through ``conv2d_w8a8`` (one
     forward counted, 3 profiled) and the ``w4a8`` per-slot decode step of
     Llama-3-8B (32 layers, batch 16: launches by wrapper, 4 profiled, then
@@ -4314,13 +4491,17 @@ def q8_slice() -> int:
         torch, dsol, torch.Generator(device="cuda").manual_seed(3))
     log(f"  digests: {bits}")
     for m, k in K1_CONV_SHAPES:
-        x = torch.randn((m, k), generator=g, device="cuda") * 2
-        row(f"act_quant[conv ({m}, {k}) f32]",
-            lambda i: tim.quantize_activation_per_row(x)[0],
-            lambda: tim._quantize_activation_plain(x)[0], 10)
-        del x
+        for xt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = (torch.randn((m, k), generator=g, device="cuda") * 2).to(xt)
+            row(f"act_quant[conv ({m}, {k}) {tag}]",
+                lambda i: tim.quantize_activation_per_row(x)[0],
+                lambda: tim._quantize_activation_plain(x)[0], 10)
+            del x
     new_tree = hasattr(tim, "q8_tile_route")
     sweep = q8_tile_sweep(torch, tim) if new_tree else None
+    k1_sweep = (k1_route_sweep(torch, tim) if hasattr(tim, "act_quant_plan")
+                else None)
+    gqa_m = gqa_slice_rows(torch)
 
     # ResNet-50 through the dynamic full-INT8 ops API (K1 + KQ8 per conv)
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -4368,6 +4549,7 @@ def q8_slice() -> int:
     fused_rows = fused_step_rows(torch, tim) if new_tree else None
     log(json.dumps({"q8_slice": {"root": ROOT, "card": smi, "rows": rows,
                                  "bits": bits, "sweep": sweep,
+                                 "k1_route_sweep": k1_sweep, "gqa": gqa_m,
                                  "fused_step_rows": fused_rows,
                                  "resnet50_ops_api": cnn_m,
                                  "w4a8_slot_step": slot_m}}))

@@ -53,7 +53,13 @@ on one tile of small integers; their C entry refuses what its boxes cannot
 map. K2's fused decode kernel (``matmul_w4a8_fusedq`` at M <= 64) gives K1
 + K2's decode route's codes, scales and outputs bit for bit, bf16 and f32
 x, at ragged M, N and K, in one launch; it repeats its bits and refuses a
-grid that cannot be resident at once.
+grid that cannot be resident at once. K1 is bit-exact on both of its
+kernels (narrow rows: several a block; wide rows: a block a row) at K = 1
+to 4096, f32 and bf16, at M that leaves a partial block, on a view one
+element into its buffer and on all-zero rows (the 1e-8 floor). KGQA split
+across 1 to 24 chunks keeps its tolerances at positions -1, 0, on chunk
+edges, the last row and past S, repeats its bits, and its C entry refuses
+a short workspace.
 """
 import pytest
 import torch
@@ -1581,3 +1587,111 @@ def test_w4a8_fusedq_refuses_what_it_cannot_take(gen):
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
     assert not cnt.any()                          # the counts left 0
+
+
+def _k1_check(x):
+    """K1 on x against its plain version, codes and scales bit for bit,
+    and on a repeated call; returns the route it took."""
+    before = dict(tim.quantize_activation_per_row.routes)
+    q, s = tim.quantize_activation_per_row(x)
+    took = [r for r, n in tim.quantize_activation_per_row.routes.items()
+            if n != before[r]]
+    pq, ps = tim._quantize_activation_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    q2, s2 = tim.quantize_activation_per_row(x)
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+    return took[0]
+
+
+@pytest.mark.parametrize("k", [1, 8, 64, 147, 576, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_act_quant_bit_exact_at_every_row_width(gen, k, dtype):
+    """K1 at K = 1 .. 4096 on both of its kernels: M = 300 leaves a
+    partial last block of rows on the narrow rows' kernel."""
+    x = (torch.randn((300, k), generator=gen, device="cuda") * 3).to(dtype)
+    route = _k1_check(x)
+    assert route == ("narrow" if tim.act_quant_plan(k, dtype) else "wide")
+
+
+@pytest.mark.parametrize("m,k", [(1, 147), (23, 64), (1000, 147),
+                                 (517, 576), (65, 9)])
+def test_act_quant_rows_not_a_multiple_of_the_block(gen, m, k):
+    """M not a multiple of the narrow kernel's rows a block (nor of its
+    groups of lanes), K whose rows are not 16-byte aligned."""
+    lanes, rows = tim.act_quant_plan(k, torch.float32)
+    assert m % rows
+    _k1_check(torch.randn((m, k), generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("k", [64, 147, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_act_quant_takes_odd_offsets_and_zero_rows(gen, k, dtype):
+    """A contiguous (M, K) view one element into its buffer (no row 16-byte
+    aligned, nor the codes' span), with all-zero rows: their scale is the
+    1e-8 floor over 127 and their codes 0."""
+    m = 200
+    buf = (torch.randn((m * k + 1,), generator=gen, device="cuda")
+           * 3).to(dtype)
+    x = buf[1:].view(m, k)
+    x[::7] = 0
+    _k1_check(x)
+    q, s = tim.quantize_activation_per_row(x)
+    floor = (torch.tensor(1e-8) / torch.tensor(127.0)).item()
+    assert not q[::7].any()
+    assert torch.equal(s[::7], torch.full_like(s[::7], floor))
+
+
+@pytest.mark.parametrize("s,chunk", [(1, 64), (100, 32), (1024, 128),
+                                     (4097, 256), (1500, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gqa_attention_split_every_chunk_count(gen, dtype, s, chunk):
+    """KGQA's split across one to 24 chunks: within its tolerances of the
+    plain version at positions -1, 0, on a chunk's last and first rows,
+    the cache's last row and past S, repeating its bits."""
+    from aimet_tpu_torch.ops import decode_attention as dgqa
+    b, kh, rep, d = 3, 8, 4, 128
+    _, _, kc, vc, ks, vs, _, _ = _layer_inputs(gen, b, s, kh * rep, kh, d,
+                                               0)
+    q = torch.randn((b, kh, rep, d), generator=gen, device="cuda").to(dtype)
+    for pos in sorted({-1, 0, chunk - 1, chunk, s - 1, s + 3}):
+        got = dgqa._launch_gqa(q, kc, vc, ks, vs, pos, chunk)
+        want = fused_gqa_decode_attention_torch(q, kc, vc, ks, vs, pos)
+        if dtype == torch.float32:
+            assert _rel(got, want) < 1e-4, pos
+        else:
+            bound = _gqa_flip_bound(q, kc, vc, ks, vs, pos) \
+                + 1e-4 * want.abs().max()
+            assert ((got - want).abs() <= bound).all(), pos
+        assert torch.equal(dgqa._launch_gqa(q, kc, vc, ks, vs, pos, chunk),
+                           got)
+
+
+def test_gqa_attention_refuses_a_short_workspace(gen):
+    """KGQA's C entry refuses a chunk it does not take and a workspace or
+    counters shorter than its grid needs."""
+    from aimet_tpu_torch.ops import decode_attention as dgqa
+    b, s, kh, rep, d, chunk = 2, 300, 8, 4, 128, 128
+    _, _, kc, vc, ks, vs, _, _ = _layer_inputs(gen, b, s, kh * rep, kh, d,
+                                               0)
+    q = torch.randn((b, kh, rep, d), generator=gen, device="cuda")
+    out = torch.empty_like(q)
+    need = dgqa.gqa_workspace_floats(b, kh, rep, d, s, chunk)
+    ws = torch.empty((need,), device="cuda")
+    cnt = torch.zeros((b * kh,), dtype=torch.int32, device="cuda")
+
+    def launch(ch, ws_values, cnt_values):
+        _build.launch("aimet_gqa_attention", q.data_ptr(), kc.data_ptr(),
+                      vc.data_ptr(), ks.data_ptr(), vs.data_ptr(), 5,
+                      out.data_ptr(), ws.data_ptr(), cnt.data_ptr(), b, s,
+                      kh, rep, d, ch, ws_values, cnt_values, 11.3137, 0,
+                      _build.stream_ptr(q.device))
+    for args in ((chunk, need - 1, b * kh), (chunk, need, b * kh - 1),
+                 (48, need, b * kh), (512, need, b * kh)):
+        with pytest.raises(RuntimeError):
+            launch(*args)
+    launch(chunk, need, b * kh)
+    torch.cuda.synchronize()
+    assert not cnt.any()                          # the counters left 0

@@ -9,6 +9,12 @@ two sides' f32 softmaxes (exp, sum order) differ in the last bits, which
 can move a prob's bf16 rounding by one bf16 ulp. The bound is that, for
 every prob at once: |d out| <= v_scale * sum_s ulp_bf16(p_s) |v_s| (plus
 the f32 tolerance).
+
+Kernel KGQA runs only on the card (tests/test_torch_cuda_kernels.py);
+here its chunk choice is checked for coverage, and a model of its split
+arithmetic (per-chunk max and sum, the row's max and sum over the chunks,
+probabilities rounded with those, chunk sums added in order) is held to
+the plain version with the same tolerances.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +26,8 @@ from aimet_tpu.ops.decode_attention import (fused_gqa_decode_attention as
                                             j_gqa,
                                             fused_gqa_decode_attention_xla)
 from aimet_tpu_torch.ops.decode_attention import (
-    fused_gqa_decode_attention, fused_gqa_decode_attention_torch)
+    GQA_CHUNKS, GQA_MIN_BLOCKS_PER_SM, fused_gqa_decode_attention,
+    fused_gqa_decode_attention_torch, gqa_chunk, gqa_workspace_floats)
 
 B, S, KH, REP, D = 4, 24, 2, 4, 16
 
@@ -125,3 +132,87 @@ def test_matches_serving_decode_attention():
                                             t(vs), pos)
     np.testing.assert_allclose(ours.numpy(), np.asarray(serving[:, 0]),
                                rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,s", [(16, 1024), (32, 1024), (1, 1024),
+                                 (16, 16384), (1, 1), (16, 4097), (3, 100)])
+def test_gqa_chunks_cover_every_live_row_once(b, s):
+    """KGQA's chunk comes from B, KH and S alone: the largest of
+    GQA_CHUNKS (multiples of 32 up to 256, as its C entry takes) whose
+    grid puts GQA_MIN_BLOCKS_PER_SM blocks on each of 132 SMs, else the
+    smallest; every live row of every position kind lies in exactly one
+    live chunk, only the last partial; the workspace holds the score rows
+    padded to whole float4s, and each chunk's statistics and sums."""
+    kh, rep, d = 8, 4, 128
+    chunk = gqa_chunk(b, kh, s)
+    fit = [c for c in GQA_CHUNKS
+           if b * kh * -(-s // c) >= GQA_MIN_BLOCKS_PER_SM * 132]
+    assert chunk == (fit[-1] if fit else GQA_CHUNKS[0])
+    assert all(c % 32 == 0 and 32 <= c <= 256 for c in GQA_CHUNKS)
+    for pos in (-1, 0, 1, chunk - 1, chunk, s // 2, s - 1, s, s + 7):
+        n = s if pos < 0 else min(pos + 1, s)
+        live = [(c0, min(chunk, n - c0)) for c0 in range(0, n, chunk)]
+        assert [r for r0, k in live for r in range(r0, r0 + k)] \
+            == list(range(n))
+        assert all(k == chunk for _, k in live[:-1]) and live[-1][1] >= 1
+    assert gqa_workspace_floats(b, kh, rep, d, s, chunk) == b * kh * (
+        rep * -(-s // 4) * 4 + -(-s // chunk) * (16 + rep * d))
+
+
+def _split_model(q, kc, vc, ks, vs, pos, chunk):
+    """KGQA's split arithmetic in f32 on the CPU: each chunk's max m_c and
+    sum l_c of exp(s - m_c); the row's m = max m_c and l = sum_c exp(m_c -
+    m) l_c; p = exp(s - m) / l rounded to q's dtype; the chunks' sums of
+    p v added in chunk order, times v_scale."""
+    d = q.shape[-1]
+    s_len = kc.shape[1]
+    factor = (ks / torch.tensor(np.float32(np.sqrt(d)))).to(q.dtype)
+    qs = (q * factor[:, :, None, None]).float()
+    n = s_len if pos < 0 else min(pos + 1, s_len)
+    sc = torch.einsum("bkrd,bskd->bkrs", qs, kc[:, :n].float())
+    if pos < 0:
+        sc = torch.full_like(sc, -1e30)
+    cuts = [slice(c0, min(c0 + chunk, n)) for c0 in range(0, n, chunk)]
+    mc = [sc[..., c].amax(-1) for c in cuts]
+    lc = [torch.exp(sc[..., c] - m[..., None]).sum(-1) for c, m in
+          zip(cuts, mc)]
+    m = torch.stack(mc).amax(0)
+    l = sum(torch.exp(a - m) * b for a, b in zip(mc, lc))
+    p = (torch.exp(sc - m[..., None]) / l[..., None]).to(q.dtype).float()
+    out = sum(torch.einsum("bkrs,bskd->bkrd", p[..., c], vc[:, c].float())
+              for c in cuts)
+    return out * vs[:, :, None, None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_gqa_split_arithmetic_matches_plain(dtype):
+    """The split arithmetic (modelled in f32) against the plain version
+    across chunk edges: f32 q within 1e-5 of the max, bf16 q within one
+    bf16 ulp a prob plus 1e-4 of the max."""
+    b, s, kh, rep, d, chunk = 2, 100, 2, 4, 16, 32
+    rs = np.random.RandomState(7)
+    q = torch.from_numpy(rs.randn(b, kh, rep, d).astype(np.float32)
+                         ).to(dtype)
+    kc = torch.from_numpy(rs.randint(-127, 128, (b, s, kh, d)).astype(
+        np.int8))
+    vc = torch.from_numpy(rs.randint(-127, 128, (b, s, kh, d)).astype(
+        np.int8))
+    ks = torch.from_numpy(rs.rand(b, kh).astype(np.float32) * 0.5 + 0.1)
+    vs = torch.from_numpy(rs.rand(b, kh).astype(np.float32) * 0.05 + 0.01)
+    for pos in (-1, 0, chunk - 1, chunk, 3 * chunk + 1, s - 1, s + 5):
+        got = _split_model(q, kc, vc, ks, vs, pos, chunk)
+        want = fused_gqa_decode_attention_torch(q, kc, vc, ks, vs, pos)
+        tol = 1e-5 if dtype == torch.float32 else 1e-4
+        bound = tol * want.abs().max()
+        if dtype == torch.bfloat16:
+            sc = torch.einsum("bkrd,bskd->bkrs", (q * (ks / d ** 0.5)[
+                :, :, None, None].to(dtype)).float(), kc.float())
+            sc = sc.masked_fill(~(torch.arange(s) <= pos), -1e30)
+            p = torch.softmax(sc, -1)
+            ulp = torch.where(p > 0, torch.exp2(torch.floor(torch.log2(
+                p.clamp_min(1e-30))) - 7), torch.zeros_like(p))
+            bound = bound + torch.einsum("bkrs,bskd->bkrd", ulp,
+                                         vc.abs().float()) \
+                * vs[:, :, None, None]
+        assert ((got - want).abs() <= bound).all(), pos

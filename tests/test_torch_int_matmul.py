@@ -42,7 +42,8 @@ def test_pack_unpack_every_code_pair():
     np.testing.assert_array_equal(tim.unpack_int4(tp).numpy(), q)
 
 
-@pytest.mark.parametrize("m,k", [(7, 96), (1, 4), (33, 300)])
+@pytest.mark.parametrize("m,k", [(7, 96), (1, 4), (33, 300),
+                                 (64, 147), (40, 64), (9, 576)])
 def test_activation_quant_f32_bit_exact(m, k):
     x = (np.random.RandomState(m).randn(m, k) * 3).astype(np.float32)
     x[0, :] = 0.0                                 # the 1e-8 scale floor
@@ -50,6 +51,60 @@ def test_activation_quant_f32_bit_exact(m, k):
     tq, ts = tim.quantize_activation_per_row(torch.from_numpy(x))
     np.testing.assert_array_equal(tq.numpy(), _np(jq))
     np.testing.assert_array_equal(ts.numpy(), _np(js))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_activation_quant_plan_fits_its_kernels(dtype):
+    """K1's plan: the narrow rows' kernel up to its K limit for the dtype
+    (lanes a power of two up to 32, at most 8 values a lane below 32 lanes
+    and 32 at 32, rows a multiple of 256 / lanes, their codes within 227
+    KB), else the wide rows' kernel."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    limit = tim.ACT_QUANT_NARROW_MAX_K[dtype]
+    assert limit <= 1024
+    for k in (1, 2, 7, 8, 9, 63, 64, 65, 147, 256, 257, 512, 576, 1024,
+              1025, 4096):
+        plan = tim.act_quant_plan(k, dtype)
+        if k > limit:
+            assert plan is None
+            continue
+        lanes, rows = plan
+        assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+        assert k <= 8 * lanes or (lanes == 32 and k <= 1024)
+        assert lanes == 1 or k > 8 * (lanes // 2)
+        assert rows % (256 // lanes) == 0 and rows * k + 16 <= 227 * 1024
+        assert rows == 256 // lanes or rows * k * elem <= \
+            tim.ACT_QUANT_STAGE_BYTES
+    assert set(tim.quantize_activation_per_row.routes) == {"narrow", "wide"}
+
+
+def test_activation_codes_by_reciprocal_equal_division():
+    """The narrow kernel's codes (csrc/row_quant.cuh, code_by_inv): y = x *
+    (1 / s) rounded half to even where y lies more than 1e-4 from a
+    half-integer, else x / s, equal rint(x / s) (IEEE f32) on random rows
+    and on values at, just off and 2^-16 off half-integers of the grid."""
+    rs = np.random.RandomState(5)
+    x = (rs.randn(2000, 96) * rs.exponential(3.0, (2000, 1))).astype(
+        np.float32)
+    amax = np.abs(x).max(1)
+    halves = (rs.randint(-127, 127, (2000, 32)) + 0.5).astype(np.float32)
+    sc0 = (np.maximum(amax, np.float32(1e-8)) / np.float32(127)).astype(
+        np.float32)
+    near = (halves * sc0[:, None]).astype(np.float32)
+    nudge = np.float32(2.0 ** -16) * sc0[:, None]
+    x = np.concatenate([x, near, near + nudge, near - nudge,
+                        np.nextafter(near, np.float32(np.inf))], 1)
+    x = np.clip(x, -amax[:, None], amax[:, None])        # amax unchanged
+    s = (np.maximum(np.abs(x).max(1), np.float32(1e-8))
+         / np.float32(127)).astype(np.float32)[:, None]
+    inv = (np.float32(1) / s).astype(np.float32)
+    y = (x * inv).astype(np.float32)
+    div = (x / s).astype(np.float32)
+    clear = np.abs(y - np.floor(y) - np.float32(0.5)) > np.float32(1e-4)
+    got = np.clip(np.rint(np.where(clear, y, div)), -127, 127)
+    np.testing.assert_array_equal(got, np.clip(np.rint(div), -127, 127))
+    assert (~clear).sum() > 0 and (np.rint(y) != np.rint(div)).any()
 
 
 def _weights(k, n, seed):
