@@ -9,7 +9,10 @@ quantization simulation (``QuantizationSimModel``) and its lowering to the
 integer kernels (``lower_to_int``). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 """
-from .models.transformer import Transformer, TransformerConfig
+from .models.transformer import (Transformer, TransformerConfig,
+                                 init_kv_caches)
+from .native import NativeScheduler
+from .ops.kv_cache import flatten_kv_caches
 from .quantsim.config import QuantSimConfig
 from .quantsim.lowering import LoweredModel, lower_to_int
 from .quantsim.qsim import QuantizationSimModel
@@ -19,8 +22,9 @@ from .serving.quantized_llm import (QuantizedLLM, quantize_transformer_weights,
                                     random_quantized_weights)
 
 __all__ = [
-    "ContinuousBatcher", "LoweredModel", "QuantSimConfig",
+    "ContinuousBatcher", "LoweredModel", "NativeScheduler", "QuantSimConfig",
     "QuantizationSimModel", "QuantizedLLM", "Request", "Transformer",
-    "TransformerConfig", "lower_to_int", "quantize_transformer_weights",
-    "quantized_forward", "random_quantized_weights",
+    "TransformerConfig", "flatten_kv_caches", "init_kv_caches",
+    "lower_to_int", "quantize_transformer_weights", "quantized_forward",
+    "random_quantized_weights",
 ]

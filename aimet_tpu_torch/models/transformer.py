@@ -5,7 +5,9 @@
 float ``Transformer`` keeps the flax module's parameter names and layouts
 (``layer_0.attn.wq.kernel`` is (in, out)), so a flax parameter tree maps
 onto its state dict one to one (``aimet_tpu_torch.convert``). It is what
-``quantize_transformer_weights`` consumes.
+``quantize_transformer_weights`` consumes. Given float KV caches
+(``init_kv_caches``) and a ``cache_index`` it writes them in place and
+attends over every cached position up to its own, as the flax module does.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .._device import DeviceLike, resolve_device
+from ..ops._common import update_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +57,33 @@ class TransformerConfig:
                    n_kv_heads=8, d_ff=14336)
 
 
-def rope_freqs(cfg: TransformerConfig, positions: torch.Tensor):
-    """(T,) or (B, T) int positions -> f32 cos/sin (..., T, head_dim//2)."""
+_INV_FREQ = {}
+
+
+def inv_freq(cfg: TransformerConfig, device: torch.device) -> torch.Tensor:
+    """The f32 rope frequencies on ``device``, made once, for the serving
+    path: a copy from host memory in every decode step would wait for the
+    stream, and cannot be captured in a CUDA graph."""
+    key = (cfg.head_dim, cfg.rope_theta, torch.device(device))
+    inv = _INV_FREQ.get(key)
+    if inv is None:
+        dim = cfg.head_dim
+        inv = torch.tensor(1.0 / (cfg.rope_theta ** (np.arange(0, dim, 2)
+                                                     / dim)),
+                           dtype=torch.float32, device=device)
+        _INV_FREQ[key] = inv
+    return inv
+
+
+def rope_freqs(cfg: TransformerConfig, positions: torch.Tensor, inv=None):
+    """(T,) or (B, T) int positions -> f32 cos/sin (..., T, head_dim//2).
+    ``inv``: the frequencies (``inv_freq``) where the caller keeps them;
+    else they are made here."""
     dim = cfg.head_dim
-    inv = 1.0 / (cfg.rope_theta ** (np.arange(0, dim, 2) / dim))
     positions = torch.as_tensor(positions)
-    inv = torch.tensor(inv, dtype=torch.float32, device=positions.device)
+    if inv is None:
+        inv = 1.0 / (cfg.rope_theta ** (np.arange(0, dim, 2) / dim))
+        inv = torch.tensor(inv, dtype=torch.float32, device=positions.device)
     ang = positions[..., None].to(torch.float32) * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -121,13 +147,22 @@ class Attention(nn.Module):
         self.wv = Dense(cfg.d_model, KH * D, cfg.dtype)
         self.wo = Dense(H * D, cfg.d_model, cfg.dtype)
 
-    def forward(self, x, cos, sin, mask):
+    def forward(self, x, cos, sin, mask, kv_cache=None, cache_index=None):
+        """Without ``kv_cache`` the attention output; with a (k, v) pair of
+        (B, S, KH, D) float caches, the new K/V written into them at
+        ``cache_index`` (in place) and (output, (k, v)) over the whole
+        cache."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         q = apply_rope(self.wq(x).view(B, T, H, D), cos, sin)
         k = apply_rope(self.wk(x).view(B, T, KH, D), cos, sin)
         v = self.wv(x).view(B, T, KH, D)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            update_rows(ck, k.to(ck.dtype), cache_index)
+            update_rows(cv, v.to(cv.dtype), cache_index)
+            k, v = ck, cv
         rep = H // KH
         k = k.repeat_interleave(rep, dim=2).transpose(1, 2)
         v = v.repeat_interleave(rep, dim=2).transpose(1, 2)
@@ -137,7 +172,9 @@ class Attention(nn.Module):
         scores = scores.masked_fill(~mask, -1e30)
         probs = F.softmax(scores, dim=-1).to(cfg.dtype)
         out = (probs @ v.to(cfg.dtype)).transpose(1, 2).reshape(B, T, H * D)
-        return self.wo(out)
+        if kv_cache is None:
+            return self.wo(out)
+        return self.wo(out), kv_cache
 
 
 class MLP(nn.Module):
@@ -159,15 +196,21 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, cos, sin, mask):
-        x = x + self.attn(self.attn_norm(x), cos, sin, mask)
-        return x + self.mlp(self.mlp_norm(x))
+    def forward(self, x, cos, sin, mask, kv_cache=None, cache_index=None):
+        """x, or (x, (k, v)) when given a KV cache (see ``Attention``)."""
+        h = self.attn(self.attn_norm(x), cos, sin, mask, kv_cache,
+                      cache_index)
+        if kv_cache is not None:
+            h, kv_cache = h
+        x = x + h
+        x = x + self.mlp(self.mlp_norm(x))
+        return x if kv_cache is None else (x, kv_cache)
 
 
 class Transformer(nn.Module):
-    """Float model, prefill only: tokens (B, T) -> logits (B, T, vocab) f32.
-    Module names follow the flax model: ``embed``, ``layer_{i}``,
-    ``final_norm``, ``lm_head``."""
+    """Float model: tokens (B, T) -> logits (B, T, vocab) f32. Module names
+    follow the flax model: ``embed``, ``layer_{i}``, ``final_norm``,
+    ``lm_head``."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -178,14 +221,49 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, torch.float32)
 
-    def forward(self, tokens):
+    def forward(self, tokens, kv_caches=None, cache_index=None):
+        """Without ``kv_caches``: causal over the T tokens; returns the
+        logits. With ``kv_caches`` (per layer a (k, v) pair of (B, S, KH, D)
+        float caches, ``init_kv_caches``) and ``cache_index`` (the first
+        position written, an int or a 0-dim tensor): the new K/V are
+        written in place, each token attends to every cache position up to
+        its own; returns (logits, caches)."""
         cfg = self.cfg
         T = tokens.shape[1]
+        dev = tokens.device
         x = self.embed(tokens)
-        positions = torch.arange(T, device=tokens.device)
-        mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                     device=tokens.device))[None, None]
+        if kv_caches is None:
+            positions = torch.arange(T, device=dev)
+            mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                         device=dev))[None, None]
+            cos, sin = rope_freqs(cfg, positions)
+            for i in range(cfg.n_layers):
+                x = getattr(self, f"layer_{i}")(x, cos, sin, mask)
+            return self.lm_head(self.final_norm(x))
+        S = kv_caches[0][0].shape[1]
+        start = (cache_index.to(dev).reshape(())
+                 if isinstance(cache_index, torch.Tensor)
+                 else int(cache_index))
+        positions = start + torch.arange(T, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= positions[:, None])[None, None]
         cos, sin = rope_freqs(cfg, positions)
+        new_caches = []
         for i in range(cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, cos, sin, mask)
-        return self.lm_head(self.final_norm(x))
+            x, c = getattr(self, f"layer_{i}")(x, cos, sin, mask,
+                                               kv_caches[i], cache_index)
+            new_caches.append(c)
+        return self.lm_head(self.final_norm(x)), new_caches
+
+
+def init_kv_caches(cfg: TransformerConfig, batch: int, max_len: int,
+                   dtype=None, device: DeviceLike = None):
+    """Zero float KV caches for ``Transformer.forward``: per layer a (k, v)
+    pair of (batch, max_len, KH, head_dim) in ``dtype`` (default
+    ``cfg.dtype``), on ``cuda`` unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.n_layers)]

@@ -8,8 +8,27 @@ def div_ieee(t: torch.Tensor, c: float) -> torch.Tensor:
     """``t / c`` as an IEEE division on every device. PyTorch's CUDA
     division by a Python scalar multiplies by the scalar's reciprocal,
     which can differ in the last bit; dividing by a 0-dim tensor on the
-    same device does not, and matches the kernels and the JAX package."""
-    return t / torch.tensor(c, dtype=t.dtype, device=t.device)
+    same device does not, and matches the kernels and the JAX package.
+    The divisor is filled on the device: no copy from host memory, which
+    would wait for the stream and cannot be captured in a CUDA graph."""
+    return t / torch.full((), c, dtype=t.dtype, device=t.device)
+
+
+def update_rows(dst: torch.Tensor, src: torch.Tensor, index) -> None:
+    """``dst[:, i:i + T] = src`` in place, as ``lax.dynamic_update_slice``
+    along dim 1 places it: a negative index counts from the end, then the
+    index is clamped so the T rows fit. A tensor index is clamped on its
+    device, never read back to the host."""
+    S, T = dst.shape[1], src.shape[1]
+    if isinstance(index, torch.Tensor):
+        i = index.to(dst.device, torch.int64).reshape(())
+        rows = (torch.where(i < 0, i + S, i).clamp(0, S - T)
+                + torch.arange(T, device=dst.device))
+        dst.index_copy_(1, rows, src)
+    else:
+        i = int(index)
+        i = min(max(i + S if i < 0 else i, 0), S - T)
+        dst[:, i:i + T] = src
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

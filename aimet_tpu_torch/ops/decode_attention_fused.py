@@ -27,7 +27,7 @@ from .._device import on_cuda
 from ..models.transformer import apply_rope
 from ._common import div_ieee
 from .int_matmul import _SMS, _zeroed_counters
-from .kv_cache import QuantizedKVCache, append_kv, reciprocal
+from .kv_cache import QuantizedKVCache, append_kv, codes_4d, reciprocal
 
 _MAX_REP = 8
 _MAX_D = 128
@@ -140,7 +140,8 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
 
     qkv: (B, (H + 2 KH) D) this step's fused QKV projection, f32 or bf16.
     cos/sin: (B, D/2) or (1, D/2) f32 rope rows for each row's position.
-    k_cache/v_cache: (B, S, KH, D) int8, updated IN PLACE at ``cache_index``.
+    k_cache/v_cache: (B, S, KH, D) or flat (B, S, KH*D) int8, updated IN
+    PLACE at ``cache_index``.
     k_scale/v_scale: (B, KH) f32 scales fixed at prefill.
     cache_index: (B,) int32 per-row positions, or a scalar for every row. A
     position outside [0, S) writes nothing (see ``csrc/decode_attention.cu``
@@ -156,8 +157,12 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     2e-2 of its max (int8 tensor-core dots on two-plane int8 queries and
     probabilities, f32 softmax statistics)."""
     B = qkv.shape[0]
+    given = k_cache, v_cache
+    if k_cache.dim() == 3:                # flat (B, S, KH*D): same bytes
+        k_cache, v_cache = codes_4d(QuantizedKVCache(k_cache, v_cache,
+                                                     k_scale, v_scale))
     if k_cache.dim() != 4:
-        raise ValueError("caches must be (B, S, KH, D)")
+        raise ValueError("caches must be (B, S, KH, D) or (B, S, KH*D)")
     S, KH, D = k_cache.shape[1:]
     H = n_heads
     if KH != n_kv_heads or H % KH or qkv.shape != (B, (H + 2 * KH) * D):
@@ -166,9 +171,10 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
     cos = cos.reshape(-1, D // 2)
     sin = sin.reshape(-1, D // 2)
     if not on_cuda(qkv, k_cache, v_cache, k_scale, v_scale):
-        return fused_decode_attention_torch(
+        out, _, _ = fused_decode_attention_torch(
             qkv, cos, sin, k_cache, v_cache, k_scale, v_scale, cache_index,
             n_heads=n_heads, n_kv_heads=n_kv_heads)
+        return (out, *given)
     attention_kernel_shape_ok(H, KH, D)
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
@@ -198,7 +204,7 @@ def fused_decode_attention(qkv, cos, sin, k_cache, v_cache, k_scale, v_scale,
         B, S, H, KH, D, chunk, ws.numel(), cnt.numel(),
         float(np.float32(np.sqrt(D))), int(qkv.dtype == torch.bfloat16),
         _build.stream_ptr(qkv.device))
-    return out, k_cache, v_cache
+    return (out, *given)
 
 
 fused_decode_attention.launches = 0

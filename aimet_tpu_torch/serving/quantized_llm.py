@@ -9,9 +9,10 @@ Modes (the weight storage and the matmul every projection goes through):
   K1 + K2).
 
 Prefill attention is plain tensor ops over the INT8 cache, as in the JAX
-package. Decode mirrors the JAX package's dispatch
-(``quantized_llm.py:370-451``), decided from shapes and arguments before
-any launch:
+package; so is attention without caches (causal over the tokens) and a
+decode of several tokens a row, which runs per op. A decode of one token
+a row mirrors the JAX package's dispatch (``quantized_llm.py:370-451``),
+decided from shapes and arguments before any launch:
 
 - INT4 modes with at most 64 rows on a model with d_model and d_ff of at
   least 1024, at widths the kernels take (``layer_shapes_ok``: multiples
@@ -28,28 +29,32 @@ The size gate is the JAX package's (``_fused_decode_blocks``: below that
 width one launch per layer buys nothing); the 64 rows are what one
 kernel launch takes. The TPU's other gates (backend, S % 32, B % 8,
 head_dim % 128) do not apply. On the card, ``w4``, ``w8`` and the
-whole-layer kernels take bf16 activations (``cfg.dtype``). The KV caches
-are updated in place.
+whole-layer kernels take bf16 activations (``cfg.dtype``). The KV caches,
+(B, S, KH, D) or the flat (B, S, KH*D) views of
+``ops.kv_cache.flatten_kv_caches``, are updated in place. No path reads
+the device back to the host, so a decode step can be captured in a CUDA
+graph (``serving/batcher.py``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
 from .._device import DeviceLike, resolve_device
-from ..models.transformer import TransformerConfig, apply_rope, rope_freqs
+from ..models.transformer import (TransformerConfig, apply_rope, inv_freq,
+                                  rope_freqs)
 from ..ops._common import div_ieee
-from ..ops.decode_attention_fused import fused_decode_attention
+from ..ops.decode_attention_fused import fused_decode_attention, positions
 from ..ops.decode_layer_sol import sol_decode_layer
 from ..ops.fused_layer import MAX_ROWS, fused_wo_mlp, layer_shapes_ok
 from ..ops.int_matmul import (matmul_w4, matmul_w4a8, matmul_w8,
                               quantize_weight_int4,
                               quantize_weight_per_channel)
-from ..ops.kv_cache import (QuantizedKVCache, init_quantized_kv_cache,
-                            prefill_kv)
+from ..ops.kv_cache import (QuantizedKVCache, append_kv, as_4d,
+                            init_quantized_kv_cache, prefill_kv)
 
 MODES = ("w8", "w4", "w4a8")
 _MATMUL = {"w8": matmul_w8, "w4": matmul_w4, "w4a8": matmul_w4a8}
@@ -191,28 +196,73 @@ def _proj(x, wq_scale, mode):
     return _MATMUL[mode](x.reshape(b * t, d), wq, scale).reshape(b, t, -1)
 
 
-def _prefill_attention(cfg, qkv, cos, sin, mask, cache, prompt_lengths):
-    """Prefill attention in plain tensor ops (the JAX package leaves it to
-    XLA): quantize K/V into the cache (in place), attend over the INT8
-    cache."""
+def _rope(cfg, positions):
+    """cos / sin of ``positions`` from frequencies kept on their device."""
+    return rope_freqs(cfg, positions, inv_freq(cfg, positions.device))
+
+
+def _split_qkv(cfg, qkv, cos, sin):
+    """qkv (B, T, (H + 2 KH) D) -> roped q (B, T, H, D), roped k and v
+    (B, T, KH, D)."""
     B, T, _ = qkv.shape
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rep = H // KH
     q = apply_rope(qkv[..., :H * D].reshape(B, T, H, D), cos, sin)
     k = apply_rope(qkv[..., H * D:(H + KH) * D].reshape(B, T, KH, D), cos,
                    sin)
     v = qkv[..., (H + KH) * D:].reshape(B, T, KH, D)
-    prefill_kv(cache, k, v, 0, lengths=prompt_lengths)
-    q5 = q.reshape(B, T, KH, rep, D)
+    return q, k, v
+
+
+def _causal_attention(cfg, qkv, cos, sin):
+    """Attention without a cache, causal over the T tokens, in plain tensor
+    ops (the JAX package's XLA path for ``caches=None``)."""
+    B, T, _ = qkv.shape
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _split_qkv(cfg, qkv, cos, sin)
+    k = k.repeat_interleave(H // KH, dim=2).to(torch.float32)
+    v = v.repeat_interleave(H // KH, dim=2)
+    scores = div_ieee(torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                                   k), float(np.sqrt(D)))
+    mask = torch.ones((T, T), dtype=torch.bool, device=qkv.device).tril()
+    probs = F.softmax(scores.masked_fill(~mask, -1e30), dim=-1).to(qkv.dtype)
+    out = torch.einsum("bhts,bshd->bthd", probs, v.to(qkv.dtype))
+    return out.reshape(B, T, H * D)
+
+
+def _cache_attention(cfg, q, cache, mask, dtype):
+    """Attention of roped q (B, T, H, D) over the INT8 cache in plain tensor
+    ops (the JAX package's ``_attention_from_qkv``): the per-(row, kv head)
+    K scales fold into q, the V scales into the output. ``mask`` (B or 1,
+    1, T, S) says which cache rows each token sees."""
+    B, T = q.shape[:2]
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q5 = q.reshape(B, T, KH, H // KH, D)
     q5 = q5 * div_ieee(cache.k_scale[:, None, :, None, None],
                        float(np.sqrt(D))).to(q5.dtype)
     scores = torch.einsum("btkrd,bskd->bkrts", q5,
                           cache.k.to(q5.dtype)).to(torch.float32)
     scores = scores.masked_fill(~mask[:, :, None], -1e30)
-    probs = F.softmax(scores, dim=-1).to(qkv.dtype)
-    out = torch.einsum("bkrts,bskd->btkrd", probs, cache.v.to(qkv.dtype))
+    probs = F.softmax(scores, dim=-1).to(dtype)
+    out = torch.einsum("bkrts,bskd->btkrd", probs, cache.v.to(dtype))
     out = out * cache.v_scale[:, None, :, None, None].to(out.dtype)
     return out.reshape(B, T, H * D)
+
+
+def _prefill_attention(cfg, qkv, cos, sin, mask, cache, prompt_lengths):
+    """Prefill attention in plain tensor ops (the JAX package leaves it to
+    XLA): quantize K/V into the cache (in place), attend over the INT8
+    cache."""
+    q, k, v = _split_qkv(cfg, qkv, cos, sin)
+    prefill_kv(cache, k, v, 0, lengths=prompt_lengths)
+    return _cache_attention(cfg, q, cache, mask, qkv.dtype)
+
+
+def _append_attention(cfg, qkv, cos, sin, mask, cache, cache_index):
+    """Decode of T tokens a row in plain tensor ops: K/V appended at
+    ``cache_index`` (in place), attention over the INT8 cache."""
+    q, k, v = _split_qkv(cfg, qkv, cos, sin)
+    append_kv(cache, k, v, cache_index)
+    return _cache_attention(cfg, q, cache, mask, qkv.dtype)
 
 
 def _fused_decode_ok(cfg: TransformerConfig, rows: int, mode: str) -> bool:
@@ -259,24 +309,13 @@ def _fused_decode_layers(qw, cfg, x, caches, pos, cos, sin, mode,
     return x
 
 
-def _per_op_layers(qw, cfg, x, caches, prefill, mask, pos, cos, sin, mode,
-                   prompt_lengths):
-    """The layers one op at a time: x (B, T, D) -> (B, T, D)."""
-    B = x.shape[0]
-    D2 = cfg.head_dim // 2
-    for layer, c in zip(qw["layers"], caches):
+def _per_op_layers(qw, cfg, x, attention, mode):
+    """The layers one op at a time: x (B, T, D) -> (B, T, D);
+    ``attention(i, qkv)`` gives layer i's attention output (B, T, H*D)."""
+    for i, layer in enumerate(qw["layers"]):
         qkv = _proj(_rms_norm(x, layer["attn_norm"], cfg.norm_eps),
                     layer["wqkv"], mode)
-        if prefill:
-            attn = _prefill_attention(cfg, qkv, cos, sin, mask, c,
-                                      prompt_lengths)
-        else:
-            attn, _, _ = fused_decode_attention(
-                qkv.reshape(B, -1), cos.reshape(B, D2), sin.reshape(B, D2),
-                c.k, c.v, c.k_scale, c.v_scale, pos,
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
-            attn = attn.reshape(B, 1, -1)
-        x = x + _proj(attn, layer["wo"], mode)
+        x = x + _proj(attention(i, qkv), layer["wo"], mode)
         gu = _proj(_rms_norm(x, layer["mlp_norm"], cfg.norm_eps),
                    layer["w_gateup"], mode)
         x = x + _proj(F.silu(gu[..., :cfg.d_ff]) * gu[..., cfg.d_ff:],
@@ -284,49 +323,89 @@ def _per_op_layers(qw, cfg, x, caches, prefill, mask, pos, cos, sin, mode,
     return x
 
 
+def _decode_positions(cache_index, T: int, device):
+    """Positions of T decode tokens from ``cache_index`` (a scalar: (T,);
+    (B,) per-slot positions: (B, T)) without reading the device."""
+    t = torch.arange(T, device=device)
+    if not isinstance(cache_index, torch.Tensor):
+        if np.ndim(cache_index) == 0:
+            return int(cache_index) + t
+        cache_index = torch.from_numpy(np.asarray(cache_index))
+    ci = cache_index.to(device, torch.int64)
+    return ci.reshape(()) + t if ci.dim() == 0 else ci[:, None] + t
+
+
 @torch.no_grad()
 def quantized_forward(qw, cfg: TransformerConfig, tokens: torch.Tensor,
-                      caches: List[QuantizedKVCache], cache_index=0,
-                      prefill: bool = True, mode: str = "w8",
+                      caches: Optional[List[QuantizedKVCache]] = None,
+                      cache_index=0, prefill: bool = True, mode: str = "w8",
                       prompt_lengths=None):
-    """Returns (logits (B, T, vocab) f32, caches).
+    """Returns (logits (B, T, vocab) f32, caches or None).
 
+    Without ``caches`` the T tokens attend causally to each other (tensor
+    ops, as XLA runs it in the JAX package) and no cache is written.
     Prefill (``prefill=True``) writes rows [0, T) of ``caches``, with
     ``prompt_lengths`` (B,) keeping right-padding out of the KV scales.
-    Decode (``prefill=False``) takes one token per row at ``cache_index``:
-    an int for every row or a (B,) tensor of per-slot positions. The caches
-    are updated in place."""
+    Decode (``prefill=False``) takes T tokens a row at ``cache_index``: an
+    int or 0-dim tensor for every row, or a (B,) tensor of per-slot
+    positions; one token a row takes the dispatch in the module docstring,
+    more run per op with attention over the INT8 cache in tensor ops. The
+    caches, (B, S, KH, D) or flat (B, S, KH*D), are updated in place and
+    returned as given."""
     check_mode(mode)
     B, T = tokens.shape
     dev = tokens.device
     x = qw["embed"][tokens].to(cfg.dtype)
-    fused = scalar = False
-    mask = pos = None
-    if prefill:
-        positions = torch.arange(T, device=dev)
-        S = caches[0].k.shape[1]
-        mask = (torch.arange(S, device=dev)[None, :]
-                <= positions[:, None])[None, None]
-        cos, sin = rope_freqs(cfg, positions)
+    if caches is None:
+        cos, sin = _rope(cfg, torch.arange(T, device=dev))
+        x = _per_op_layers(
+            qw, cfg, x, lambda i, qkv: _causal_attention(cfg, qkv, cos, sin),
+            mode)
     else:
-        if T != 1:
-            raise ValueError(f"decode takes one token per row, got T={T}")
-        # the dispatch is decided before the position is expanded per row
-        scalar = torch.as_tensor(cache_index).dim() == 0
-        fused = _fused_decode_ok(cfg, B, mode) and (scalar or mode == "w4")
-        pos = torch.as_tensor(cache_index, device=dev).to(
-            torch.int32).reshape(-1).expand(B)
-        cos, sin = rope_freqs(cfg, pos)                   # (B, D/2)
-    if fused:
-        x = _fused_decode_layers(qw, cfg, x[:, 0], caches, pos, cos, sin,
-                                 mode, scalar)[:, None]
-    else:
-        x = _per_op_layers(qw, cfg, x, caches, prefill, mask, pos, cos, sin,
-                           mode, prompt_lengths)
+        cs = [as_4d(c) for c in caches]
+        S = cs[0].k.shape[1]
+        if prefill:
+            positions = torch.arange(T, device=dev)
+            mask = (torch.arange(S, device=dev)[None, :]
+                    <= positions[:, None])[None, None]
+            cos, sin = _rope(cfg, positions)
+            x = _per_op_layers(qw, cfg, x, lambda i, qkv: _prefill_attention(
+                cfg, qkv, cos, sin, mask, cs[i], prompt_lengths), mode)
+        elif T == 1:
+            x = _decode_one(qw, cfg, x, cs, cache_index, mode)
+        else:
+            positions = _decode_positions(cache_index, T, dev)
+            span = torch.arange(S, device=dev) <= positions[..., None]
+            mask = span[None, None] if span.dim() == 2 else span[:, None]
+            cos, sin = _rope(cfg, positions)
+            x = _per_op_layers(qw, cfg, x, lambda i, qkv: _append_attention(
+                cfg, qkv, cos, sin, mask, cs[i], cache_index), mode)
     x = _rms_norm(x, qw["final_norm"], cfg.norm_eps)
     logits = _proj(x, qw["lm_head"], mode).reshape(B * T, -1)
     logits = logits[:, :cfg.vocab_size]       # drop the vocab padding
     return logits.reshape(B, T, -1).to(torch.float32), caches
+
+
+def _decode_one(qw, cfg, x, caches, cache_index, mode):
+    """One decode token a row: x (B, 1, D) -> (B, 1, D), through the
+    whole-layer kernels or per op with K3 (see the module docstring). The
+    dispatch is decided from shapes before any launch; a Python int
+    position is filled on the device."""
+    B = x.shape[0]
+    scalar = np.ndim(cache_index) == 0
+    pos = positions(cache_index, B, x.device)
+    cos, sin = _rope(cfg, pos)                            # (B, D/2)
+    if _fused_decode_ok(cfg, B, mode) and (scalar or mode == "w4"):
+        return _fused_decode_layers(qw, cfg, x[:, 0], caches, pos, cos, sin,
+                                    mode, scalar)[:, None]
+
+    def attention(i, qkv):
+        c = caches[i]
+        attn, _, _ = fused_decode_attention(
+            qkv.reshape(B, -1), cos, sin, c.k, c.v, c.k_scale, c.v_scale,
+            pos, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads)
+        return attn.reshape(B, 1, -1)
+    return _per_op_layers(qw, cfg, x, attention, mode)
 
 
 class QuantizedLLM:

@@ -62,7 +62,12 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
      (scalar position: KW4 + KSOL), steps at per-slot positions (launches
      counted, 4 profiled: device ms by kernel, busy share) and 32
      requests through ``ContinuousBatcher(num_slots=16, step_chunk=4)``
-     (KW4 + K3 + KFL);
+     (KW4 + K3 + KFL) twice, each on a fresh batcher with the C++
+     scheduler: the step engine (``run_until_done``), then the pipelined
+     one (``run_pipelined``: one CUDA graph replay a chunk), every
+     request's tokens equal; a replayed chunk against the same chunk run
+     eagerly (tokens, carry, every cache byte), and a chunk profiled as
+     a replay and eagerly (``engine_pair``);
    - ``w4a8`` on the same weights: the same phases (decode through KSOL
      with int8 dots, the batcher per op through K2's fused decode kernel
      + K3, K1 + K2 in its prefills; the per-slot step must launch the
@@ -76,6 +81,11 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    - KGQA on a layer of that oracle's caches at Llama-3-8B decode shapes,
      bf16 and f32 q, against its plain version and against K3's context
      for the same roped q after K3's append;
+   - ``bench_llama8b.continuous_batching``'s workload in ``w4a8`` (48
+     requests, 16 slots, chunk 8, prompts of 32, 32-128 new tokens,
+     max_len 192) through ``warm_admission(pipelined=True)`` and
+     ``run_pipelined`` (``cb_bench``), and a cache-free forward of 1 x
+     512 tokens (``cache_free_forward``);
    - ``w8``: a prefill, batch-16 decode and the batcher (KW8 + K3);
 4. compares, in each serving mode, one prefill and decode steps of the
    whole model (``w8``: its first 4 layers, see ``main``) through the
@@ -111,7 +121,9 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    (``route_shape_gaps``) and prints the
    measurements, each kernel route's redesign score (its launches on the
    main paths, counted by the wrappers per route and shape, times its ms -
-   bound there: ``route_ranking``), the card's
+   bound there: ``route_ranking``; a graph replay passes no wrapper, so
+   the pipelined phases count their warm-up and captured chunks, and the
+   replays x a chunk's launches are logged beside them), the card's
    name and power limit, a ``kernels`` JSON line and, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -353,6 +365,8 @@ PATH_KERNELS = {
     "gqa": ("gqa_decode_attention",),
     "long_cache": ("sol_decode_layer", "decode_attention", "fused_wo_mlp",
                    "fused_decode_layer", "gqa_decode_attention"),
+    "cb_bench": ("w4a8_fusedq", "decode_attention"),
+    "cache_free": ("act_quant", "w4a8_gemm"),
 }
 # the lowered models: mode -> (lower_to_int mode, param bitwidth, the
 # launches of one forward by kernel, n = linears a forward)
@@ -2089,6 +2103,187 @@ def run_batcher(torch, llm, cfg, g):
     return sum(news) / dt, dt, steps, sum(news)
 
 
+def replay_check(torch, b, counters):
+    """One chunk of the pipelined batcher ``b``'s device carry run eagerly
+    on copies of its carry and slot caches, then one replay of its chunk
+    graph on the originals: the tokens, the carry and every cache byte
+    must be equal. Returns the eager chunk's launches by kernel: what one
+    replay launches (a replay does not pass through the wrappers, so
+    their counts do not see it)."""
+    import dataclasses
+    tok, pos, out, _ = b._carry
+    caches = [dataclasses.replace(c, k=c.k.clone(), v=c.v.clone())
+              for c in b.caches]
+    want_tok, want_pos, want = tok.clone(), pos.clone(), torch.empty_like(out)
+    before = {k: fn.launches for k, fn in counters.items()}
+    b._chunk_steps(want_tok, want_pos, want, caches)
+    per_chunk = {k: fn.launches - before[k] for k, fn in counters.items()
+                 if fn.launches != before[k]}
+    b._chunk_carry()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), "replayed chunk: tokens differ"
+    assert torch.equal(tok, want_tok) and torch.equal(pos, want_pos), \
+        "replayed chunk: carry differs"
+    for i, (c, w) in enumerate(zip(b.caches, caches)):
+        assert torch.equal(c.k, w.k) and torch.equal(c.v, w.v), \
+            f"replayed chunk: layer {i}'s cache bytes differ"
+    return per_chunk
+
+
+def engine_pair(torch, llm, cfg, mode, counters, g):
+    """``run_batcher``'s 32 requests (drawn from ``g`` as it draws them)
+    through both engines, each on a fresh ``ContinuousBatcher`` (16 slots,
+    chunk 4, the C++ scheduler): ``run_until_done`` (the step engine), then
+    ``run_pipelined`` (its graphs captured by ``warm_admission`` just
+    before the timed run: one admission graph a padded prompt length of
+    the workload, and the chunk's). Every request must get the same
+    tokens from both.
+    Then a chunk of the pipelined batcher's carry eagerly on copies and as
+    a replay (``replay_check``), and 4 chunks profiled each way: device ms
+    and busy share, graph against eager. Returns metrics."""
+    from aimet_tpu_torch.serving.batcher import ContinuousBatcher
+    draw = lambda lo, hi, n: torch.randint(lo, hi, (n,), generator=g,
+                                           device="cuda").tolist()
+    lens, news = draw(32, 257, 32), draw(16, 65, 32)
+    prompts = [draw(0, cfg.vocab_size, n) for n in lens]
+    out, tokens = {}, {}
+    for engine in ("step", "pipelined"):
+        b = ContinuousBatcher(llm, num_slots=16, step_chunk=4)
+        if engine == "pipelined":
+            # the graphs are captured before the timed run, as a server
+            # warms its shape buckets: one admission graph a padded prompt
+            # length of the workload, and the chunk's
+            t0 = time.time()
+            for n in sorted({b._padded_len(len(p)) for p in prompts}):
+                b.warm_admission(wave_sizes=(1,), prompt_len=n,
+                                 pipelined=True)
+            out["cb_capture_s"] = time.time() - t0
+            warm = (b.chunk_replays, b.admission_replays)
+        reqs = [b.submit(p, max_new_tokens=m) for p, m in zip(prompts, news)]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        steps = (b.run_pipelined(max_steps=1000) if engine == "pipelined"
+                 else b.run_until_done(max_steps=1000))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        assert all(r.done for r in reqs), f"{engine} engine left requests"
+        assert [len(r.generated) for r in reqs] == news
+        assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+        tokens[engine] = [r.generated for r in reqs]
+        out.update({f"cb_{engine}_tok_s": sum(news) / dt,
+                    f"cb_{engine}_s": dt, f"cb_{engine}_steps": steps})
+        log(f"[{mode}] continuous batcher, {engine} engine: 32 requests, "
+            f"{sum(news)} tokens in {dt:.3f} s ({sum(news) / dt:.1f} tok/s), "
+            f"{steps} chunks" + (
+                f", {b.chunk_replays - warm[0]} chunk and "
+                f"{b.admission_replays - warm[1]} admission graph replays "
+                f"({len(b._admit_graphs)} admission graphs and the chunk's, "
+                f"captured in {out['cb_capture_s']:.2f} s before)"
+                if engine == "pipelined" else ""))
+    differ = [i for i, (a, c) in enumerate(zip(tokens["step"],
+                                                tokens["pipelined"]))
+              if a != c]
+    assert not differ, (f"[{mode}] the engines' tokens differ for requests "
+                        f"{differ}")
+    out["cb_tok_s"] = out["cb_step_tok_s"]
+    per_chunk = replay_check(torch, b, counters)
+    tok, pos, buf, _ = b._carry
+    for label, fn in (("graph", b._chunk_carry),
+                      ("eager", lambda: b._chunk_steps(tok, pos, buf))):
+        fn()
+        wall, busy, dev, by_name = profile_steps(torch, fn)
+        out.update({f"chunk_{label}_ms": wall, f"chunk_{label}_busy": busy,
+                    f"chunk_{label}_device_ms": dev})
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        log(f"[{mode}] one chunk (4 steps, 16 slots), {label}: {wall:.3f} "
+            f"ms on the host clock, {dev:.3f} device ms (profiler), busy "
+            f"{busy:.3f}; by kernel: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in top))
+    # a replay is one launch: CUDA events around it time the graph alone
+    out["chunk_graph_event_ms"], _ = event_ms(lambda i: b._chunk_carry(), 4)
+    log(f"[{mode}] one chunk graph between CUDA events: "
+        f"{out['chunk_graph_event_ms']:.3f} ms")
+    out["cb_chunk_replays"] = b.chunk_replays
+    out["cb_admission_replays"] = b.admission_replays
+    out["chunk_launches"] = per_chunk
+    log(f"[{mode}] every request's tokens equal in both engines; a replayed "
+        f"chunk equals the eager one (tokens, carry, cache bytes); "
+        f"{b.chunk_replays} chunk replays x {per_chunk} launches a chunk "
+        f"and {b.admission_replays} admission replays ran inside graphs "
+        "(not in the wrappers' counts)")
+    return out
+
+
+def cb_bench(torch, qllm, qw, cfg, counters):
+    """``bench_llama8b.continuous_batching``'s workload on the port: 48
+    requests (numpy seed 0: prompts of 32 tokens, 32-128 new tokens), 16
+    slots, chunk 8, max_len 192, ``w4a8``, the C++ scheduler, through
+    ``warm_admission(prompt_len=32, pipelined=True)`` and
+    ``run_pipelined``; every request finished at its length. Returns
+    (metrics, launches)."""
+    import numpy as np
+    from aimet_tpu_torch.serving.batcher import ContinuousBatcher
+    zero_counts(counters)
+    llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode="w4a8", max_len=192)
+    b = ContinuousBatcher(llm, num_slots=16, step_chunk=8)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, 129, 48)
+    reqs = [b.submit(list(rng.randint(0, cfg.vocab_size, 32)),
+                     max_new_tokens=int(n)) for n in lens]
+    t0 = time.time()
+    b.warm_admission(prompt_len=32, pipelined=True)
+    warm_s = time.time() - t0
+    t0 = time.perf_counter()
+    steps = b.run_pipelined(max_steps=4000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert all(r.done for r in reqs), "the bench workload did not drain"
+    assert [len(r.generated) for r in reqs] == [int(n) for n in lens]
+    toks = sum(len(r.generated) for r in reqs)
+    util = toks / max(steps * 8 * 16, 1)
+    per_chunk = replay_check(torch, b, counters)
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    take_routes(counters)
+    log(f"[w4a8 bench workload] 48 requests, 16 slots, chunk 8: {toks} "
+        f"tokens in {dt:.3f} s ({toks / dt:.1f} tok/s), {steps} chunks, "
+        f"{b.chunk_replays} chunk and {b.admission_replays} admission "
+        f"replays, slot use {util:.3f}; warm_admission "
+        f"{warm_s:.2f} s; launches outside graphs {launches}; a chunk "
+        f"launches {per_chunk}")
+    return dict(bench_cb_tok_s=toks / dt, bench_cb_s=dt, bench_cb_steps=steps,
+                bench_cb_slot_util=util, bench_cb_warm_s=warm_s,
+                bench_cb_chunk_replays=b.chunk_replays,
+                bench_cb_admission_replays=b.admission_replays), launches
+
+
+def cache_free_forward(torch, qllm, qw, cfg, counters, g):
+    """A cache-free forward of 1 x 512 tokens in ``w4a8`` (causal over the
+    tokens, no KV cache): finite logits of the right shape, no caches
+    back, its launches; beside the prefill of the same tokens into INT8
+    caches (they differ by the cache's quantization). Returns (metrics,
+    launches)."""
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), generator=g,
+                         device="cuda")
+    zero_counts(counters)
+    t0 = time.time()
+    logits, none = qllm.quantized_forward(qw, cfg, toks, mode="w4a8")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    take_routes(counters)
+    assert none is None and logits.shape == (1, 512, cfg.vocab_size)
+    assert torch.isfinite(logits).all(), "cache-free logits not finite"
+    llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode="w4a8", max_len=512)
+    ref, _ = llm.prefill(toks, llm.new_caches(1))
+    err = rel_err(logits, ref)
+    top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"[w4a8 cache-free forward] 1 x 512: {dt * 1e3:.1f} ms; launches "
+        f"{launches}; against the prefill into INT8 caches: {err:.3e} of "
+        f"the max, top-1 agreement {top1:.3f}")
+    return dict(cache_free_s=dt, cache_free_vs_prefill=err,
+                cache_free_top1=top1), launches
+
+
 def serve(torch, llm, cfg, mode, counters, g, decode_batches):
     """Phase 3 for one mode: its main path with the counts set to 0 just
     before and read just after. Returns (metrics, launches)."""
@@ -2181,11 +2376,7 @@ def serve(torch, llm, cfg, mode, counters, g, decode_batches):
                 metrics, b)
         del caches, logits
 
-    tok_s, dt, steps, n_tok = run_batcher(torch, llm, cfg, g)
-    metrics["cb_tok_s"] = tok_s
-    metrics["cb_s"] = dt
-    log(f"[{mode}] continuous batcher: 32 requests, {n_tok} tokens in "
-        f"{dt:.2f} s ({tok_s:.0f} tok/s), {steps} engine steps")
+    metrics.update(engine_pair(torch, llm, cfg, mode, counters, g))
     launches = counts()
     take_routes(counters)
     log(f"[{mode}] main-path launches: {launches}")
@@ -4671,6 +4862,16 @@ def main() -> int:
             add_path("long_cache", counts)
             metrics.update(m)
             log(f"[long cache] phase took {time.time() - t:.1f} s")
+            t = time.time()
+            m, counts = cb_bench(torch, qllm, qw, cfg, counters)
+            add_path("cb_bench", counts)
+            metrics.update(m)
+            m, counts = cache_free_forward(torch, qllm, qw, cfg, counters, g)
+            add_path("cache_free", counts)
+            metrics.update(m)
+            torch.cuda.empty_cache()
+            log(f"[bench workload, cache-free] phases took "
+                f"{time.time() - t:.1f} s")
     del qw
 
     # --- 5. quantsim calibration and true-INT lowering

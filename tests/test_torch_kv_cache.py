@@ -99,3 +99,68 @@ def test_init_puts_the_cache_on_cuda_unless_asked_for_the_cpu(monkeypatch):
     c = tkv.init_quantized_kv_cache(B, S, KH, D, device="cpu")
     assert {getattr(c, n).device.type
             for n in ("k", "v", "k_scale", "v_scale")} == {"cpu"}
+
+
+def test_flatten_views_share_storage_and_equal_jax():
+    """(B, S, KH*D) views of the same bytes: a write through either shape
+    is seen by the other; the bytes equal the JAX package's reshape."""
+    rs = np.random.RandomState(2)
+    k0, v0 = _kv(rs, 5)
+    jc, tc = _caches()
+    jc = jkv.prefill_kv(jc, jnp.asarray(k0), jnp.asarray(v0))
+    tkv.prefill_kv(tc, torch.from_numpy(k0), torch.from_numpy(v0))
+    (jf,), (tf,) = jkv.flatten_kv_caches([jc]), tkv.flatten_kv_caches([tc])
+    assert tf.k.shape == (B, S, KH * D) and tf.k_scale is tc.k_scale
+    assert tf.k.data_ptr() == tc.k.data_ptr()
+    _assert_same(jf, tf)
+    tf.k[1, 3, D + 2] = 99
+    assert tc.k[1, 3, 1, 2] == 99
+    tc.v[2, 7, 1, 0] = -42
+    assert tf.v[2, 7, D] == -42
+
+
+@pytest.mark.parametrize("T", [2, 3])
+@pytest.mark.parametrize("index", [4, 15, 14, -2, -20, "tensor 13",
+                                   "tensor -1", [4, 7, 11],
+                                   [13, 15, 2], [14, 16, 20]])
+@pytest.mark.parametrize("flat", [False, True])
+def test_append_of_several_rows_bit_exact(T, index, flat):
+    """T > 1 rows a slot: a scalar start placed as
+    ``dynamic_update_slice`` places it (negative from the end, then clamped
+    so the rows fit: 15, 14, -2, -20 at S = 16), also as a 0-dim tensor;
+    per-slot starts whose rows
+    cross the end of the cache (those rows are dropped, a slot with none
+    inside keeps its bytes). Flat caches give the same bytes."""
+    rs = np.random.RandomState(3)
+    k0, v0 = _kv(rs, 4)
+    k1, v1 = _kv(rs, T)
+    jc, tc = _caches()
+    jc = jkv.prefill_kv(jc, jnp.asarray(k0), jnp.asarray(v0))
+    tkv.prefill_kv(tc, torch.from_numpy(k0), torch.from_numpy(v0))
+    if isinstance(index, str):
+        i = int(index.split()[1])
+        jidx, tidx = jnp.asarray(i, jnp.int32), torch.tensor(i)
+    else:
+        jidx, tidx = jnp.asarray(index, jnp.int32), (
+            index if np.ndim(index) == 0 else torch.tensor(index))
+    jc = jkv.append_kv(jc, jnp.asarray(k1), jnp.asarray(v1), jidx)
+    target = tkv.flatten_kv_caches([tc])[0] if flat else tc
+    out = tkv.append_kv(target, torch.from_numpy(k1), torch.from_numpy(v1),
+                        tidx)
+    assert out is target
+    _assert_same(jc, tc)
+
+
+def test_append_drops_negative_positions():
+    """Per-slot rows before the cache are dropped too (the JAX scatter
+    would wrap a negative index to the end; the port's kernels drop it)."""
+    rs = np.random.RandomState(4)
+    k1, v1 = _kv(rs, 3)
+    _, tc = _caches()
+    before = tc.k.clone()
+    tkv.append_kv(tc, torch.from_numpy(k1), torch.from_numpy(v1),
+                  torch.tensor([-1, -3, 5]))
+    want = before.clone()
+    want[0, 0:2] = tkv._quant(torch.from_numpy(k1[0:1, 1:]), tc.k_scale[0:1])
+    want[2, 5:8] = tkv._quant(torch.from_numpy(k1[2:3]), tc.k_scale[2:3])
+    assert torch.equal(tc.k, want)

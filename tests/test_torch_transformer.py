@@ -49,3 +49,44 @@ def test_float_transformer_logits_match_flax():
     with torch.no_grad():
         got = tm(torch.from_numpy(tokens)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_float_transformer_kv_caches_match_flax():
+    """Prefill into float KV caches at 0, then decode one token and two at
+    later positions (an int, then a 0-dim tensor): logits at rtol/atol
+    1e-4, caches at 1e-5; without caches the model still returns logits
+    only."""
+    jcfg = jtr.TransformerConfig.tiny(vocab_size=64)
+    tcfg = ttr.TransformerConfig.tiny(vocab_size=64)
+    model = jtr.Transformer(jcfg)
+    rs = np.random.RandomState(1)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1),
+                                    jnp.zeros((1, 4), jnp.int32))
+    tm = ttr.Transformer(tcfg)
+    tm.load_state_dict(params_from_flax(
+        jax.tree_util.tree_map(np.asarray, variables["params"])))
+    jc = jtr.init_kv_caches(jcfg, 2, 16)
+    tc = ttr.init_kv_caches(tcfg, 2, 16, device="cpu")
+    for (ja, jb), (ta, tb) in zip(jc, tc):
+        assert ta.shape == tuple(ja.shape) == (2, 16, 2, 16)
+        assert ta.dtype == tb.dtype == torch.float32 and ta.device.type == \
+            "cpu"
+    steps = ((rs.randint(0, 64, (2, 6)), 0), (rs.randint(0, 64, (2, 1)), 6),
+             (rs.randint(0, 64, (2, 2)), torch.tensor(7)))
+    apply = jax.jit(model.apply)
+    for toks, idx in steps:
+        jl, jc = apply(variables, jnp.asarray(toks), jc,
+                       jnp.asarray(int(idx), jnp.int32))
+        with torch.no_grad():
+            tl, tc2 = tm(torch.from_numpy(toks), tc, idx)
+        assert tc2 is not None and tc2[0][0] is tc[0][0]       # in place
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)
+        for (ja, jb), (ta, tb) in zip(jc, tc):
+            np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-5)
+            np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-5)
+    with torch.no_grad():
+        assert isinstance(tm(torch.from_numpy(steps[0][0])), torch.Tensor)
+    bf = ttr.init_kv_caches(ttr.TransformerConfig.tiny(), 1, 8,
+                            dtype=torch.bfloat16, device="cpu")
+    assert len(bf) == 2 and bf[0][1].dtype == torch.bfloat16
