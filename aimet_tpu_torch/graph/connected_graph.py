@@ -180,6 +180,11 @@ class ConnectedGraph:
             node = self.alias[node]
         return node
 
+    def resolve_var(self, node):
+        """The JAX package's name for :meth:`resolve` (its graph's values
+        are jaxpr vars, the port's fx nodes)."""
+        return self.resolve(node)
+
     def _get_product(self, node: fx.Node) -> Product:
         node = self.resolve(node)
         if node not in self.products:

@@ -7,17 +7,19 @@ result (the quantsim's observers and fake-quant) or compute a node's value
 in its place (an op replaced by an integer kernel).
 ``evaluate_with_replacements`` runs each replaced op's function on the
 op's data input in place of its nodes, as the JAX package's interpreter
-does with an op's eqns.
+does with an op's eqns. ``OpReplay`` runs one op's own nodes alone, from
+its data input and the parameters (the algorithms' per-layer forward and
+the batchnorm probes).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 from torch import fx
 from torch.utils import _pytree as pytree
 
 from .._device import no_tf32
-from .connected_graph import ConnectedGraph
+from .connected_graph import ConnectedGraph, Op
 
 # node -> fn(read) computing its value in place of running it; None: skip
 Emit = Dict[fx.Node, Optional[Callable[[Callable], Any]]]
@@ -104,11 +106,13 @@ def flat_args(graph: ConnectedGraph, params: Dict[str, Any], args) -> list:
 
 def evaluate_with_replacements(graph: ConnectedGraph, params, args,
                                replacements: Optional[Dict[str, Callable]]
-                               = None):
+                               = None, out_tree=None):
     """Evaluate the graph; each op in ``replacements`` has its nodes skipped
     and its value set to ``replacement(x)``, x being the op's data operand
     as its first node reads it (after any dtype cast and view), reshaped to
-    the op's traced output shape."""
+    the op's traced output shape. ``out_tree`` (a ``torch.utils._pytree``
+    spec) regroups the output leaves; by default they keep the model's
+    own structure."""
     emit: Emit = {}
     reads: Dict[fx.Node, List[fx.Node]] = {}
     for name, fn in (replacements or {}).items():
@@ -121,5 +125,56 @@ def evaluate_with_replacements(graph: ConnectedGraph, params, args,
         emit[last] = (lambda read, fn=fn, x_node=x_node, shape=shape:
                       fn(read(x_node)).reshape(shape))
         reads[last] = [x_node]
-    return run_graph(graph, flat_args(graph, params, args), emit=emit,
-                     emit_reads=reads)
+    out = run_graph(graph, flat_args(graph, params, args), emit=emit,
+                    emit_reads=reads)
+    if out_tree is not None:
+        out = pytree.tree_unflatten(pytree.tree_leaves(out), out_tree)
+    return out
+
+
+class OpReplay:
+    """One op's value from its data input and the parameters: the op's own
+    nodes and the weight preprocessing they read, replayed in graph order
+    from ``source`` (default: the op's first data input product, which
+    pass-through aliases may put before a view or a pad, so the replay
+    includes them: a flax-"SAME" conv's ``constant_pad_nd`` runs here as
+    in the model). f32 convolutions run in f32 (TF32 off). Autograd flows
+    through the replay, so it serves as a differentiable layer forward."""
+
+    def __init__(self, graph: ConnectedGraph, op: Op,
+                 source: Optional[fx.Node] = None):
+        self.graph, self.op = graph, op
+        self.source = op.inputs[0].node if source is None else source
+        self.out = op.output.node
+        needed, stack = set(), [self.out]
+        while stack:
+            n = stack.pop()
+            if n in needed or n is self.source:
+                continue
+            needed.add(n)
+            stack.extend(n.all_input_nodes)
+        self.nodes = [n for n in graph.nodes if n in needed]
+        names = {v: k for k, v in graph.param_nodes.items()}
+        self.params = {}
+        for n in self.nodes:
+            if n.op == "placeholder":
+                if n not in names:
+                    raise ValueError(f"{op.name} reads the model input "
+                                     f"{n.name} besides its source")
+                self.params[n] = names[n]
+
+    def __call__(self, x, params: Mapping[str, Any]):
+        """The op's value with ``x`` at the source and ``params`` (by name;
+        only the parameters the op reads are looked up)."""
+        env: Dict[fx.Node, Any] = {self.source: x}
+        with no_tf32():
+            for n in self.nodes:
+                if n.op == "placeholder":
+                    env[n] = params[self.params[n]]
+                elif n.op == "get_attr":
+                    env[n] = _fetch_attr(self.graph.gm, n.target)
+                else:
+                    a, kw = fx.node.map_arg((n.args, n.kwargs),
+                                            env.__getitem__)
+                    env[n] = n.target(*a, **kw)
+        return env[self.out]

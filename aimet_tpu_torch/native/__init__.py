@@ -1,13 +1,20 @@
-"""The continuous-batching scheduler in C++ (``src/scheduler.cpp``), bound
-with ctypes — counterpart of ``aimet_tpu/native/__init__.py``'s
-``NativeScheduler``, with its own copy of the source.
+"""The host library in C++, bound with ctypes — counterpart of
+``aimet_tpu/native/__init__.py``, with its own copy of the sources:
 
-At first use g++ builds the source into
-``aimet_tpu_torch/_build/native-<hash>/``, keyed by a hash of the source
+- ``src/scheduler.cpp``: the continuous-batching scheduler
+  (``NativeScheduler``);
+- ``src/encoding_search.cpp``: the calibration searches the encoding
+  analyzers call (``sqnr_search``, ``sqnr_search_batch``,
+  ``percentile_range``, ``mse_search``).
+
+At first use g++ builds both sources into one library under
+``aimet_tpu_torch/_build/native-<hash>/``, keyed by a hash of the sources
 and the flags (as ``_build`` keys the kernels), so an edited source
 rebuilds and an unchanged one loads as it is. A build or load that fails
-raises with the compiler's output: nothing falls back to the Python
-scheduler, which a caller chooses with ``use_native=False``.
+raises with the compiler's output: nothing falls back to Python on its
+own. The Python scheduler is the caller's choice (``use_native=False``);
+the numpy searches in ``quantization/encoding_analyzer.py`` are the
+searches' plain versions, which the tests compare against.
 """
 from __future__ import annotations
 
@@ -24,9 +31,11 @@ import numpy as np
 
 from .._build import BUILD_ROOT
 
-SOURCE = Path(__file__).resolve().parent / "src" / "scheduler.cpp"
+SOURCES = tuple(Path(__file__).resolve().parent / "src" / name
+                for name in ("scheduler.cpp", "encoding_search.cpp"))
 CXXFLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
-LIB_NAME = "libaimet_scheduler.so"
+LIB_NAME = "libaimet_native.so"
+PDF_SIZE = 512
 
 
 def find_cxx() -> str:
@@ -34,14 +43,14 @@ def find_cxx() -> str:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx or not (os.access(cxx, os.X_OK) or shutil.which(cxx)):
         raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH to "
-                           "build the native scheduler (or pass "
-                           "use_native=False for the Python one)")
+                           "build the native host library")
     return cxx
 
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(CXXFLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.read_bytes())
     return BUILD_ROOT / f"native-{h.hexdigest()[:16]}"
 
 
@@ -55,19 +64,29 @@ def build() -> Path:
     # a file of this process's own, renamed into place: concurrent first
     # uses (test workers) never load each other's half-written library
     tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}")
-    out = subprocess.run([find_cxx(), *CXXFLAGS, str(SOURCE), "-o",
+    out = subprocess.run([find_cxx(), *CXXFLAGS, *map(str, SOURCES), "-o",
                           str(tmp)], stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True, timeout=300)
     if out.returncode != 0:
-        raise RuntimeError(f"building the native scheduler failed (rc "
+        raise RuntimeError(f"building the native host library failed (rc "
                            f"{out.returncode}):\n{out.stdout}")
     os.replace(tmp, lib)
     return lib
 
 
 _I, _VP, _I64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_int64
+_D = ctypes.c_double
 _IP = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_DP = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 SIGNATURES = {                      # name -> (restype, argtypes)
+    # xleft, pdf, bw, symmetric, strict, unsigned, out (4)
+    "aimet_sqnr_search": (_I, [_DP, _DP, _I, _I, _I, _I, _DP]),
+    # xleft, pdf (n, 512), n, bw, symmetric, strict, unsigned, out (n, 4)
+    "aimet_sqnr_search_batch": (_I, [_DP, _DP, _I, _I, _I, _I, _I, _DP]),
+    # xleft, pdf, percentile, out (2)
+    "aimet_percentile_range": (_I, [_DP, _DP, _D, _DP]),
+    # xleft, pdf, bw, symmetric, strict, unsigned, out (2)
+    "aimet_mse_search": (_I, [_DP, _DP, _I, _I, _I, _I, _DP]),
     "cb_create": (_VP, [_I, _I]),
     "cb_destroy": (None, [_VP]),
     "cb_submit": (_I64, [_VP, _I, _I, _I]),
@@ -86,18 +105,71 @@ SIGNATURES = {                      # name -> (restype, argtypes)
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded scheduler library, built at first use; raises if it
-    cannot be built or loaded."""
+    """The loaded host library, built at first use; raises if it cannot
+    be built or loaded."""
     path = build()
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
-        raise RuntimeError(f"loading the native scheduler {path} failed: "
-                           f"{e}") from e
+        raise RuntimeError(f"loading the native host library {path} "
+                           f"failed: {e}") from e
     for name, (restype, argtypes) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
     return lib
+
+
+def _f64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.float64)
+
+
+def sqnr_search(xleft, pdf, bitwidth: int, symmetric: bool,
+                strict_symmetric: bool = False,
+                unsigned_symmetric: bool = False
+                ) -> Tuple[float, float, float, float]:
+    """The SQNR (TF-enhanced) search over one 512-bin PDF: (min, max,
+    delta, offset)."""
+    out = np.zeros(4)
+    library().aimet_sqnr_search(_f64(xleft), _f64(pdf), bitwidth,
+                                int(symmetric), int(strict_symmetric),
+                                int(unsigned_symmetric), out)
+    return tuple(float(v) for v in out)
+
+
+def sqnr_search_batch(xleft, pdf, bitwidth: int, symmetric: bool,
+                      strict_symmetric: bool = False,
+                      unsigned_symmetric: bool = False) -> np.ndarray:
+    """The SQNR search over each row of xleft / pdf (n, 512) in one call:
+    (n, 4) of (min, max, delta, offset)."""
+    xleft, pdf = _f64(xleft), _f64(pdf)
+    if xleft.shape != pdf.shape or xleft.ndim != 2 \
+            or xleft.shape[1] != PDF_SIZE:
+        raise ValueError(f"xleft / pdf must both be (n, {PDF_SIZE}): "
+                         f"{xleft.shape}, {pdf.shape}")
+    out = np.zeros((xleft.shape[0], 4))
+    library().aimet_sqnr_search_batch(
+        xleft, pdf, xleft.shape[0], bitwidth, int(symmetric),
+        int(strict_symmetric), int(unsigned_symmetric), out)
+    return out
+
+
+def percentile_range(xleft, pdf, percentile: float) -> Tuple[float, float]:
+    """The percentile-clipped (min, max) of one PDF."""
+    out = np.zeros(2)
+    library().aimet_percentile_range(_f64(xleft), _f64(pdf),
+                                     float(percentile), out)
+    return float(out[0]), float(out[1])
+
+
+def mse_search(xleft, pdf, bitwidth: int, symmetric: bool,
+               strict_symmetric: bool = False,
+               unsigned_symmetric: bool = False) -> Tuple[float, float]:
+    """The (min, max) candidate of least pdf-weighted fake-quant MSE."""
+    out = np.zeros(2)
+    library().aimet_mse_search(_f64(xleft), _f64(pdf), bitwidth,
+                               int(symmetric), int(strict_symmetric),
+                               int(unsigned_symmetric), out)
+    return float(out[0]), float(out[1])
 
 
 class NativeScheduler:

@@ -1,6 +1,7 @@
-"""QuantizationSimModel — counterpart of ``aimet_tpu/quantsim/qsim.py``
-(the serving subset: placement, calibration, the fake-quant forward and
-blockwise parameters).
+"""QuantizationSimModel — counterpart of ``aimet_tpu/quantsim/qsim.py``:
+placement, calibration in every scheme, the fake-quant forward, blockwise
+parameters, the hooks the PTQ algorithms call, and encodings export and
+load.
 
 The model is traced once into a :class:`ConnectedGraph` (an aten graph
 from ``make_fx``) and re-evaluated with quantizers at the configured
@@ -12,7 +13,10 @@ tensors, as the JAX package re-evaluates its jaxpr:
     on the host;
   - ``quantized_fn(params, *args)`` runs the *quantized* pass: parameters
     and activations through fake-quant;
-  - ``fp_fn(params, *args)`` runs the graph without quantizers.
+  - ``fp_fn(params, *args)`` runs the graph without quantizers;
+  - ``collect_activations(params, args, names, mode)`` runs either forward
+    and returns the named products (AdaRound, SeqMSE and bias correction
+    read a layer's input and output through it).
 
 Placement follows the JAX package's rule: every floating op output is
 quantized unless the config says otherwise (never-quantized types,
@@ -21,15 +25,18 @@ copies the rule as it is, including the quantizer on the masked attention
 scores (``select_n``), whose [-1e30, 0] range flattens attention in both
 packages.
 
-Not ported yet (they raise ``NotImplementedError``): float quantizers
-(``set_quantizer_data_type``), quantization-aware training (``qat_fn``,
-``static_grid_qat_fn``), export and load of encodings, and the AMP
-helpers (``recompute_encoding``, ``set_bitwidth``).
+Not ported yet (they raise ``NotImplementedError``): switching a
+quantizer's data type (``set_quantizer_data_type``; a quantizer turns
+float only through ``load_encodings``), quantization-aware training
+(``qat_fn``, ``static_grid_qat_fn``) and the StableHLO export
+(``export_stablehlo``, which has no PyTorch counterpart yet).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Optional
+import json
+import os
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import fx
@@ -37,7 +44,10 @@ from torch import fx
 from .._device import DeviceLike, resolve_device
 from ..graph.connected_graph import ConnectedGraph, Op
 from ..graph.interpreter import flat_args, run_graph
-from ..quantization.affine import AffineEncoding
+from ..quantization import float_sim
+from ..quantization.affine import (AffineEncoding,
+                                   compute_encoding_from_min_max,
+                                   quantize_to_int)
 from ..quantization.blockwise import (_to_blocks, blockwise_encoding,
                                       grouped_block_quantize_dequantize)
 from ..quantization.encoding_analyzer import EncodingAnalyzer
@@ -55,8 +65,13 @@ class QuantizerSpec:
     strict_symmetric: bool = False
     unsigned_symmetric: bool = False
     scheme: str = "sqnr"
+    percentile: float = 100.0
     channel_axis: Optional[int] = None
     enabled: bool = True
+    # QuantizationDataType (aimet_common/defs.py:309): 'float' simulates an
+    # FP16 round trip (bitwidth >= 16) or an FP8 fake cast whose maxval
+    # comes from the calibrated range (bitwidth 8)
+    data_type: str = "int"      # 'int' | 'float'
     # blockwise (v2 block_size quantizer / GroupedBlockQuantizeDequantize)
     block_size: Optional[int] = None
     block_axis: int = 0
@@ -91,8 +106,10 @@ class QuantizationSimModel:
       example_inputs: a tuple of example inputs used for tracing.
       config: :class:`QuantSimConfig` (defaults mirror the reference's
         default_config.json).
-      quant_scheme: activation calibration scheme (``sqnr`` or ``minmax``).
+      quant_scheme: activation calibration scheme (``minmax``, ``sqnr``,
+        ``percentile``, ``mse`` or ``entropy``).
       param_quant_scheme: scheme for parameter encodings (``minmax``).
+      percentile: the clip of the ``percentile`` scheme, in [50, 100].
       device: where the model, its encodings and the observers live;
         ``cuda`` by default (raises without CUDA), ``cpu`` on request.
     """
@@ -102,7 +119,7 @@ class QuantizationSimModel:
                  quant_scheme: str = "sqnr",
                  param_quant_scheme: str = "minmax",
                  default_output_bw: int = 8, default_param_bw: int = 8,
-                 device: DeviceLike = None):
+                 percentile: float = 100.0, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         example_inputs = tuple(
@@ -114,6 +131,8 @@ class QuantizationSimModel:
         self.param_quant_scheme = param_quant_scheme
         self.default_output_bw = default_output_bw
         self.default_param_bw = default_param_bw
+        self.percentile = percentile
+        self._qdq_flags = None
 
         self.quantizers: Dict[str, QuantizerSpec] = {}
         self._act_node_q: Dict[fx.Node, str] = {}
@@ -174,7 +193,7 @@ class QuantizationSimModel:
             symmetric=cfg.act_symmetric if symmetric is None else symmetric,
             strict_symmetric=cfg.strict_symmetric,
             unsigned_symmetric=cfg.unsigned_symmetric,
-            scheme=self.quant_scheme)
+            scheme=self.quant_scheme, percentile=self.percentile)
 
     def _build_quantizers(self):
         cfg = self.config
@@ -259,9 +278,28 @@ class QuantizationSimModel:
     # Interpreter
     # ------------------------------------------------------------------
     def _qdq(self, x: torch.Tensor, name: str, encodings) -> torch.Tensor:
+        out = self._qdq_impl(x, name, encodings)
+        flags = self._qdq_flags
+        if flags is not None and name in flags:
+            # quantized_fn_flagged: both values computed, the flag picks
+            return torch.where(flags[name], out, x)
+        return out
+
+    def _qdq_impl(self, x: torch.Tensor, name: str,
+                  encodings) -> torch.Tensor:
         spec = self.quantizers[name]
         enc = encodings[name]
         emin, emax = enc.min, enc.max
+        if spec.data_type == "float":
+            if spec.bitwidth >= 16:
+                return float_sim.fake_cast_fp16(x)
+            # FP8: maxval from the calibrated range (per channel where the
+            # encoding is)
+            maxval = torch.clamp(torch.maximum(emin.abs(), emax.abs()),
+                                 min=1e-8)
+            return float_sim.quantize_to_fp8(
+                x, maxval.reshape(-1) if maxval.dim() else maxval,
+                channel_axis=spec.channel_axis if maxval.dim() else None)
         if spec.block_size is not None:
             # blockwise: encodings in the blocked keepdims shape broadcast
             # against the blocked view
@@ -279,15 +317,21 @@ class QuantizationSimModel:
             unsigned_symmetric=spec.unsigned_symmetric)
 
     def _run(self, params, args, mode: str, obs_states=None, analyzers=None,
-             encodings=None):
+             encodings=None, capture: Optional[set] = None):
         """Evaluate the graph with quantization interception.
 
         mode: 'fp' (no quantizers), 'observe' (parameters fake-quantized
         with their encodings, activation observers updated), 'quantized'
-        (the full fake-quant forward). Returns (outputs, obs_states)."""
+        (the full fake-quant forward). ``capture``: product names whose
+        values (after their own quantizer, as the forward reads them) are
+        returned. Returns (outputs, obs_states, captured)."""
         params = self.params if params is None else params
         observing = mode == "observe" and analyzers is not None
         quantizing = mode == "quantized" and encodings is not None
+        captured: Dict[str, torch.Tensor] = {}
+        if capture:
+            wanted = {p.node: p.name for p in self.graph.products.values()
+                      if p.name in capture}
 
         def hook(qname, val):
             if observing and qname in analyzers:
@@ -297,7 +341,7 @@ class QuantizationSimModel:
                 val = self._qdq(val, qname, encodings)
             return val
 
-        def after(node, val):
+        def quantize(node, val):
             if node.op == "placeholder":
                 qname = self._param_node_q.get(node)
                 if qname is not None:
@@ -309,6 +353,12 @@ class QuantizationSimModel:
             else:
                 qname = self._act_node_q.get(node)
             return val if qname is None else hook(qname, val)
+
+        def after(node, val):
+            val = quantize(node, val)
+            if capture and node in wanted:
+                captured[wanted[node]] = val
+            return val
 
         def before(node, read):
             hooks = self._node_input_q.get(node)
@@ -327,7 +377,7 @@ class QuantizationSimModel:
         out = run_graph(self.graph, flat_args(self.graph, params, args),
                         before=before if self._node_input_q else None,
                         after=after, at_output=at_output)
-        return out, obs_states
+        return out, obs_states, captured
 
     # ------------------------------------------------------------------
     # Public API
@@ -336,6 +386,17 @@ class QuantizationSimModel:
         """Floating-point forward through the interpreter."""
         with torch.no_grad():
             return self._run(params, args, "fp")[0]
+
+    def collect_activations(self, params, args, product_names: Sequence[str],
+                            mode: str = "fp") -> Dict[str, torch.Tensor]:
+        """The named products' values in one forward, ``fp`` or
+        ``quantized`` (ActivationSampler, adaround/activation_sampler.py:175):
+        a product takes its own quantizer first in the quantized forward.
+        ``params`` None: the model's own."""
+        enc = self._encodings if mode == "quantized" else None
+        with torch.no_grad():
+            return self._run(params, args, mode, encodings=enc,
+                             capture=set(product_names))[2]
 
     def compute_param_encodings(self, params=None, only=None):
         """Parameter encodings straight from the weights; ``only`` limits
@@ -353,7 +414,8 @@ class QuantizationSimModel:
                 self._encodings[name] = self._blockwise_encoding(w, spec)
                 continue
             analyzer = EncodingAnalyzer(spec.scheme,
-                                        channel_axis=spec.channel_axis)
+                                        channel_axis=spec.channel_axis,
+                                        percentile=spec.percentile)
             st = analyzer.update(analyzer.init_state(w.shape, w.device), w)
             self._encodings[name] = analyzer.compute(
                 st, bitwidth=spec.bitwidth, symmetric=spec.symmetric,
@@ -381,23 +443,26 @@ class QuantizationSimModel:
         for name, spec in self.quantizers.items():
             if spec.kind == "param" or not spec.enabled:
                 continue      # disabled quantizers pay no observe cost
-            analyzers[name] = EncodingAnalyzer(spec.scheme)
+            analyzers[name] = EncodingAnalyzer(spec.scheme,
+                                               percentile=spec.percentile)
             obs[name] = analyzers[name].init_state(device=self.device)
         count = 0
         with torch.no_grad():
             for batch in data_iter:
                 if not isinstance(batch, (tuple, list)):
                     batch = (batch,)
-                _, obs = self._run(params, batch, "observe", obs_states=obs,
-                                   analyzers=analyzers,
-                                   encodings=self._encodings)
+                obs = self._run(params, batch, "observe", obs_states=obs,
+                                analyzers=analyzers,
+                                encodings=self._encodings)[1]
                 count += 1
                 if num_batches is not None and count >= num_batches:
                     break
         if count == 0:
             raise RuntimeError("compute_encodings: data_iter yielded no "
                                "batches")
+        # kept for recompute_encoding / set_bitwidth / set_percentile_value
         self._analyzers, self._obs_states = analyzers, obs
+        self._calib_params = params
         for name, analyzer in analyzers.items():
             if name in self._frozen:
                 continue
@@ -473,6 +538,238 @@ class QuantizationSimModel:
             if not self._node_input_q[node]:
                 del self._node_input_q[node]
 
+    # ------------------------------------------------------------------
+    # Sweeps and re-computation (AMP, QuantAnalyzer)
+    # ------------------------------------------------------------------
+    def quantized_fn_subset(self, params, *args, enabled=None, disabled=None):
+        """The quantized forward with only some quantizers active
+        (QuantAnalyzer / AMP enable-disable sweeps, quant_analyzer.py:63)."""
+        enc = dict(self._encodings)
+        if enabled is not None:
+            enabled = set(enabled)
+            enc = {k: v for k, v in enc.items() if k in enabled}
+        for k in disabled or ():
+            enc.pop(k, None)
+        with torch.no_grad():
+            return self._run(params, args, "quantized", encodings=enc)[0]
+
+    def quantized_fn_flagged(self):
+        """``(apply_fn, names)``: ``apply_fn(params, flags, *args)`` applies
+        quantizer ``names[i]`` only where ``flags[i]`` (a bool tensor of
+        ``len(names)``) is true, so one function serves every
+        enable/disable combination; the flags stay on the device."""
+        if not self._encodings:
+            raise RuntimeError("call compute_encodings first")
+        names = sorted(n for n in self._encodings if n in self.quantizers)
+
+        def apply_fn(params, flags, *args):
+            self._qdq_flags = {n: flags[i] for i, n in enumerate(names)}
+            try:
+                with torch.no_grad():
+                    return self._run(params, args, "quantized",
+                                     encodings=self._encodings)[0]
+            finally:
+                self._qdq_flags = None
+
+        return apply_fn, names
+
+    def recompute_encoding(self, name: str, bitwidth: int) -> AffineEncoding:
+        """One quantizer's encoding at another bitwidth from what was
+        kept of its calibration (the weights, or the observer state): no
+        new data."""
+        spec = dataclasses.replace(self.quantizers[name], bitwidth=bitwidth)
+        if spec.kind == "param":
+            params = getattr(self, "_calib_params", None)
+            w = (self.params if params is None else params)[name]
+            if spec.block_size is not None:
+                return self._blockwise_encoding(w, spec)
+            analyzer = EncodingAnalyzer(spec.scheme,
+                                        channel_axis=spec.channel_axis,
+                                        percentile=spec.percentile)
+            st = analyzer.update(analyzer.init_state(w.shape, w.device), w)
+        else:
+            analyzer, st = self._analyzers[name], self._obs_states[name]
+        return analyzer.compute(
+            st, bitwidth=bitwidth, symmetric=spec.symmetric,
+            strict_symmetric=spec.strict_symmetric,
+            unsigned_symmetric=spec.unsigned_symmetric)
+
+    def set_bitwidth(self, name: str, bitwidth: int):
+        """Change a quantizer's bitwidth (its spec and its encoding)."""
+        spec = self.quantizers[name]
+        if spec.bitwidth == bitwidth:
+            return
+        self._encodings[name] = self.recompute_encoding(name, bitwidth)
+        self.quantizers[name] = dataclasses.replace(spec, bitwidth=bitwidth)
+
+    def set_percentile_value(self, name: str, percentile: float):
+        """The clip of one ``percentile``-scheme quantizer
+        (set_percentile_value, v1/quantsim.py:478); its encoding is
+        recomputed from the kept calibration histogram, if any."""
+        spec = self.quantizers[name]
+        if spec.scheme != "percentile":
+            raise ValueError(
+                f"set_percentile_value: quantizer {name!r} uses scheme "
+                f"{spec.scheme!r}, not 'percentile'")
+        if not 50.0 <= percentile <= 100.0:
+            raise ValueError(f"percentile must be in [50, 100]: {percentile}")
+        self.quantizers[name] = spec = dataclasses.replace(
+            spec, percentile=percentile)
+        if name in getattr(self, "_analyzers", {}):
+            analyzer = EncodingAnalyzer(spec.scheme, percentile=percentile)
+            self._analyzers[name] = analyzer
+            if name not in self._frozen:
+                self._encodings[name] = analyzer.compute(
+                    self._obs_states[name], bitwidth=spec.bitwidth,
+                    symmetric=spec.symmetric,
+                    strict_symmetric=spec.strict_symmetric,
+                    unsigned_symmetric=spec.unsigned_symmetric)
+
+    # ------------------------------------------------------------------
+    # Export and load
+    # ------------------------------------------------------------------
+    def export_encodings_v1(self) -> Dict[str, Any]:
+        """AIMET '1.0.0' encodings (experimental/v2/quantsim/
+        export_utils.py): flat lists with vectorized scale / offset."""
+        def entry(name):
+            enc, spec = self._encodings[name], self.quantizers[name]
+            if spec.data_type == "float":
+                return {"name": name, "dtype": "FLOAT", "bw": spec.bitwidth}
+            deltas = enc.delta.detach().cpu().reshape(-1).tolist()
+            offsets = [int(o) for o in enc.offset.detach().cpu().reshape(-1)]
+            enc_type = "PER_TENSOR" if len(deltas) == 1 else (
+                "PER_BLOCK" if spec.block_size is not None else "PER_CHANNEL")
+            return {"name": name, "dtype": "INT", "enc_type": enc_type,
+                    "bw": spec.bitwidth, "is_sym": bool(spec.symmetric),
+                    "scale": deltas, "offset": offsets}
+
+        act, param = [], []
+        for name, spec in self.quantizers.items():
+            if name in self._encodings:
+                (param if spec.kind == "param" else act).append(entry(name))
+        return {"version": "1.0.0", "activation_encodings": act,
+                "param_encodings": param}
+
+    def export_encodings(self) -> Dict[str, Any]:
+        """AIMET '0.6.1' encodings JSON dict
+        (_export_encodings_to_files, v1/quantsim.py:940-1044): per name a
+        list of entries, one a channel; ``is_symmetric`` a string and
+        ``offset`` an int, as the reference writes them."""
+        def entries(name):
+            enc, spec = self._encodings[name], self.quantizers[name]
+            mins = enc.min.detach().cpu().reshape(-1).tolist()
+            maxs = enc.max.detach().cpu().reshape(-1).tolist()
+            if spec.data_type == "float":
+                if spec.bitwidth >= 16:
+                    # FP16 entries carry no grid
+                    return [{"bitwidth": spec.bitwidth, "dtype": "float"}]
+                # FP8: min / max kept so the maxval survives a round trip
+                return [{"bitwidth": spec.bitwidth, "dtype": "float",
+                         "min": mn, "max": mx} for mn, mx in zip(mins, maxs)]
+            deltas = enc.delta.detach().cpu().reshape(-1).tolist()
+            offsets = enc.offset.detach().cpu().reshape(-1).tolist()
+            return [{"bitwidth": spec.bitwidth, "dtype": "int",
+                     "is_symmetric": str(spec.symmetric), "min": mn,
+                     "max": mx, "scale": d, "offset": int(o)}
+                    for mn, mx, d, o in zip(mins, maxs, deltas, offsets)]
+
+        act, param = {}, {}
+        for name, spec in self.quantizers.items():
+            if name in self._encodings:
+                (param if spec.kind == "param" else act)[name] = \
+                    entries(name)
+        return {"version": "0.6.1", "activation_encodings": act,
+                "param_encodings": param}
+
+    def export(self, path: str, prefix: str) -> str:
+        """Write ``export_encodings()`` to ``{path}/{prefix}.encodings``."""
+        out = os.path.join(path, f"{prefix}.encodings")
+        with open(out, "w") as f:
+            json.dump(self.export_encodings(), f, indent=2, sort_keys=True)
+        return out
+
+    def export_safetensors(self, path: str, prefix: str, params=None,
+                           quantized: bool = False) -> str:
+        """Write the weights to ``{path}/{prefix}.safetensors`` by parameter
+        name (v1/quantsim.py:660). ``quantized``: also, for every symmetric
+        parameter encoding of at most 8 bits, the integer codes
+        (``<name>.int``, int8) and the scales (``<name>.scale``, f32)."""
+        from safetensors.torch import save_file
+
+        params = self.params if params is None else params
+        tensors = {}
+        for key, w in params.items():
+            w = w.detach()
+            tensors[key] = w.cpu().contiguous()
+            spec = self.quantizers.get(key)
+            if not quantized or key not in self._encodings or spec is None \
+                    or not spec.symmetric or spec.bitwidth > 8:
+                continue
+            enc = self._encodings[key]
+            lim = 2 ** (spec.bitwidth - 1) - 1
+            if spec.block_size is not None:
+                wb = _to_blocks(w, spec.block_size, spec.block_axis)
+                q = quantize_to_int(wb, enc, dtype=torch.int32).reshape(
+                    w.shape)
+            else:
+                q = quantize_to_int(w, enc, channel_axis=spec.channel_axis,
+                                    dtype=torch.int32)
+            tensors[key + ".int"] = q.clamp(-lim, lim).to(
+                torch.int8).cpu().contiguous()
+            tensors[key + ".scale"] = enc.delta.detach().reshape(-1).to(
+                torch.float32).cpu().contiguous()
+        out = os.path.join(path, f"{prefix}.safetensors")
+        save_file(tensors, out)
+        return out
+
+    def load_encodings(self, encodings_dict: Dict[str, Any]):
+        """Restore encodings from an exported '0.6.1' dict (load_encodings,
+        v1/quantsim.py:1696): an entry with scale and offset gives its grid
+        back exactly; float entries switch the quantizer to float (FP16
+        with a placeholder grid, FP8 with its min / max); names the sim
+        does not have are skipped."""
+        merged = dict(encodings_dict.get("activation_encodings", {}))
+        merged.update(encodings_dict.get("param_encodings", {}))
+
+        def col(entries, key):
+            t = torch.tensor([float(e[key]) for e in entries],
+                             dtype=torch.float32, device=self.device)
+            return t[0] if len(entries) == 1 else t
+
+        for name, entries in merged.items():
+            if name not in self.quantizers:
+                continue
+            spec = self.quantizers[name]
+            grid = (spec.symmetric, spec.strict_symmetric,
+                    spec.unsigned_symmetric)
+            if entries and all(str(e.get("dtype", "int")).lower() == "float"
+                               for e in entries):
+                self.quantizers[name] = dataclasses.replace(
+                    spec, data_type="float",
+                    bitwidth=int(entries[0].get("bitwidth", 16)))
+                if all("min" in e and "max" in e for e in entries):
+                    self._encodings[name] = compute_encoding_from_min_max(
+                        col(entries, "min"), col(entries, "max"), 8, *grid)
+                else:
+                    # FP16: no grid to restore; a placeholder keeps the
+                    # quantizer active in the quantized forward
+                    self._encodings[name] = compute_encoding_from_min_max(
+                        torch.tensor(-1.0, device=self.device),
+                        torch.tensor(1.0, device=self.device), 8, *grid)
+                continue
+            if all("scale" in e and "offset" in e for e in entries):
+                self._encodings[name] = AffineEncoding(
+                    min=col(entries, "min"), max=col(entries, "max"),
+                    delta=col(entries, "scale"),
+                    offset=col(entries, "offset"), bitwidth=spec.bitwidth,
+                    symmetric=spec.symmetric,
+                    strict_symmetric=spec.strict_symmetric,
+                    unsigned_symmetric=spec.unsigned_symmetric)
+                continue
+            self._encodings[name] = compute_encoding_from_min_max(
+                col(entries, "min"), col(entries, "max"), spec.bitwidth,
+                *grid)
+
     # -- not ported yet -------------------------------------------------
     def set_quantizer_data_type(self, *a, **k):
         _not_ported("set_quantizer_data_type")
@@ -483,17 +780,5 @@ class QuantizationSimModel:
     def static_grid_qat_fn(self, *a, **k):
         _not_ported("static_grid_qat_fn")
 
-    def recompute_encoding(self, *a, **k):
-        _not_ported("recompute_encoding")
-
-    def set_bitwidth(self, *a, **k):
-        _not_ported("set_bitwidth")
-
-    def export(self, *a, **k):
-        _not_ported("export")
-
-    def export_encodings(self, *a, **k):
-        _not_ported("export_encodings")
-
-    def load_encodings(self, *a, **k):
-        _not_ported("load_encodings")
+    def export_stablehlo(self, *a, **k):
+        _not_ported("export_stablehlo")

@@ -116,7 +116,20 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    (the dynamic full-INT8 ops API: K1 + KQ8, equal to its plain
    version);
    then a MobileNetV2 lowered in ``w8a8`` (its depthwise convs);
-7. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
+7. runs the PTQ path on those two models (``ptq``): on the ResNet-50
+   ``equalize_model`` (float logits held), sqnr calibration through the
+   C++ search, AdaRound on all 54 layers (captured CUDA graphs; each layer
+   on its grid, frozen, and no worse than round-to-nearest on its own
+   batches), the captured loop held bit for bit against the eager one on a
+   stride-2 3 x 3 layer and that layer timed at 10,000 iterations both
+   ways, ``export`` and ``load_encodings`` (bit for bit) and the lowered
+   ``w8a8`` forward of 32 images (KQ8 + KW8, against the plain versions
+   and the float model, with round-to-nearest and AdaRound weights); on
+   the MobileNetV2 ``equalize_model`` + ``correct_bias``, export / load
+   and ``w8a8``; SeqMSE on a float Llama-3-8B at 2 layers (full width),
+   lowered in ``w8``; every step's seconds beside the card's name and
+   power limit;
+8. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
    decode kernel) alone at every shape they ran at on the main paths
    (``route_shape_gaps``) and prints the
    measurements, each kernel route's redesign score (its launches on the
@@ -367,6 +380,9 @@ PATH_KERNELS = {
                    "fused_decode_layer", "gqa_decode_attention"),
     "cb_bench": ("w4a8_fusedq", "decode_attention"),
     "cache_free": ("act_quant", "w4a8_gemm"),
+    "ptq_resnet50": ("q8_gemm", "w8_gemm"),
+    "ptq_mobilenet_v2": ("q8_gemm", "w8_gemm"),
+    "ptq_seq_mse": ("w8_gemm",),
 }
 # the lowered models: mode -> (lower_to_int mode, param bitwidth, the
 # launches of one forward by kernel, n = linears a forward)
@@ -3193,7 +3209,8 @@ def cnn(torch, tim, counters, g):
     QuantizationSimModel and lower_to_int in w8, w8a8, w4 and w4a8, and
     through the dynamic full-INT8 ops API (conv2d_w8a8 / matmul_w8a8);
     MobileNetV2 lowered in w8a8 (its depthwise convs). Returns (metrics,
-    launches summed over the measured forwards)."""
+    launches summed over the measured forwards, the two float models for
+    the PTQ phase)."""
     from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig,
                                  lower_to_int)
     from aimet_tpu_torch.models.layers import Conv
@@ -3261,7 +3278,8 @@ def cnn(torch, tim, counters, g):
         " logits equal to the plain versions'; vs float: rel MSE "
         f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
     metrics.update({f"resnet50_ops_api_{k}": v for k, v in m.items()})
-    del model, out, plain, ref
+    resnet = model
+    del out, plain, ref
     torch.cuda.empty_cache()
 
     # MobileNetV2 in w8a8: depthwise convs on the exact f64 route
@@ -3296,9 +3314,451 @@ def cnn(torch, tim, counters, g):
         f"{m['logits_vs_plain_rel_err']:.3e}; vs float: rel MSE "
         f"{m['rel_mse_vs_float']:.3e}, top-1 {m['top1_vs_float']:.3f}")
     metrics.update({f"mobilenet_v2_w8a8_{k}": v for k, v in m.items()})
-    del sim, low, model, out, plain, ref, xs
+    models = {"resnet50": resnet, "mobilenet_v2": model}
+    del sim, low, out, plain, ref, xs
     torch.cuda.empty_cache()
-    return metrics, launches
+    return metrics, launches, models
+
+
+# The PTQ phase: AdaRound's iterations a layer on the 54 layers (graphs of
+# 25 steps, the chunk apply_adaround picks at 500 iterations); on the
+# timed layer the default iterations (10,000, graphs of 100 steps), and the
+# steps compared captured against eager; the steps profiled for the busy
+# share
+PTQ_ADA_ITERS = 500
+PTQ_TIMED_ITERS = 10000
+PTQ_BITWISE_STEPS = 200
+PTQ_PROFILED_STEPS = 20
+# the equalized ResNet-50's float logits against the original's (max
+# |diff| / max |original|): BN fold and cross-layer scaling are exact up
+# to rounding through ReLU (its convs have no bias: no high-bias fold).
+# MobileNetV2's too once its ReLU6 is read as ReLU, as AIMET's CLE swaps
+# ReLU6 for ReLU before scaling; the JAX package's CLE scales through
+# ReLU6 as through ReLU and keeps the model's ReLU6, so with ReLU6 the
+# equalized logits move (reported, no limit)
+TOL_EQUALIZED = 1e-4
+# SeqMSE's bound on the logits' mean error, tests/test_adaround_seqmse.py's
+SEQ_MSE_BOUND = 1.05
+
+
+def same_encodings(torch, a, b):
+    """Names whose encodings differ in a field, bitwidth or grid kind."""
+    bad = sorted(set(a) ^ set(b))
+    for k in set(a) & set(b):
+        if not all(torch.equal(getattr(a[k], f), getattr(b[k], f))
+                   for f in ("min", "max", "delta", "offset")) or \
+                (a[k].bitwidth, a[k].symmetric) != (b[k].bitwidth,
+                                                    b[k].symmetric):
+            bad.append(k)
+    return bad
+
+
+def export_load(torch, sim, model, x, tag):
+    """``sim.export`` to a temporary directory, then ``load_encodings`` of
+    the file into a fresh sim of the same model; every encoding must come
+    back bit for bit. Returns (fresh sim, metrics)."""
+    import tempfile
+    from aimet_tpu_torch import QuantizationSimModel
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        path = sim.export(d, tag)
+        t_export = time.perf_counter() - t
+        size = os.path.getsize(path)
+        fresh = QuantizationSimModel(model, (x,))
+        t = time.perf_counter()
+        with open(path) as f:
+            fresh.load_encodings(json.load(f))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+    bad = same_encodings(torch, sim.encodings, fresh.encodings)
+    assert not bad, (tag, "export / load changed encodings", bad[:5])
+    return fresh, {"export_s": t_export, "load_s": t_load,
+                   "encodings": len(sim.encodings), "file_bytes": size}
+
+
+def ptq_lowered(torch, tim, counters, low, params, x, ref, expect):
+    """One lowered forward with the launch counts read, against the plain
+    versions and the float logits (``lower_cnn``'s checks)."""
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, x), counters)
+    assert counts == expect, counts
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    with plain_lowering(lw, tim), plain_ops(tim, tic):
+        plain = low(params, x)
+    m = {"host_ms": host_ms, "device_ms": dev_ms,
+         "logits_vs_plain_rel_err": rel_err(out, plain), **vs_float(out, ref),
+         "launches": counts}
+    assert m["logits_vs_plain_rel_err"] < TOL_CNN_LOGITS, m
+    return m, counts
+
+
+def adaround_checked(torch, ada, records):
+    """``apply_adaround`` with every layer's rounding checked: the hard
+    weights on their grid, and their reconstruction loss on the layer's
+    own batches against round-to-nearest's (per layer: name, AdaRound
+    loss, nearest loss, seconds)."""
+    from aimet_tpu_torch.quantization.affine import \
+        quantize_dequantize_encoding
+    from aimet_tpu_torch.quantsim.qsim import _broadcast_encoding
+    orig = ada.optimize_layer_rounding
+
+    def checked(replay, w, bias, encoding, channel_axis, xb, yb, cfg,
+                out_axis, params=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        w_ada = orig(replay, w, bias, encoding, channel_axis, xb, yb, cfg,
+                     out_axis, params)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        delta = _broadcast_encoding(encoding.delta, w.dim(), channel_axis)
+        q = w_ada / delta
+        assert (q - q.round()).abs().max().item() < 1e-3, replay.op.name
+        w_rtn = quantize_dequantize_encoding(w, encoding,
+                                             channel_axis=channel_axis)
+
+        def recon(wq):
+            with torch.no_grad():
+                return sum(((ada._layer_apply(replay, x, wq, bias, params)
+                             - y) ** 2).sum(dim=out_axis).mean().item()
+                           for x, y in zip(xb, yb)) / len(xb)
+
+        records.append((replay.op.name, recon(w_ada), recon(w_rtn), secs))
+        return w_ada
+
+    return checked
+
+
+def ada_capture_check(torch, ada, sim, op, params, batches):
+    """On one layer: PTQ_BITWISE_STEPS steps of the captured loop (graphs
+    of the chunk run() picks) against as many eager steps
+    (alpha, both Adam moments, the step counter bit for bit), then the
+    layer at PTQ_TIMED_ITERS iterations both ways: seconds, and the
+    device's busy share (kernel ms a step, from a profile of
+    PTQ_PROFILED_STEPS steps, over the unprofiled loop's ms a step)."""
+    from aimet_tpu_torch.algorithms.adaround import (AdaroundParameters,
+                                                     _graph_chunk)
+    from aimet_tpu_torch.graph.interpreter import OpReplay
+    kpath = op.param_products["kernel"].param_path
+    spec, enc = sim.quantizers[kpath], sim.encodings[kpath]
+    bias = params.get(op.param_products["bias"].param_path) \
+        if "bias" in op.param_products else None
+    xb, yb = ada.layer_batches(sim, op, params, params, batches)
+
+    def make(iters):
+        return ada._rounding_optimizer(
+            OpReplay(sim.graph, op), params[kpath], bias, enc,
+            spec.channel_axis, xb, yb,
+            AdaroundParameters(num_iterations=iters), 1, params)
+
+    chunk = _graph_chunk(PTQ_BITWISE_STEPS)
+    eager, graph = make(PTQ_BITWISE_STEPS), make(PTQ_BITWISE_STEPS)
+    eager.run(0)
+    graph.run()
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(("alpha", "m", "v", "it"),
+                                   eager.state(), graph.state())
+              if not torch.equal(a, b)]
+    assert not differ, f"captured AdaRound loop differs from eager: {differ}"
+    m = {"layer": op.name, "kernel": list(params[kpath].shape),
+         "input": list(xb[0].shape), "bitwise_steps": PTQ_BITWISE_STEPS,
+         "graph_chunk": chunk}
+    n = PTQ_PROFILED_STEPS
+    m["timed_graph_chunk"] = _graph_chunk(PTQ_TIMED_ITERS)
+    for tag, c in (("eager", 0), ("graph", None)):
+        opt = make(PTQ_TIMED_ITERS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        opt.run(c)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        prof_opt = make(n)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        allow_tf32=False):
+            steps = prof_opt.capture(n).replay if c is None else \
+                (lambda: prof_opt.run_eager(n))
+            steps()
+            torch.cuda.synchronize()
+            with profiled() as prof:
+                steps()
+                torch.cuda.synchronize()
+        dev_ms = sum(e.time_range.elapsed_us()
+                     for e in _kernel_events(prof)) / 1e3 / n
+        m[f"{tag}_s"] = secs
+        m[f"{tag}_device_ms_per_step"] = dev_ms
+        m[f"{tag}_busy"] = dev_ms / (secs * 1e3 / PTQ_TIMED_ITERS)
+    return m
+
+
+def ptq(torch, tim, counters, g, models, smi):
+    """Phase 7: the PTQ path of examples/ptq_quickstart.py on the card.
+
+    ResNet-50 (the CNN phase's, 1000 classes, 224 x 224): equalize_model
+    (BN fold, cross-layer scaling, high-bias fold; float logits within
+    TOL_EQUALIZED), QuantizationSimModel(quant_scheme="sqnr") calibrated on
+    4 batches of 8 images (the searches in the C++ host library; the other
+    schemes timed on the same images), AdaRound
+    over every conv and the dense layer (2 batches, PTQ_ADA_ITERS
+    iterations, captured CUDA graphs of 25 steps; each layer
+    on its grid, its encoding frozen, its reconstruction loss no worse
+    than round-to-nearest's), the captured loop against the eager one bit
+    for bit on a stride-2 3 x 3 layer and that layer timed at
+    PTQ_TIMED_ITERS iterations both ways, export and load_encodings (bit
+    for bit), lower_to_int in w8a8 and a forward of 32 images (KQ8 for the
+    convs, KW8 for the dense layer; against the plain versions), with
+    round-to-nearest and with AdaRound against the float logits.
+    MobileNetV2: equalize_model (float logits within TOL_EQUALIZED with
+    its ReLU6 read as ReLU, as AIMET runs CLE; the drift with ReLU6
+    reported), calibration and correct_bias on 2
+    batches, export / load, lowered in w8a8. A float Llama-3-8B at 2
+    layers (full width): SeqMSE (20 candidates, 2 batches of 1 x 512
+    tokens; per-channel grids), the logits' mean error within
+    SEQ_MSE_BOUND of the error before, lowered in w8.
+    Returns (metrics, launches of each measured forward by path)."""
+    import dataclasses
+    from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig,
+                                 lower_to_int, native)
+    from aimet_tpu_torch.algorithms import (AdaroundParameters,
+                                            apply_adaround, apply_seq_mse,
+                                            correct_bias, equalize_model)
+    from aimet_tpu_torch.algorithms import adaround as ada
+    from aimet_tpu_torch.graph.connected_graph import ConnectedGraph
+    from aimet_tpu_torch.models import mobilenet_v2
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    metrics, paths = {}, {}
+
+    def step(label, t0):
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        metrics[f"ptq_{label}_s"] = secs
+        log(f"[ptq] {label}: {secs:.2f} s ({smi})")
+        return time.perf_counter()
+
+    # --- ResNet-50
+    model = models["resnet50"]
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    xs = resnet_inputs(torch, g, 4, batch=8)
+    x32 = resnet_inputs(torch, g, 1)[0]
+    t = time.perf_counter()
+    eq = equalize_model(ConnectedGraph(model, (xs[0],)), params)
+    with torch.no_grad():
+        ref8 = model(xs[0])
+        err = rel_err(torch.func.functional_call(model, eq, (xs[0],)), ref8)
+    metrics["ptq_resnet50_equalized_rel_err"] = err
+    assert err < TOL_EQUALIZED, ("equalized logits", err)
+    log(f"[ptq] ResNet-50 equalized float logits within {err:.3e} of the "
+        f"original's (limit {TOL_EQUALIZED})")
+    t = step("resnet50_equalize", t)
+
+    calls = {"n": 0}
+    search = native.sqnr_search
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return search(*a, **k)
+
+    sim = QuantizationSimModel(model, (xs[0],), quant_scheme="sqnr")
+    native.sqnr_search = counted
+    try:
+        sim.compute_encodings(eq, xs)
+    finally:
+        native.sqnr_search = search
+    n_act = sum(s.kind != "param" for s in sim.quantizers.values())
+    assert calls["n"] > 0, "the sqnr calibration never ran the C++ search"
+    metrics["ptq_resnet50_sqnr_searches"] = calls["n"]
+    t = step("resnet50_calibrate_sqnr", t)
+    # the other schemes on the same images (compute_encodings alone)
+    secs = {"sqnr": metrics["ptq_resnet50_calibrate_sqnr_s"]}
+    for scheme in ("minmax", "percentile", "mse", "entropy"):
+        other = QuantizationSimModel(model, (xs[0],), quant_scheme=scheme,
+                                     percentile=99.99)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        other.compute_encodings(eq, xs)
+        torch.cuda.synchronize()
+        secs[scheme] = time.perf_counter() - t0
+        del other
+    metrics["ptq_resnet50_calibrate_s"] = secs
+    log(f"[ptq] ResNet-50 calibration, 4 x 8 images, {n_act} activation "
+        f"quantizers ({calls['n']} sqnr searches in C++), s by scheme: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()) + f" ({smi})")
+    t = time.perf_counter()
+
+    records = []
+    saved = ada.optimize_layer_rounding
+    ada.optimize_layer_rounding = adaround_checked(torch, ada, records)
+    try:
+        ada_params = apply_adaround(sim, eq, xs[:2], AdaroundParameters(
+            num_batches=2, num_iterations=PTQ_ADA_ITERS))
+    finally:
+        ada.optimize_layer_rounding = saved
+    layers = ada.adaround_layers(sim)
+    assert len(records) == len(layers) == 54, (len(records), len(layers))
+    worse = [r for r in records if r[1] > r[2]]
+    assert not worse, ("AdaRound worse than nearest", worse[:3])
+    for op in layers:
+        assert op.param_products["kernel"].param_path in sim._frozen
+    opt_s = sum(r[3] for r in records)
+    metrics["ptq_resnet50_adaround"] = {
+        "layers": len(records), "iterations": PTQ_ADA_ITERS,
+        "optimize_s": opt_s, "per_layer": [
+            {"layer": n, "loss": a, "nearest_loss": b, "s": s}
+            for n, a, b, s in records]}
+    gain = [b / a for _, a, b, _ in records if a > 0]
+    t_ada = time.perf_counter() - t
+    log(f"[ptq] AdaRound, {len(records)} layers x {PTQ_ADA_ITERS} "
+        f"iterations (graphs of {ada._graph_chunk(PTQ_ADA_ITERS)} steps): "
+        f"{t_ada:.1f} s, "
+        f"{opt_s:.1f} s of it in the loops; every layer on its grid, "
+        f"frozen, nearest / AdaRound loss {min(gain):.3f}..{max(gain):.3f} "
+        f"(median {sorted(gain)[len(gain) // 2]:.3f})")
+    t = step("resnet50_adaround", t)
+
+    op = next(o for o in layers if o.type == "conv"
+              and tuple(o.param_products["kernel"].shape[2:]) == (3, 3)
+              and list(o.nodes[0].args[3]) == [2, 2])
+    m = ada_capture_check(torch, ada, sim, op, eq, xs[:2])
+    metrics["ptq_resnet50_adaround_timed_layer"] = m
+    log(f"[ptq] AdaRound on {op.name} (kernel {m['kernel']}, input "
+        f"{m['input']}): {PTQ_BITWISE_STEPS} captured steps (graphs of "
+        f"{m['graph_chunk']}) equal to eager bit for bit; {PTQ_TIMED_ITERS} "
+        f"iterations eager "
+        f"{m['eager_s']:.2f} s (busy {m['eager_busy']:.3f}, "
+        f"{m['eager_device_ms_per_step']:.4f} device ms a step), captured "
+        f"{m['graph_s']:.2f} s (graphs of {m['timed_graph_chunk']}, busy "
+        f"{m['graph_busy']:.3f}, "
+        f"{m['graph_device_ms_per_step']:.4f})")
+    t = step("resnet50_adaround_timed_layer", t)
+
+    fresh, m = export_load(torch, sim, model, xs[0], "resnet50_ptq")
+    metrics["ptq_resnet50_export_load"] = m
+    log(f"[ptq] export {m['export_s']:.3f} s ({m['encodings']} encodings, "
+        f"{m['file_bytes']} bytes), load_encodings {m['load_s']:.3f} s: "
+        "bit for bit")
+    t = step("resnet50_export_load", t)
+
+    with torch.no_grad():
+        ref = model(x32)
+    n_conv = sum(o.type == "conv" for o in sim.graph.ops)
+    expect = CNN_MODES["w8a8"][2](n_conv)
+    paths["ptq_resnet50"] = {}
+    for tag, s_, p_ in (("nearest", sim, eq), ("adaround", fresh,
+                                                ada_params)):
+        low = lower_to_int(s_, p_, mode="w8a8")
+        m, counts = ptq_lowered(torch, tim, counters, low, p_, x32, ref,
+                                expect)
+        for k, v in counts.items():
+            paths["ptq_resnet50"][k] = paths["ptq_resnet50"].get(k, 0) + v
+        metrics[f"ptq_resnet50_w8a8_{tag}"] = m
+        log(f"[ptq] ResNet-50 w8a8 ({tag}), 32 images: {m['host_ms']:.1f} "
+            f"ms host, {m['device_ms']:.2f} ms device; launches {counts}; "
+            f"kernels vs plain {m['logits_vs_plain_rel_err']:.3e}; vs "
+            f"float: rel MSE {m['rel_mse_vs_float']:.4e}, top-1 "
+            f"{m['top1_vs_float']:.3f}")
+        del low
+    t = step("resnet50_lower", t)
+    del sim, fresh, eq, ada_params, ref, xs, x32
+    torch.cuda.empty_cache()
+
+    # --- MobileNetV2
+    model = models["mobilenet_v2"]
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    xs = resnet_inputs(torch, g, 2, batch=8)
+    x32 = resnet_inputs(torch, g, 1)[0]
+    eq = equalize_model(ConnectedGraph(model, (xs[0],)), params)
+    with torch.no_grad():
+        metrics["ptq_mobilenet_v2_equalized_rel_err"] = rel_err(
+            torch.func.functional_call(model, eq, (xs[0],)), model(xs[0]))
+        relu6 = mobilenet_v2.relu6
+        mobilenet_v2.relu6 = torch.relu
+        try:
+            err = rel_err(torch.func.functional_call(model, eq, (xs[0],)),
+                          model(xs[0]))
+        finally:
+            mobilenet_v2.relu6 = relu6
+    metrics["ptq_mobilenet_v2_equalized_relu_rel_err"] = err
+    assert err < TOL_EQUALIZED, ("equalized logits, ReLU6 as ReLU", err)
+    sim = QuantizationSimModel(model, (xs[0],), quant_scheme="sqnr")
+    sim.compute_encodings(eq, xs)
+    corrected = correct_bias(sim, eq, xs)
+    changed = [k for k in eq if not torch.equal(eq[k], corrected[k])]
+    assert changed, "correct_bias changed no bias"
+    metrics["ptq_mobilenet_v2_corrected_biases"] = len(changed)
+    t = step("mobilenet_v2_equalize_calibrate_correct_bias", t)
+    fresh, m = export_load(torch, sim, model, xs[0], "mobilenet_v2_ptq")
+    metrics["ptq_mobilenet_v2_export_load"] = m
+    with torch.no_grad():
+        ref = model(x32)
+    regular = sum(o.type == "conv" for o in sim.graph.ops)
+    low = lower_to_int(fresh, corrected, mode="w8a8")
+    m, counts = ptq_lowered(torch, tim, counters, low, corrected, x32, ref,
+                            {"q8_gemm": regular, "w8_gemm": 1})
+    paths["ptq_mobilenet_v2"] = counts
+    metrics["ptq_mobilenet_v2_w8a8"] = m
+    log(f"[ptq] MobileNetV2: equalized logits within {err:.3e} of the "
+        f"original's with ReLU6 read as ReLU (limit {TOL_EQUALIZED}), "
+        f"{metrics['ptq_mobilenet_v2_equalized_rel_err']:.3e} with ReLU6 "
+        "(CLE scales through ReLU6 as through ReLU, as the JAX package's "
+        f"does); {len(changed)} biases corrected, export / load bit "
+        f"for bit; w8a8, 32 images: {m['device_ms']:.2f} ms device, "
+        f"launches {counts}, kernels vs plain "
+        f"{m['logits_vs_plain_rel_err']:.3e}; vs float: rel MSE "
+        f"{m['rel_mse_vs_float']:.4e}, top-1 {m['top1_vs_float']:.3f}")
+    t = step("mobilenet_v2_export_load_lower", t)
+    del sim, fresh, low, eq, corrected, ref, xs, x32
+    torch.cuda.empty_cache()
+
+    # --- SeqMSE on a float Llama-3-8B, 2 layers at full width
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    model = float_llama(torch, cfg, seed=3)
+    toks = [torch.randint(0, cfg.vocab_size, (1, 512), generator=g,
+                          device="cuda") for _ in range(2)]
+    sim = QuantizationSimModel(model, (toks[0],),
+                               config=QuantSimConfig.per_channel_default())
+    sim.compute_encodings(None, toks)
+    # the masked-score quantizers flatten attention (ROADMAP queue C):
+    # off, as in the lowering phase's comparison
+    for o in sim.graph.ops_of_type("select_n"):
+        if any(c.type == "softmax" for c in o.output.consumers):
+            sim.set_quantizer_enabled(o.name, False)
+    with torch.no_grad():
+        ref = model(toks[0])
+    err = lambda: (sim.quantized_fn(None, toks[0]) - ref).abs().mean().item()
+    err_before = err()
+    t = step("seq_mse_calibrate", t)
+    done = apply_seq_mse(sim, None, toks, num_candidates=20)
+    t = step("seq_mse", t)
+    err_after = err()
+    n_lin = 7 * cfg.n_layers + 1
+    assert len(done) == n_lin, done
+    assert err_after <= SEQ_MSE_BOUND * err_before, (err_after, err_before)
+    low = lower_to_int(sim, None, mode="w8")
+    params = sim.params
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, toks[0]), counters)
+    assert counts == LOWER_MODES["w8"][2](n_lin), counts
+    from aimet_tpu_torch.quantsim import lowering as lw
+    with plain_lowering(lw, tim):
+        plain = low(params, toks[0])
+    m = {"layers": cfg.n_layers, "linears": len(done),
+         "err_before": err_before, "err_after": err_after,
+         "w8_device_ms": dev_ms, "w8_host_ms": host_ms,
+         "logits_vs_plain_rel_err": rel_err(out, plain),
+         "w8_rel_mse_vs_float": (((out - ref) ** 2).mean()
+                                 / (ref ** 2).mean()).item()}
+    assert m["logits_vs_plain_rel_err"] < TOL_LOGITS, m
+    paths["ptq_seq_mse"] = counts
+    metrics["ptq_seq_mse"] = m
+    log(f"[ptq] SeqMSE on Llama-3-8B (2 layers, 20 candidates, 2 x 512 "
+        f"tokens): {len(done)} linears, logits' mean error {err_before:.4e} "
+        f"-> {err_after:.4e} (bound {SEQ_MSE_BOUND}x); w8 forward "
+        f"{dev_ms:.2f} ms device, launches {counts}, kernels vs plain "
+        f"{m['logits_vs_plain_rel_err']:.3e}")
+    step("seq_mse_lower", t)
+    del sim, low, model, out, plain, ref
+    torch.cuda.empty_cache()
+    return metrics, paths
 
 
 # Variants of the whole-layer kernel for ``--layer-variants``: name ->
@@ -4891,11 +5351,21 @@ def main() -> int:
     # --- 6. CNNs: ResNet-50 lowered per mode and through the ops API,
     # MobileNetV2 in w8a8
     t = time.time()
-    m, counts = cnn(torch, tim, counters, g)
+    m, counts, cnn_models = cnn(torch, tim, counters, g)
     metrics.update(m)
     for k, v in counts.items():
         launches[k] += v
     log(f"[cnn] phase took {time.time() - t:.1f} s")
+
+    # --- 7. the PTQ path: equalize, calibrate, AdaRound, export / load,
+    # lower (ResNet-50, MobileNetV2); SeqMSE on a float Llama-3-8B
+    t = time.time()
+    m, path_counts = ptq(torch, tim, counters, g, cnn_models, smi)
+    del cnn_models
+    metrics.update(m)
+    for path, counts in path_counts.items():
+        add_path(path, counts)
+    log(f"[ptq] phase took {time.time() - t:.1f} s; {smi}")
     for name, (kern, route) in ROUTE_KERNELS.items():
         launches[name] = ROUTE_LAUNCHES.get(f"{kern}:{route}", 0)
     for name in SOURCES:

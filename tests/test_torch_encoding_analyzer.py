@@ -1,9 +1,11 @@
 """aimet_tpu_torch.quantization.encoding_analyzer against aimet_tpu's on
 the same numpy batches. Observer states (running min/max; the 512-bin
 PDF's edges, density and counts) bit for bit against the JAX updates run
-op by op. Encodings: min-max bit for bit; SQNR bit for bit against the
-JAX package's numpy search (``USE_NATIVE`` off), which is what the port
-copies, and within 1e-6 relative of its native C++ search."""
+op by op. Encodings: min-max bit for bit; SQNR (the port's copy of the
+C++ search) bit for bit against the JAX package's numpy search
+(``USE_NATIVE`` off) on these batches, and within 1e-6 relative of its
+native C++ search. The percentile, mse and entropy schemes are held to
+the JAX package in tests/test_torch_native_search.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,7 +92,10 @@ def test_all_zero_data_and_no_data():
 
 @pytest.mark.parametrize("scheme", ["percentile", "mse", "entropy"])
 def test_unported_schemes_raise(scheme):
-    with pytest.raises(NotImplementedError):
-        tea.EncodingAnalyzer(scheme)
+    """Once unported, now ported: each scheme constructs, refuses to
+    compute before any data, and an unknown scheme still raises."""
+    ta = tea.EncodingAnalyzer(scheme)
+    with pytest.raises(RuntimeError):
+        ta.compute(ta.init_state(device="cpu"))
     with pytest.raises(ValueError):
         tea.EncodingAnalyzer("nope")

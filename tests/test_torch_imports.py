@@ -24,6 +24,14 @@ def test_native_scheduler_source_includes_only_the_standard_library():
     assert includes and all(i.startswith("<") for i in includes), includes
 
 
+def test_encoding_search_source_includes_only_the_standard_library():
+    src = (ROOT / "aimet_tpu_torch" / "native" / "src" /
+           "encoding_search.cpp")
+    includes = [line.split()[1] for line in src.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes and all(i.startswith("<") for i in includes), includes
+
+
 def _imported(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -53,6 +61,8 @@ def test_importing_port_leaves_jax_unloaded():
             "import aimet_tpu_torch.models.mobilenet_v2; "
             "import aimet_tpu_torch.native, aimet_tpu_torch.models; "
             "import aimet_tpu_torch.serving.batcher; "
+            "import aimet_tpu_torch.algorithms, aimet_tpu_torch.utils.pytree; "
+            "import aimet_tpu_torch.quantization.float_sim; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

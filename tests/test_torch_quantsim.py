@@ -12,6 +12,13 @@ carried across), with ``device="cpu"``.
 - Parameter encodings bit for bit; each linear's input-activation
   encoding within 1e-6 relative (the activations differ in the last bits
   between the two frameworks).
+- The hooks the PTQ algorithms call, on tests/test_ptq.py's TinyCNN with
+  the JAX sim's encodings carried across (tests/torch_ptq_util.py):
+  ``collect_activations`` (float products within 1e-5 of their max;
+  quantized ones within one grid step, equal at 99 % of the elements),
+  ``quantized_fn_subset`` and ``quantized_fn_flagged`` (within 1e-5 of
+  the JAX output's max; the flagged forward within 1e-6 of the port's
+  own subsets), ``set_percentile_value`` (encodings within 1e-6 relative).
 - ``quantized_fn``: the MLP of tests/test_lowering.py with every
   quantizer enabled within 1e-5 of the output's max; tiny with the
   masked-score and silu quantizers disabled in both packages (see
@@ -29,6 +36,8 @@ import jax.numpy as jnp
 from aimet_tpu.quantsim.config import QuantSimConfig as JaxConfig
 from aimet_tpu.quantsim.qsim import QuantizationSimModel as JaxSim
 from aimet_tpu_torch import QuantizationSimModel, QuantSimConfig, convert
+from torch_ptq_util import nchw, nhwc
+from torch_ptq_util import pair as ptq_pair
 from torch_quantsim_util import (jax_mlp, masked_and_silu_quantizers,
                                  mlp_pair, tiny_pair, to_torch)
 
@@ -199,15 +208,17 @@ def test_entry_points_default_to_cuda_and_unported_raise(tiny_sims):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             QuantizationSimModel(ts.model, (to_torch(tok),))
-    for call in (ts.set_quantizer_data_type, ts.qat_fn, ts.export,
-                 ts.load_encodings, ts.set_bitwidth):
+    # still unported: switching a quantizer's data type, quantization-aware
+    # training and the StableHLO export; every calibration scheme now
+    # calibrates
+    for call in (ts.set_quantizer_data_type, ts.qat_fn,
+                 ts.static_grid_qat_fn, ts.export_stablehlo):
         with pytest.raises(NotImplementedError):
             call()
-    with pytest.raises(NotImplementedError):
-        QuantizationSimModel(ts.model, (to_torch(tok),),
-                             quant_scheme="entropy",
-                             device="cpu").compute_encodings(
-            None, [to_torch(tok)])
+    _, mlp, x, _ = mlp_pair()
+    sim = QuantizationSimModel(mlp, (torch.from_numpy(x),),
+                               quant_scheme="entropy", device="cpu")
+    assert sim.compute_encodings(None, [torch.from_numpy(x)])
 
 
 def test_masked_score_quantizer_flattens_attention():
@@ -246,3 +257,122 @@ def test_convert_names_and_encodings_round_trip(tiny_sims):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
                                           np.asarray(getattr(enc, f)))
         assert (got.bitwidth, got.symmetric) == (enc.bitwidth, enc.symmetric)
+
+
+# ---------------------------------------------------------------------------
+# The hooks the PTQ algorithms call
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cnn_sims():
+    """TinyCNN in both packages (min-max, 4-bit weights), the port sim
+    holding the JAX sim's encodings."""
+    fn, v, tm, x, rs = ptq_pair("tiny_cnn")
+    batches = [rs.randn(*x.shape).astype(np.float32) for _ in range(2)]
+    jv = jax.tree_util.tree_map(jnp.asarray, v)
+    js = JaxSim(fn, (jv, jnp.asarray(x)), quant_scheme="minmax",
+                default_param_bw=4)
+    js.compute_encodings(jv, iter([jnp.asarray(b) for b in batches]))
+    ts = QuantizationSimModel(tm, (nchw(x),), quant_scheme="minmax",
+                              default_param_bw=4, device="cpu")
+    ts.compute_encodings(None, [nchw(b) for b in batches])
+    for k, e in convert.encodings_from_jax(js.encodings,
+                                           device="cpu").items():
+        ts.set_encoding(k, e)
+    return js, ts, jv, batches[0]
+
+
+@pytest.mark.parametrize("mode", ["fp", "quantized"])
+def test_collect_activations_match_jax(cnn_sims, mode):
+    js, ts, jv, xb = cnn_sims
+    names = [p.name for p in ts.graph.products.values()
+             if p.kind != "param"]
+    assert len(names) == len(ts.graph.ops) + 1
+    want = js.collect_activations(jv, (jnp.asarray(xb),), names, mode=mode)
+    got = ts.collect_activations(None, (nchw(xb),), names, mode=mode)
+    assert sorted(got) == sorted(want) == sorted(names)
+    for name in names:
+        w, g = np.asarray(want[name]), nhwc(got[name])
+        assert g.shape == w.shape, name
+        scale = np.abs(w).max()
+        if mode == "fp":
+            assert np.abs(g - w).max() <= 1e-5 * scale, name
+            continue
+        enc = ts.encodings.get(name.removesuffix(".out"))
+        step = float(enc.delta) if enc is not None else 0.0
+        assert np.abs(g - w).max() <= step * 1.001 + 1e-5 * scale, name
+        assert (np.abs(g - w) <= 1e-5 * scale).mean() >= 0.99, name
+
+
+def test_quantized_fn_subset_matches_jax(cnn_sims):
+    js, ts, jv, xb = cnn_sims
+    params = [k for k, s in ts.quantizers.items() if s.kind == "param"]
+    acts = [k for k, s in ts.quantizers.items() if s.kind != "param"]
+    for enabled, disabled in ((params, None), (None, acts[:2]),
+                              (acts, params[:1])):
+        want = np.asarray(js.quantized_fn_subset(
+            jv, jnp.asarray(xb),
+            enabled=None if enabled is None else
+            [convert.jax_param_key(k) if k in params else k
+             for k in enabled],
+            disabled=None if disabled is None else
+            [convert.jax_param_key(k) if k in params else k
+             for k in disabled]))
+        got = ts.quantized_fn_subset(None, nchw(xb), enabled=enabled,
+                                     disabled=disabled).numpy()
+        assert _rel(got, want) < 1e-5
+
+
+def test_quantized_fn_flagged_matches_jax(cnn_sims):
+    js, ts, jv, xb = cnn_sims
+    apply_fn, names = ts.quantized_fn_flagged()
+    japply, jnames = js.quantized_fn_flagged()
+    assert {convert.port_param_name(n) for n in jnames} == set(names)
+    x = nchw(xb)
+    # within 1e-6 of the max, not bit for bit: the flag's select may hand
+    # a conv another memory layout (one input channel), and so another
+    # algorithm
+    on = torch.ones(len(names), dtype=torch.bool)
+    assert _rel(apply_fn(None, on, x).numpy(),
+                ts.quantized_fn(None, x).numpy()) < 1e-6
+    assert _rel(apply_fn(None, ~on, x).numpy(),
+                ts.fp_fn(None, x).numpy()) < 1e-6
+    for i in (0, len(names) - 1):
+        flags = torch.zeros(len(names), dtype=torch.bool)
+        flags[i] = True
+        got = apply_fn(None, flags, x).numpy()
+        assert _rel(got, ts.quantized_fn_subset(
+            None, x, enabled=[names[i]]).numpy()) < 1e-6
+        jflags = jnp.asarray([convert.port_param_name(n) == names[i]
+                              for n in jnames])
+        assert _rel(got, np.asarray(japply(jv, jflags,
+                                           jnp.asarray(xb)))) < 1e-5
+
+
+def test_set_percentile_value_matches_jax():
+    fn, v, tm, x, rs = ptq_pair("tiny_cnn")
+    batches = [rs.randn(*x.shape).astype(np.float32) for _ in range(2)]
+    jv = jax.tree_util.tree_map(jnp.asarray, v)
+    js = JaxSim(fn, (jv, jnp.asarray(x)), quant_scheme="percentile",
+                percentile=99.9)
+    js.compute_encodings(jv, iter([jnp.asarray(b) for b in batches]))
+    ts = QuantizationSimModel(tm, (nchw(x),), quant_scheme="percentile",
+                              percentile=99.9, device="cpu")
+    ts.compute_encodings(None, [nchw(b) for b in batches])
+    name = "relu_0"
+    before = ts.encodings[name]
+    for sim in (js, ts):
+        sim.set_percentile_value(name, 95.0)
+    assert ts.quantizers[name].percentile == 95.0
+    got, want = ts.encodings[name], js.encodings[name]
+    assert float(got.max) < float(before.max)
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-6,
+                                   atol=1e-7, err_msg=f)
+    with pytest.raises(ValueError):
+        ts.set_percentile_value(name, 40.0)
+    mm = QuantizationSimModel(tm, (nchw(x),), quant_scheme="minmax",
+                              device="cpu")
+    with pytest.raises(ValueError):
+        mm.set_percentile_value(name, 99.0)
