@@ -5,14 +5,17 @@ Layout and names follow ``aimet_tpu``: ``ops/`` holds the kernel wrappers
 each beside its plain PyTorch version; ``models/`` and ``serving/`` hold
 the model and the serving path in the modes ``w8`` (the default), ``w4``
 and ``w4a8``; ``quantization/``, ``graph/`` and ``quantsim/`` hold the
-quantization simulation (``QuantizationSimModel``) and its lowering to the
-integer kernels (``lower_to_int``). Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+quantization simulation (``QuantizationSimModel``, with quantization-aware
+training through ``qat_fn`` / ``static_grid_qat_fn`` and the differentiable
+``quantize_dequantize``) and its lowering to the integer kernels
+(``lower_to_int``); ``algorithms/`` the PTQ and QAT algorithms. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from .models.transformer import (Transformer, TransformerConfig,
                                  init_kv_caches)
 from .native import NativeScheduler
 from .ops.kv_cache import flatten_kv_caches
+from .quantization.grads import quantize_dequantize, round_ste
 from .quantsim.config import QuantSimConfig
 from .quantsim.lowering import LoweredModel, lower_to_int
 from .quantsim.qsim import QuantizationSimModel
@@ -25,6 +28,6 @@ __all__ = [
     "ContinuousBatcher", "LoweredModel", "NativeScheduler", "QuantSimConfig",
     "QuantizationSimModel", "QuantizedLLM", "Request", "Transformer",
     "TransformerConfig", "flatten_kv_caches", "init_kv_caches",
-    "lower_to_int", "quantize_transformer_weights", "quantized_forward",
-    "random_quantized_weights",
+    "lower_to_int", "quantize_dequantize", "quantize_transformer_weights",
+    "quantized_forward", "random_quantized_weights", "round_ste",
 ]

@@ -97,6 +97,7 @@ class Product:
     param_path: Optional[str] = None
     producer: Optional["Op"] = None
     consumers: List["Op"] = dataclasses.field(default_factory=list)
+    is_model_output: bool = False
 
 
 @dataclasses.dataclass(eq=False)
@@ -172,6 +173,9 @@ class ConnectedGraph:
             self.products[node] = Product(node, f"input{i + 1}", shape, dtype,
                                           "input")
         self._build()
+        outs = {self.resolve(n) for n in self.output_nodes}
+        for node, p in self.products.items():
+            p.is_model_output = node in outs
 
     # ------------------------------------------------------------------
     def resolve(self, node):

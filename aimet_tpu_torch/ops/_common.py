@@ -48,3 +48,21 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     beyond_tie = (d != 0) & (2 * d == nb.to(torch.float64) - r.to(
         torch.float64)) & (err != 0) & ((err > 0) == (d > 0))
     return torch.where(beyond_tie, nb, r)
+
+
+def linspace_f32(start: float, stop: float, num: int,
+                 device=None) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in f32 with the JAX package's
+    bits on the CPU: XLA compiles it as fma(i, stop * c, start * (1 - i *
+    c)) with c = f32(1 / (num - 1)), the last value ``stop`` exactly
+    (``torch.linspace`` rounds some values differently)."""
+    f32 = torch.float32
+    if num < 2:
+        return torch.full((num,), start, dtype=f32, device=device)
+    div = num - 1
+    c = torch.full((), 1.0 / div, dtype=f32, device=device)
+    i = torch.arange(div, dtype=f32, device=device)
+    s = torch.full((div,), start, dtype=f32, device=device)
+    e = torch.full((), stop, dtype=f32, device=device)
+    out = fma_f32(i, (e * c).expand(div), s * (1 - i * c))
+    return torch.cat([out, e.reshape(1)])

@@ -148,11 +148,25 @@ def gate_min_max(min_val, max_val, min_range: float = 0.01):
 # ---------------------------------------------------------------------------
 
 def quantize(x: torch.Tensor, delta: torch.Tensor, offset: torch.Tensor,
-             num_steps: int) -> torch.Tensor:
+             num_steps: int, *,
+             stochastic_key: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
     """Real values onto the integer grid ``[0, num_steps]``
     (``quantizeValueCpu``, trim_functions.cpp:141-166): round(x/delta -
-    offset), clipped. Returns a float tensor of integer values."""
-    return torch.clamp(torch.round(x / delta - offset), 0.0, float(num_steps))
+    offset), clipped. Returns a float tensor of integer values.
+
+    ``stochastic_key``: a ``torch.Generator`` on x's device; rounding is
+    then stochastic, floor(x/delta - offset + u) with u uniform in [0, 1),
+    so a value rounds up with the probability of its fraction (unbiased;
+    the draws are PyTorch's, not JAX's)."""
+    x_scaled = x / delta - offset
+    if stochastic_key is not None:
+        noise = torch.rand(x.shape, generator=stochastic_key, dtype=x.dtype,
+                           device=x.device)
+        x_rounded = torch.floor(x_scaled + noise)
+    else:
+        x_rounded = torch.round(x_scaled)
+    return torch.clamp(x_rounded, 0.0, float(num_steps))
 
 
 def dequantize(q: torch.Tensor, delta: torch.Tensor,
@@ -161,12 +175,15 @@ def dequantize(q: torch.Tensor, delta: torch.Tensor,
     return (q.to(delta.dtype) + offset) * delta
 
 
-def quantize_dequantize_encoding(x: torch.Tensor, encoding: AffineEncoding, *,
-                                 channel_axis: Optional[int] = None
-                                 ) -> torch.Tensor:
-    """Fake-quant through an :class:`AffineEncoding`."""
+def quantize_dequantize_encoding(
+        x: torch.Tensor, encoding: AffineEncoding, *,
+        channel_axis: Optional[int] = None,
+        stochastic_key: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fake-quant through an :class:`AffineEncoding` (no custom
+    gradients); ``stochastic_key`` as in :func:`quantize`."""
     enc = encoding.broadcast_to(x.shape, channel_axis)
-    q = quantize(x, enc.delta, enc.offset, encoding.num_steps)
+    q = quantize(x, enc.delta, enc.offset, encoding.num_steps,
+                 stochastic_key=stochastic_key)
     return dequantize(q, enc.delta, enc.offset)
 
 

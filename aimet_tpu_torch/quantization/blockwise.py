@@ -9,7 +9,7 @@ clip(round(scale / pgs), 1, 2^bw) (aimet_onnx/lpbq_utils.py:46-133).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +40,22 @@ def blockwise_encoding(w: torch.Tensor, block_size: int, axis: int,
     """One (min, max, delta, offset) per block."""
     _, mn, mx = blockwise_min_max(w, block_size, axis)
     return compute_encoding_from_min_max(mn, mx, bitwidth, symmetric)
+
+
+def blockwise_quantize_dequantize(w: torch.Tensor, block_size: int, axis: int,
+                                  bitwidth: int = 4, symmetric: bool = True,
+                                  encoding: Optional[AffineEncoding] = None,
+                                  learn_range: bool = False) -> torch.Tensor:
+    """Fake-quant of w with one grid per block (``encoding`` in the
+    blocked keepdims shape; by default the blocks' own min-max), with the
+    straight-through and, with ``learn_range``, the range-learning
+    gradients of ``grads.quantize_dequantize``."""
+    wb = _to_blocks(w, block_size, axis)
+    enc = encoding if encoding is not None else blockwise_encoding(
+        w, block_size, axis, bitwidth, symmetric)
+    out = quantize_dequantize(wb, enc.min, enc.max, bitwidth=bitwidth,
+                              symmetric=symmetric, learn_range=learn_range)
+    return out.reshape(w.shape)
 
 
 def lpbq_compress_scales(scale: torch.Tensor, group_size: int, axis: int,

@@ -16,7 +16,14 @@ tensors, as the JAX package re-evaluates its jaxpr:
   - ``fp_fn(params, *args)`` runs the graph without quantizers;
   - ``collect_activations(params, args, names, mode)`` runs either forward
     and returns the named products (AdaRound, SeqMSE and bias correction
-    read a layer's input and output through it).
+    read a layer's input and output through it);
+  - ``qat_fn()`` / ``static_grid_qat_fn()`` return the quantized forward
+    for training: it runs with autograd on, the fake-quant gives the
+    straight-through gradient to what it quantizes and, in ``qat_fn``,
+    the range-learning gradients to the encodings' (min, max), which the
+    caller passes as tensors; ``static_grid_qat_fn`` recomputes each
+    parameter's grid from the live weights (min-max) and gives the grid
+    no gradient.
 
 Placement follows the JAX package's rule: every floating op output is
 quantized unless the config says otherwise (never-quantized types,
@@ -25,10 +32,8 @@ copies the rule as it is, including the quantizer on the masked attention
 scores (``select_n``), whose [-1e30, 0] range flattens attention in both
 packages.
 
-Not ported yet (they raise ``NotImplementedError``): switching a
-quantizer's data type (``set_quantizer_data_type``; a quantizer turns
-float only through ``load_encodings``), quantization-aware training
-(``qat_fn``, ``static_grid_qat_fn``) and the StableHLO export
+Every public forward but the QAT ones runs under ``torch.no_grad()``.
+Not ported yet (it raises ``NotImplementedError``): the StableHLO export
 (``export_stablehlo``, which has no PyTorch counterpart yet).
 """
 from __future__ import annotations
@@ -47,7 +52,8 @@ from ..graph.interpreter import flat_args, run_graph
 from ..quantization import float_sim
 from ..quantization.affine import (AffineEncoding,
                                    compute_encoding_from_min_max,
-                                   quantize_to_int)
+                                   gate_min_max, quantize_to_int,
+                                   reduce_min_max)
 from ..quantization.blockwise import (_to_blocks, blockwise_encoding,
                                       grouped_block_quantize_dequantize)
 from ..quantization.encoding_analyzer import EncodingAnalyzer
@@ -91,11 +97,6 @@ def _broadcast_encoding(vals: torch.Tensor, x_ndim: int,
 
 def _is_float(dtype) -> bool:
     return dtype is not None and dtype.is_floating_point
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"QuantizationSimModel.{what} is not ported to "
-                              f"aimet_tpu_torch yet")
 
 
 class QuantizationSimModel:
@@ -277,19 +278,23 @@ class QuantizationSimModel:
     # ------------------------------------------------------------------
     # Interpreter
     # ------------------------------------------------------------------
-    def _qdq(self, x: torch.Tensor, name: str, encodings) -> torch.Tensor:
-        out = self._qdq_impl(x, name, encodings)
+    def _qdq(self, x: torch.Tensor, name: str, encodings,
+             learn_range: bool = False) -> torch.Tensor:
+        out = self._qdq_impl(x, name, encodings, learn_range)
         flags = self._qdq_flags
         if flags is not None and name in flags:
             # quantized_fn_flagged: both values computed, the flag picks
             return torch.where(flags[name], out, x)
         return out
 
-    def _qdq_impl(self, x: torch.Tensor, name: str,
-                  encodings) -> torch.Tensor:
+    def _qdq_impl(self, x: torch.Tensor, name: str, encodings,
+                  learn_range: bool = False) -> torch.Tensor:
+        """Fake-quant of x by quantizer ``name``; ``encodings[name]`` is an
+        :class:`AffineEncoding` or a (min, max) pair (``qat_fn``)."""
         spec = self.quantizers[name]
         enc = encodings[name]
-        emin, emax = enc.min, enc.max
+        emin, emax = (enc.min, enc.max) if isinstance(enc, AffineEncoding) \
+            else enc
         if spec.data_type == "float":
             if spec.bitwidth >= 16:
                 return float_sim.fake_cast_fp16(x)
@@ -308,21 +313,52 @@ class QuantizationSimModel:
                 xb, emin, emax, bitwidth=spec.bitwidth,
                 symmetric=spec.symmetric,
                 strict_symmetric=spec.strict_symmetric,
-                unsigned_symmetric=spec.unsigned_symmetric).reshape(x.shape)
+                unsigned_symmetric=spec.unsigned_symmetric,
+                learn_range=learn_range).reshape(x.shape)
         emin = _broadcast_encoding(emin, x.dim(), spec.channel_axis)
         emax = _broadcast_encoding(emax, x.dim(), spec.channel_axis)
         return quantize_dequantize(
             x, emin, emax, bitwidth=spec.bitwidth, symmetric=spec.symmetric,
             strict_symmetric=spec.strict_symmetric,
-            unsigned_symmetric=spec.unsigned_symmetric)
+            unsigned_symmetric=spec.unsigned_symmetric,
+            learn_range=learn_range)
+
+    @staticmethod
+    def _dynamic_param_qdq(w: torch.Tensor, spec: QuantizerSpec
+                           ) -> torch.Tensor:
+        """Fake-quant of w on a grid recomputed from w itself (min-max,
+        gated to include zero): StaticGridQuantWrapper's per-step training
+        behaviour (qc_quantize_op.py:771-777). The grid gets no gradient."""
+        if spec.data_type == "float":
+            if spec.bitwidth >= 16:
+                return float_sim.fake_cast_fp16(w)
+            mv = float_sim.init_fp8_maxval_minmax(w, spec.channel_axis)
+            return float_sim.quantize_to_fp8(w, mv, spec.channel_axis)
+        grid = dict(bitwidth=spec.bitwidth, symmetric=spec.symmetric,
+                    strict_symmetric=spec.strict_symmetric,
+                    unsigned_symmetric=spec.unsigned_symmetric)
+        if spec.block_size is not None:
+            wb = _to_blocks(w, spec.block_size, spec.block_axis)
+            mn, mx = gate_min_max(
+                wb.amin(dim=spec.block_axis + 1, keepdim=True),
+                wb.amax(dim=spec.block_axis + 1, keepdim=True))
+            return quantize_dequantize(wb, mn, mx, **grid).reshape(w.shape)
+        mn, mx = gate_min_max(*reduce_min_max(w, spec.channel_axis))
+        return quantize_dequantize(
+            w, _broadcast_encoding(mn, w.dim(), spec.channel_axis),
+            _broadcast_encoding(mx, w.dim(), spec.channel_axis), **grid)
 
     def _run(self, params, args, mode: str, obs_states=None, analyzers=None,
-             encodings=None, capture: Optional[set] = None):
+             encodings=None, learn_range: bool = False,
+             capture: Optional[set] = None, dynamic_params: bool = False):
         """Evaluate the graph with quantization interception.
 
         mode: 'fp' (no quantizers), 'observe' (parameters fake-quantized
         with their encodings, activation observers updated), 'quantized'
-        (the full fake-quant forward). ``capture``: product names whose
+        (the full fake-quant forward). ``learn_range``: the fake-quant gives
+        (min, max) their range-learning gradients; ``dynamic_params``:
+        in 'quantized' mode each parameter's grid comes from the live
+        weights (``_dynamic_param_qdq``). ``capture``: product names whose
         values (after their own quantizer, as the forward reads them) are
         returned. Returns (outputs, obs_states, captured)."""
         params = self.params if params is None else params
@@ -338,16 +374,19 @@ class QuantizationSimModel:
                 obs_states[qname] = analyzers[qname].update(
                     obs_states[qname], val)
             elif quantizing and qname in encodings:
-                val = self._qdq(val, qname, encodings)
+                val = self._qdq(val, qname, encodings, learn_range)
             return val
 
         def quantize(node, val):
             if node.op == "placeholder":
                 qname = self._param_node_q.get(node)
                 if qname is not None:
-                    if mode in ("observe", "quantized") \
+                    if dynamic_params and mode == "quantized":
+                        val = self._dynamic_param_qdq(
+                            val, self.quantizers[qname])
+                    elif mode in ("observe", "quantized") \
                             and encodings is not None and qname in encodings:
-                        val = self._qdq(val, qname, encodings)
+                        val = self._qdq(val, qname, encodings, learn_range)
                     return val
                 qname = self._input_node_q.get(node)
             else:
@@ -770,15 +809,85 @@ class QuantizationSimModel:
                 col(entries, "min"), col(entries, "max"), spec.bitwidth,
                 *grid)
 
-    # -- not ported yet -------------------------------------------------
-    def set_quantizer_data_type(self, *a, **k):
-        _not_ported("set_quantizer_data_type")
+    # ------------------------------------------------------------------
+    # Quantizer data type and quantization-aware training
+    # ------------------------------------------------------------------
+    def set_quantizer_data_type(self, name: str, data_type: str,
+                                bitwidth: Optional[int] = None):
+        """Switch a quantizer between 'int' and 'float' simulation
+        (QuantizationDataType, aimet_common/defs.py:309). 'float' at
+        bitwidth >= 16 simulates an FP16 round trip; at bitwidth 8 an FP8
+        fake cast whose maxval derives from the calibrated range. The
+        affine encoding is kept, and recomputed when the quantizer returns
+        to 'int' at another bitwidth or from 'float'; before calibration
+        such an encoding is dropped (the next ``compute_encodings``
+        rebuilds it)."""
+        if data_type not in ("int", "float"):
+            raise ValueError(f"data_type must be 'int'|'float': {data_type}")
+        spec = self.quantizers[name]
+        bw = spec.bitwidth if bitwidth is None else bitwidth
+        if spec.data_type == data_type and bw == spec.bitwidth:
+            return
+        needs_grid = (data_type == "int"
+                      and (bw != spec.bitwidth or spec.data_type != "int"))
+        self.quantizers[name] = dataclasses.replace(
+            spec, data_type=data_type, bitwidth=bw)
+        if needs_grid and name in self._encodings \
+                and name not in self._frozen:
+            can_recompute = (
+                (spec.kind == "param" and hasattr(self, "_calib_params"))
+                or (spec.kind != "param"
+                    and name in getattr(self, "_analyzers", {})))
+            if can_recompute:
+                self._encodings[name] = self.recompute_encoding(name, bw)
+            else:
+                del self._encodings[name]
 
-    def qat_fn(self, *a, **k):
-        _not_ported("qat_fn")
+    def static_grid_qat_fn(self):
+        """Static-grid QAT forward ``apply_fn(params, *args)``: each
+        parameter's grid recomputed from the live weights (min-max) every
+        call, activation encodings fixed; straight-through gradients to
+        the parameters, none through the grids."""
+        if not self._encodings:
+            raise RuntimeError("call compute_encodings first")
 
-    def static_grid_qat_fn(self, *a, **k):
-        _not_ported("static_grid_qat_fn")
+        def apply_fn(params, *args):
+            with torch.enable_grad():
+                return self._run(params, args, "quantized",
+                                 encodings=self._encodings,
+                                 dynamic_params=True)[0]
+
+        return apply_fn
+
+    def qat_fn(self):
+        """Range-learning QAT (LearnedGridQuantWrapper): returns
+        ``(apply_fn, encoding_params)``; ``apply_fn(params, enc_params,
+        *args)`` is the quantized forward on the grids of ``enc_params``
+        (name -> (min, max) tensors, copies of the sim's encodings), and
+        autograd gives each (min, max) the reference's analytic
+        range-learning gradients."""
+        if not self._encodings:
+            raise RuntimeError("call compute_encodings first")
+        enc_params = {name: (enc.min.detach().clone(),
+                             enc.max.detach().clone())
+                      for name, enc in self._encodings.items()}
+
+        def apply_fn(params, enc_params, *args):
+            with torch.enable_grad():
+                return self._run(params, args, "quantized",
+                                 encodings=enc_params, learn_range=True)[0]
+
+        return apply_fn, enc_params
+
+    def update_encodings_from_qat(self, enc_params):
+        """Fold trained (min, max) back into the stored encodings."""
+        for name, (mn, mx) in enc_params.items():
+            spec = self.quantizers[name]
+            self._encodings[name] = compute_encoding_from_min_max(
+                mn.detach(), mx.detach(), spec.bitwidth, spec.symmetric,
+                spec.strict_symmetric, spec.unsigned_symmetric)
 
     def export_stablehlo(self, *a, **k):
-        _not_ported("export_stablehlo")
+        raise NotImplementedError(
+            "QuantizationSimModel.export_stablehlo is not ported to "
+            "aimet_tpu_torch yet")

@@ -129,7 +129,19 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    and ``w8a8``; SeqMSE on a float Llama-3-8B at 2 layers (full width),
    lowered in ``w8``; every step's seconds beside the card's name and
    power limit;
-8. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
+8. runs quantization-aware training and the LLM PTQ algorithms (``qat``)
+   on a float Llama-3-8B at 2 layers (full width): QAT + KD as
+   ``examples/llm_qat_kd.py`` sets it up (4-bit params, 8-bit outputs,
+   sqnr, 4 AdamW steps on one 2 x 256 batch; losses, step ms, peak memory;
+   the range-learning gradients of two quantizers against the reference
+   formula in f64), ``update_encodings_from_qat`` and the ``w4a8`` forward
+   (K1 + K2); GPTQ over all 15 linears (4-bit per channel; each linear's
+   reconstruction against nearest rounding), lowered in ``w4`` (KW4's
+   tile), GPTVQ on layer 0's attention linears; SmoothQuant (float logits
+   held), lowered in ``w8a8`` (KSQ); then BN re-estimation on the
+   ResNet-50 (against f64 statistics of the captured BN inputs) and
+   QuantAnalyzer on the MobileNetV2;
+9. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
    decode kernel) alone at every shape they ran at on the main paths
    (``route_shape_gaps``) and prints the
    measurements, each kernel route's redesign score (its launches on the
@@ -173,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -383,6 +396,9 @@ PATH_KERNELS = {
     "ptq_resnet50": ("q8_gemm", "w8_gemm"),
     "ptq_mobilenet_v2": ("q8_gemm", "w8_gemm"),
     "ptq_seq_mse": ("w8_gemm",),
+    "qat_kd": ("act_quant", "w4a8_gemm"),
+    "gptq": ("w4_gemm",),
+    "smooth_quant": ("w8a8_staticq",),
 }
 # the lowered models: mode -> (lower_to_int mode, param bitwidth, the
 # launches of one forward by kernel, n = linears a forward)
@@ -3761,6 +3777,468 @@ def ptq(torch, tim, counters, g, models, smi):
     return metrics, paths
 
 
+# QAT + KD as examples/llm_qat_kd.py sets it up; its optimizer steps
+QAT_STEPS = 4
+QAT_LR = 1e-4
+U32 = 2.0 ** -24
+
+
+def lowered_vs_plain(torch, tim, counters, low, params, x, expect):
+    """One lowered LLM forward with the launch counts set to 0 just before
+    and read just after (exactly ``expect``), against the same forward
+    through the plain versions (within TOL_LOGITS). Returns (out, metrics,
+    counts)."""
+    from aimet_tpu_torch.quantsim import lowering as lw
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, x), counters)
+    assert counts == expect, counts
+    assert torch.isfinite(out).all()
+    with plain_lowering(lw, tim):
+        plain = low(params, x)
+    m = {"host_ms": host_ms, "device_ms": dev_ms, "launches": counts,
+         "logits_vs_plain_rel_err": rel_err(out, plain),
+         "top1_vs_plain": (out.argmax(-1) == plain.argmax(-1)).float()
+         .mean().item(),
+         "top_kernels": top}
+    assert m["logits_vs_plain_rel_err"] < TOL_LOGITS, m
+    return out, m, counts
+
+
+def range_grad_check(torch, w, mn, mx, spec, g):
+    """The Function's (min, max) gradients of sum(qdq(w) * up) on the card
+    in f32 against the reference formula (aimet_tpu/quantization/
+    grads.py:90-106) in f64 on the same tensors. Tolerance: sqrt(n) u
+    sum m_i, the statistical bound of an f32 sum of n terms (m_i each
+    term's magnitude before its own cancellation; the worst case n u is
+    vacuous at n = 5e8). Returns the metrics."""
+    from aimet_tpu_torch.quantization.grads import quantize_dequantize
+    up = torch.randn(w.shape, generator=g, device="cuda")
+    A = mn.detach().clone().requires_grad_(True)
+    B = mx.detach().clone().requires_grad_(True)
+    grid = dict(bitwidth=spec.bitwidth, symmetric=spec.symmetric,
+                strict_symmetric=spec.strict_symmetric,
+                unsigned_symmetric=spec.unsigned_symmetric)
+    out = quantize_dequantize(w.detach(), A, B, learn_range=True, **grid)
+    torch.autograd.backward(out, up)
+    del out
+    x, up = w.detach().double(), up.double()
+    lo, hi = mn.detach().double(), mx.detach().double()
+    ns = float(2 ** spec.bitwidth - 1 - (
+        1 if spec.symmetric and spec.strict_symmetric else 0))
+    if not (spec.symmetric and not spec.unsigned_symmetric):
+        raise NotImplementedError("the check covers signed-symmetric grids")
+    delta = hi / math.floor(ns / 2)
+    offset = -float(math.ceil(ns / 2))
+    xr = torch.round(x / delta) - offset
+    xq = torch.clamp(xr, 0.0, ns)
+    mask = ((xr >= 0) & (xr <= ns)).double()
+    want = ((xq + offset) * up - mask * (x / delta) * up).sum() \
+        / math.floor(ns / 2)
+    mag = ((xq + offset).abs() + mask * (x / delta).abs()).mul_(
+        up.abs()).sum() / math.floor(ns / 2)
+    tol = math.sqrt(x.numel()) * U32 * mag.item()
+    err_max = abs(B.grad.double().item() - want.item())
+    err_min = abs(A.grad.double().item() + want.item())
+    m = {"n": x.numel(), "dmax": B.grad.item(), "dmax_f64": want.item(),
+         "err": max(err_max, err_min), "tol": tol,
+         "sum_magnitudes": mag.item()}
+    assert m["err"] <= tol, m
+    return m
+
+
+def qat_kd(torch, tim, counters, g, cfg, model, smi):
+    """QAT + KD on the float Llama (``examples/llm_qat_kd.py``'s set-up):
+    a sqnr sim with 4-bit parameters and 8-bit outputs calibrated on 2
+    batches of 1 x 512, the student from the teacher's weights, QAT_STEPS
+    AdamW steps on one 2 x 256 batch; then the encodings folded back and
+    the ``w4a8`` forward of 8 x 512 through K1 + K2."""
+    import functools
+    from aimet_tpu_torch import QuantizationSimModel, lower_to_int
+    from aimet_tpu_torch.algorithms import (KDConfig, init_kd_state,
+                                            make_qat_kd_step, shift_labels)
+    metrics = {}
+    toks = lambda b, n: torch.randint(0, cfg.vocab_size, (b, n),
+                                      generator=g, device="cuda")
+    calib = [toks(1, 512) for _ in range(2)]
+    train = toks(2, 256)
+    kw = dict(quant_scheme="sqnr", default_param_bw=4, default_output_bw=8)
+    t = time.perf_counter()
+    cal = QuantizationSimModel(model, (calib[0],), **kw)
+    cal.compute_encodings(None, calib)
+    # the training batch's shape: a sim traces its shapes, so a second
+    # sim of the same model takes the calibrated encodings by name
+    sim = QuantizationSimModel(model, (train,), **kw)
+    assert set(sim.quantizers) == set(cal.quantizers)
+    for name, enc in cal.encodings.items():
+        sim.set_encoding(name, enc)
+    torch.cuda.synchronize()
+    metrics["calibrate_s"] = time.perf_counter() - t
+
+    teacher = {k: v.detach() for k, v in model.named_parameters()}
+    opt = functools.partial(torch.optim.AdamW, lr=QAT_LR)
+    kcfg = KDConfig(temperature=2.0, alpha=0.5, enc_lr=1e-5)
+    state0, step = make_qat_kd_step(
+        sim, lambda p, x: torch.func.functional_call(model, p, (x,)), opt,
+        kcfg)
+    state = init_kd_state(state0, teacher, opt)
+    labels = shift_labels(train)
+    enc0 = {k: (a.clone(), b.clone()) for k, (a, b) in state.enc.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(QAT_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, teacher, train, labels)
+        e1.record()
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+        log(f"[qat] step {i}: loss {losses[-1]:.6f}, {step_ms[-1]:.1f} ms "
+            "(CUDA events)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = max(max((a - enc0[k][0]).abs().max().item(),
+                    (b - enc0[k][1]).abs().max().item())
+                for k, (a, b) in state.enc.items())
+    metrics.update(losses=losses, step_ms=step_ms,
+                   median_step_ms=sorted(step_ms)[len(step_ms) // 2],
+                   peak_gb=peak, max_encoding_move=moved,
+                   quantizers=len(state.enc))
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert moved > 0
+    log(f"[qat] QAT + KD, 2 x 256 tokens, AdamW lr {QAT_LR}: losses "
+        + ", ".join(f"{v:.6f}" for v in losses)
+        + f"; median step {metrics['median_step_ms']:.1f} ms (CUDA events),"
+        f" peak {peak:.2f} GB allocated; largest encoding move {moved:.3e}"
+        f" over {len(state.enc)} quantizers; {smi}")
+
+    params = state.params
+    enc = state.enc
+    del state, step, state0, enc0
+    torch.cuda.empty_cache()
+    for name in ("lm_head.kernel", "layer_0.mlp.w_down.kernel"):
+        m = range_grad_check(torch, params[name], *enc[name],
+                             sim.quantizers[name], g)
+        metrics[f"range_grad_{name}"] = m
+        log(f"[qat] range-learning gradient of {name} (n {m['n']}): "
+            f"d/dmax {m['dmax']:.6e} against {m['dmax_f64']:.6e} in f64, "
+            f"|err| {m['err']:.3e} (tolerance {m['tol']:.3e})")
+        torch.cuda.empty_cache()
+
+    sim.update_encodings_from_qat(enc)
+    n_lin = 7 * cfg.n_layers + 1
+    low = lower_to_int(sim, params, mode="w4a8")
+    x = toks(8, 512)
+    out, m, counts = lowered_vs_plain(torch, tim, counters, low, params, x,
+                                      LOWER_MODES["w4a8"][2](n_lin))
+    # against the sim's forward with only the linears' weight quantizers
+    # on (the same 4-bit grids; the lowered model quantizes the linears'
+    # inputs per row and leaves the embedding and the norms float)
+    for name, e in sim.encodings.items():
+        cal.set_encoding(name, e)
+    kernels = [o.param_products["kernel"].param_path
+               for o in cal.graph.ops_of_type("linear")]
+    q = cal.quantized_fn_subset(params, x[:1], enabled=kernels)
+    m["vs_quantized_fn_rel_err"] = rel_err(out[:1], q)
+    metrics["w4a8"] = m
+    log(f"[qat] w4a8 forward 8 x 512 after QAT: {m['device_ms']:.2f} ms "
+        f"device, launches {counts}, kernels vs plain "
+        f"{m['logits_vs_plain_rel_err']:.3e}; vs the sim's forward with the "
+        f"linears' weights quantized (1 x 512) "
+        f"{m['vs_quantized_fn_rel_err']:.3e}")
+    assert m["vs_quantized_fn_rel_err"] < TOL_LOGITS, m
+    del low, out, q, params, enc, sim, cal
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+@contextlib.contextmanager
+def f32_compute(model):
+    """The model computing in f32: each module's ``dtype`` and its
+    config's."""
+    import dataclasses
+    import torch
+    saved = []
+    for m in model.modules():
+        for attr in ("dtype", "cfg"):
+            v = getattr(m, attr, None)
+            if isinstance(v, torch.dtype):
+                saved.append((m, attr, v))
+                setattr(m, attr, torch.float32)
+            elif dataclasses.is_dataclass(v) and hasattr(v, "dtype"):
+                saved.append((m, attr, v))
+                setattr(m, attr, dataclasses.replace(v, dtype=torch.float32))
+    try:
+        yield
+    finally:
+        for m, attr, v in saved:
+            setattr(m, attr, v)
+
+
+def llm_ptq(torch, tim, counters, g, cfg, model):
+    """GPTQ (4-bit per channel, all linears), GPTVQ (layer 0's attention
+    linears) and SmoothQuant on the float Llama; GPTQ lowered in ``w4``
+    and SmoothQuant in ``w8a8``. Returns (metrics, counts by path)."""
+    from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig,
+                                 lower_to_int)
+    from aimet_tpu_torch.algorithms import (GPTVQParameters, apply_gptq,
+                                            apply_gptvq, apply_smooth_quant)
+    from aimet_tpu_torch.algorithms.gptq import _layer_input_2d
+    from aimet_tpu_torch.quantization.grads import quantize_dequantize
+    metrics, paths = {}, {}
+    toks = lambda b: torch.randint(0, cfg.vocab_size, (b, 512), generator=g,
+                                   device="cuda")
+    calib, held, x8 = [toks(1) for _ in range(2)], toks(1), toks(8)
+    n_lin = 7 * cfg.n_layers + 1
+    params = {k: v.detach() for k, v in model.named_parameters()}
+
+    # --- GPTQ
+    t = time.perf_counter()
+    sim = QuantizationSimModel(model, (calib[0],), default_param_bw=4,
+                               config=QuantSimConfig.per_channel_default())
+    sim.compute_encodings(None, calib)
+    for o in sim.graph.ops_of_type("select_n"):     # as in SeqMSE's phase
+        if any(c.type == "softmax" for c in o.output.consumers):
+            sim.set_quantizer_enabled(o.name, False)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t
+    timings = {}
+    t = time.perf_counter()
+    new = apply_gptq(sim, params, calib, block_size=128, timings=timings)
+    torch.cuda.synchronize()
+    t_gptq = time.perf_counter() - t
+    linears = sim.graph.ops_of_type("linear")
+    assert sorted(timings) == sorted(o.name for o in linears), timings
+    # each linear's output error ||X W - X Q|| against nearest rounding on
+    # the same frozen grid: on the calibration batches (what GPTQ
+    # minimizes: the inputs it saw) and on a held-out batch
+    errs = {o.name: {"calib": [0.0, 0.0], "held_out": [0.0, 0.0]}
+            for o in linears}
+    names = [o.inputs[0].name for o in linears]
+    for tag, batches in (("calib", calib), ("held_out", [held])):
+        for b in batches:
+            caps = sim.collect_activations(new, (b,), names, "quantized")
+            for o in linears:
+                kp = o.param_products["kernel"].param_path
+                w, spec = params[kp], sim.quantizers[kp]
+                e = sim.encodings[kp]
+                shape = [1] * w.dim()
+                shape[spec.channel_axis] = -1
+                rtn = quantize_dequantize(
+                    w, e.min.reshape(shape), e.max.reshape(shape),
+                    bitwidth=spec.bitwidth, symmetric=spec.symmetric)
+                X = _layer_input_2d(sim.graph, o, caps[o.inputs[0].name])
+                for i, qw in enumerate((new[kp], rtn)):
+                    errs[o.name][tag][i] += (X @ (w - qw)).square().sum() \
+                        .item()
+            del caps
+    ratio = {k: {tag: (v[tag][0] / v[tag][1]) ** 0.5 for tag in v}
+             for k, v in errs.items()}
+    metrics["gptq"] = {"calibrate_s": t_cal, "gptq_s": t_gptq,
+                       "linear_s": timings, "error_ratio": ratio}
+    log(f"[gptq] 4-bit per channel, block 128, 2 x 512 tokens: {t_gptq:.2f}"
+        f" s for {len(timings)} linears; seconds by linear: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()))
+    log("[gptq] ||X W - X Q|| / nearest rounding's, calibration | held-out: "
+        + ", ".join(f"{k} {r['calib']:.3f} | {r['held_out']:.3f}"
+                    for k, r in ratio.items()))
+    bad = {k: r for k, r in ratio.items() if r["calib"] > 1.0}
+    assert not bad, ("GPTQ worse than nearest rounding on its own inputs",
+                     bad)
+    low = lower_to_int(sim, new, mode="w4")
+    _, m, counts = lowered_vs_plain(torch, tim, counters, low, new, x8,
+                                    LOWER_MODES["w4"][2](n_lin))
+    paths["gptq"] = counts
+    metrics["gptq"]["w4"] = m
+    log(f"[gptq] w4 forward 8 x 512: {m['device_ms']:.2f} ms device, "
+        f"launches {counts}, kernels vs plain "
+        f"{m['logits_vs_plain_rel_err']:.3e}")
+    del low, new
+
+    # --- GPTVQ on layer 0's attention linears
+    t = time.perf_counter()
+    attn = [o.name for o in linears[:4]]
+    vq = apply_gptvq(sim, params, calib, GPTVQParameters(), op_names=attn)
+    torch.cuda.synchronize()
+    t_vq = time.perf_counter() - t
+    with torch.no_grad():
+        ref = model(calib[0])
+    out = sim.fp_fn(vq, calib[0])
+    rel = ((out - ref).abs().mean() / (ref.abs().mean() + 1e-9)).item()
+    changed = [o.param_products["kernel"].param_path for o in linears[:4]]
+    uniq = {k: torch.unique(vq[k]).numel() for k in changed}
+    metrics["gptvq"] = {"s": t_vq, "rel_err": rel, "unique": uniq}
+    log(f"[gptvq] {attn} (2-d vectors, 64 centroids a block of 128 "
+        f"columns): {t_vq:.2f} s; float logits' mean error {rel:.4f} of "
+        f"their mean; unique values {uniq}")
+    assert rel < 0.5, rel
+    for k in changed:
+        assert not torch.equal(vq[k], params[k]), k
+        assert uniq[k] < vq[k].numel() / 2, (k, uniq[k])
+    del vq, out, sim
+    torch.cuda.empty_cache()
+
+    # --- SmoothQuant
+    t = time.perf_counter()
+    smoothed, info = apply_smooth_quant(model, (calib[0],), None, calib,
+                                        alpha=0.5)
+    torch.cuda.synchronize()
+    t_sq = time.perf_counter() - t
+    assert len(info) == 2 * cfg.n_layers + 1, list(info)
+    # float exactness is a property of the parameters: held with the
+    # linears computed in f32 (the model's own bf16 rounds the rescaled
+    # weights apart), at tests/test_smooth_quant.py's transformer bound
+    with f32_compute(model), torch.no_grad():
+        ref = model(calib[0])
+        got = torch.func.functional_call(model, smoothed, (calib[0],))
+    excess = ((got - ref).abs() - (5e-5 + 5e-4 * ref.abs())).max().item()
+    assert excess <= 0, excess
+    sim = QuantizationSimModel(model, (calib[0],))
+    sim.compute_encodings(smoothed, calib)
+    low = lower_to_int(sim, smoothed, mode="w8a8")
+    assert not low.downgraded_ops, low.downgraded_ops
+    _, m, counts = lowered_vs_plain(torch, tim, counters, low, smoothed, x8,
+                                    LOWER_MODES["w8a8"][2](n_lin))
+    paths["smooth_quant"] = counts
+    metrics["smooth_quant"] = {
+        "s": t_sq, "sites": len(info), "float_rel_err": rel_err(got, ref),
+        "scale_spread": {k: (v.max() / v.min()).item()
+                         for k, v in info.items()}, "w8a8": m}
+    log(f"[smooth_quant] {len(info)} sites in {t_sq:.2f} s; float logits "
+        f"within {metrics['smooth_quant']['float_rel_err']:.3e} of their "
+        f"max; w8a8 forward 8 x 512: {m['device_ms']:.2f} ms device, "
+        f"launches {counts}, kernels vs plain "
+        f"{m['logits_vs_plain_rel_err']:.3e}")
+    del low, smoothed, sim, got, ref
+    torch.cuda.empty_cache()
+    return metrics, paths
+
+
+def cnn_bnre_analyzer(torch, g, models):
+    """BN re-estimation on the ResNet-50 (2 batches of 32 at 224 x 224,
+    the quantized forward) against the same statistics in f64 of the
+    captured BN inputs (tolerance: an f32 sum of n terms, n u sum|x|, and
+    of x^2 for the variance); QuantAnalyzer on the MobileNetV2 (eval:
+    top-1 agreement with the float logits on one batch of 32)."""
+    import tempfile
+    from aimet_tpu_torch import QuantizationSimModel
+    from aimet_tpu_torch.algorithms import QuantAnalyzer, reestimate_bn_stats
+    metrics = {}
+    model = models["resnet50"]
+    xs = resnet_inputs(torch, g, 2)
+    sim = QuantizationSimModel(model, (xs[0],))
+    sim.compute_encodings(None, xs)
+    t = time.perf_counter()
+    new = reestimate_bn_stats(sim, None, xs)
+    torch.cuda.synchronize()
+    t_bn = time.perf_counter() - t
+    bns = sim.graph.ops_of_type("batchnorm")
+    names = [o.inputs[0].name for o in bns]
+    s1 = {n: 0.0 for n in names}
+    s2, sa = dict(s1), dict(s1)
+    count = 0
+    for x in xs:
+        caps = sim.collect_activations(None, (x,), names, "quantized")
+        for n in names:
+            c = caps[n].double()
+            s1[n] = s1[n] + c.sum(dim=(0, 2, 3))
+            s2[n] = s2[n] + c.square().sum(dim=(0, 2, 3))
+            sa[n] = sa[n] + c.abs().sum(dim=(0, 2, 3))
+        count += caps[names[0]].shape[0]
+        del caps
+    worst = 0.0
+    for o, n in zip(bns, names):
+        roots = o.attrs["param_roots"]
+        mp = next(p for p in roots if p.endswith("mean"))
+        vp = next(p for p in roots if p.endswith("var"))
+        hw = new[mp].numel()
+        N = count * (sim.graph.products[o.inputs[0].node].shape[2]
+                     * sim.graph.products[o.inputs[0].node].shape[3])
+        mean = s1[n] / N
+        var = s2[n] / N - mean ** 2
+        tol_m = N * U32 * sa[n] / N
+        tol_v = N * U32 * s2[n] / N + 2 * tol_m * mean.abs()
+        err_m = (new[mp].double() - mean).abs()
+        err_v = (new[vp].double() - var).abs()
+        assert (err_m <= tol_m + 1e-30).all(), (o.name, err_m.max())
+        assert (err_v <= tol_v + 1e-30).all(), (o.name, err_v.max())
+        worst = max(worst, (err_m / mean.abs().clamp(min=1e-12)).max()
+                    .item() if hw else 0.0)
+        worst = max(worst, (err_v / var.abs().clamp(min=1e-12)).max().item())
+    metrics["bn_reestimation"] = {"s": t_bn, "bns": len(bns),
+                                  "max_rel_err_vs_f64": worst}
+    log(f"[bn re-estimation] ResNet-50, {len(bns)} BNs, 2 x 32 images: "
+        f"{t_bn:.2f} s; means / variances against f64 of the captured "
+        f"inputs: max relative error {worst:.3e}")
+    del sim, new, xs, s1, s2, sa
+
+    model = models["mobilenet_v2"]
+    x = resnet_inputs(torch, g, 1)[0]
+    sim = QuantizationSimModel(model, (x,))
+    sim.compute_encodings(None, [x])
+    with torch.no_grad():
+        top = model(x).argmax(-1)
+    t = time.perf_counter()
+    res = QuantAnalyzer(sim, None, lambda f: (
+        f(x).argmax(-1) == top).float().mean().item()).analyze(
+        mse_batches=[x])
+    t_qa = time.perf_counter() - t
+    n_q = len(res.per_quantizer_sensitivity)
+    assert n_q == len(sim.encodings) and res.fp_accuracy == 1.0
+    assert all(0.0 <= v <= 1.0 for v in res.per_quantizer_sensitivity.values())
+    with tempfile.TemporaryDirectory() as d:
+        QuantAnalyzer.export_html(res, os.path.join(d, "report.html"))
+        assert "Quantization analysis" in open(
+            os.path.join(d, "report.html")).read()
+    worst = sorted(res.per_quantizer_sensitivity.items(),
+                   key=lambda kv: -kv[1])[:3]
+    metrics["quant_analyzer"] = {
+        "s": t_qa, "quantizers": n_q, "quantized": res.quantized_accuracy,
+        "param_only": res.param_only_accuracy,
+        "act_only": res.act_only_accuracy, "most_hurting": worst}
+    log(f"[quant analyzer] MobileNetV2, {n_q} quantizers swept in "
+        f"{t_qa:.2f} s; top-1 agreement quantized "
+        f"{res.quantized_accuracy:.4f}, params only "
+        f"{res.param_only_accuracy:.4f}, activations only "
+        f"{res.act_only_accuracy:.4f}; best when disabled: {worst}")
+    del sim
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def qat(torch, tim, counters, g, models, smi):
+    """Phase 8: QAT + KD, GPTQ / GPTVQ and SmoothQuant on a float
+    Llama-3-8B at 2 layers (full width, seed 3: the weights SeqMSE's phase
+    draws); BN re-estimation and QuantAnalyzer on the CNN phase's models.
+    Returns (metrics, launches of each measured forward by path)."""
+    import dataclasses
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    metrics, paths = {}, {}
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    model = float_llama(torch, cfg, seed=3)
+    t = time.perf_counter()
+    m, counts = qat_kd(torch, tim, counters, g, cfg, model, smi)
+    metrics["qat_kd"] = m
+    paths["qat_kd"] = counts
+    log(f"[qat] QAT + KD took {time.perf_counter() - t:.1f} s; {smi}")
+    # QAT trained copies: the float model's own weights are as drawn
+    t = time.perf_counter()
+    m, p = llm_ptq(torch, tim, counters, g, cfg, model)
+    metrics.update(m)
+    paths.update(p)
+    log(f"[qat] GPTQ, GPTVQ and SmoothQuant took "
+        f"{time.perf_counter() - t:.1f} s; {smi}")
+    del model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    metrics.update(cnn_bnre_analyzer(torch, g, models))
+    log(f"[qat] BN re-estimation and QuantAnalyzer took "
+        f"{time.perf_counter() - t:.1f} s; {smi}")
+    return metrics, paths
+
+
 # Variants of the whole-layer kernel for ``--layer-variants``: name ->
 # (text, replacement, occurrences) applied to csrc/fused_layer.cu: the
 # kAhead weight stages of the next GEMM phase that the producer issues
@@ -5361,11 +5839,21 @@ def main() -> int:
     # lower (ResNet-50, MobileNetV2); SeqMSE on a float Llama-3-8B
     t = time.time()
     m, path_counts = ptq(torch, tim, counters, g, cnn_models, smi)
-    del cnn_models
     metrics.update(m)
     for path, counts in path_counts.items():
         add_path(path, counts)
     log(f"[ptq] phase took {time.time() - t:.1f} s; {smi}")
+
+    # --- 8. QAT + KD, GPTQ / GPTVQ and SmoothQuant on a float Llama-3-8B
+    # (2 layers); BN re-estimation and QuantAnalyzer on the CNNs
+    t = time.time()
+    torch.cuda.empty_cache()
+    m, path_counts = qat(torch, tim, counters, g, cnn_models, smi)
+    del cnn_models
+    metrics.update(m)
+    for path, counts in path_counts.items():
+        add_path(path, counts)
+    log(f"[qat] phase took {time.time() - t:.1f} s; {smi}")
     for name, (kern, route) in ROUTE_KERNELS.items():
         launches[name] = ROUTE_LAUNCHES.get(f"{kern}:{route}", 0)
     for name in SOURCES:

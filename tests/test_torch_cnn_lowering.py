@@ -33,19 +33,20 @@ from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig, convert,
                              lower_to_int)
 from aimet_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from aimet_tpu_torch.models.resnet import Bottleneck, ResNet
+from torch_ptq_util import init_variables
 
 FIELDS = ("min", "max", "delta", "offset")
 MODES = [("w8", 8, False), ("w8a8", 8, False), ("w4", 4, False),
          ("w4a8", 4, False)]
 # Lowered logits, max |port - JAX| / max |JAX|, in every mode (measured:
-# at most 6.2e-7). The weight-only convs sum in another order; the integer
+# at most 4.5e-7). The weight-only convs sum in another order; the integer
 # convs give JAX's codes and sums bit for bit (tests/test_torch_int_conv.py),
 # so their inputs' codes agree. The one quantizer fed by values that may
 # round apart is w4a8's per-row quantizer on the pooled features (XLA's
 # fused scale may be an ulp off the IEEE quotient, ROADMAP queue C, which
 # moves x / scale by an ulp or two): on these inputs the closest of them
-# lies 73 ulps of x / scale from a rounding boundary (measured, MobileNetV2;
-# ResNet 477), so no code flips and no looser limit is needed.
+# lies 323 ulps of x / scale from a rounding boundary (measured, MobileNetV2;
+# ResNet 6995), so no code flips and no looser limit is needed.
 LOGIT_TOL = 1e-5
 
 
@@ -64,12 +65,15 @@ def _models():
 @functools.lru_cache(maxsize=None)
 def _pair(name):
     """(jax apply fn, flax variables, torch model, x NHWC, batches NHWC):
-    running means N(0, 0.1^2), variances in [0.5, 2)."""
+    the weights drawn with numpy on the shapes of ``jax.eval_shape``
+    (``torch_ptq_util.init_variables``: kernels N(0, 1 / fan_in), flax's
+    LeCun normal untruncated; nothing compiled, where flax's eager ``init``
+    took 8-16 s of this file's time), running means N(0, 0.1^2), variances
+    in [0.5, 2)."""
     jm, make, batch = _models()[name]
     rs = np.random.RandomState(len(name))
     x = rs.randn(batch, 32, 32, 3).astype(np.float32)
-    v = jax.tree_util.tree_map(np.asarray,
-                               jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    v = init_variables(jm, x, rs)
     v["batch_stats"] = _stats(v["batch_stats"], rs)
     tm = make()
     tm.load_state_dict(convert.cnn_params_from_flax(v))

@@ -63,6 +63,14 @@ def test_importing_port_leaves_jax_unloaded():
             "import aimet_tpu_torch.serving.batcher; "
             "import aimet_tpu_torch.algorithms, aimet_tpu_torch.utils.pytree; "
             "import aimet_tpu_torch.quantization.float_sim; "
+            "import aimet_tpu_torch.quantization.grads; "
+            "import aimet_tpu_torch.quantization.blockwise; "
+            "import aimet_tpu_torch.utils.logger; "
+            "import aimet_tpu_torch.algorithms.bn_reestimation; "
+            "import aimet_tpu_torch.algorithms.quant_analyzer; "
+            "import aimet_tpu_torch.algorithms.smooth_quant; "
+            "import aimet_tpu_torch.algorithms.gptq; "
+            "import aimet_tpu_torch.algorithms.kd; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -106,3 +106,29 @@ def masked_and_silu_quantizers(sim):
             names.append(op.name)
             names += [c.name for c in op.output.consumers if c.type == "mul"]
     return [n for n in names if n in sim.quantizers]
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_numpy_pair(seed=0):
+    """``tiny_pair``'s models with weights drawn with numpy on the shapes
+    of ``jax.eval_shape`` (nothing compiled): kernels and embeddings
+    N(0, 1 / fan_in), N(0, 1), norm scales one. Returns (jax apply fn,
+    flax variables, torch Transformer, tokens, batches)."""
+    rng = np.random.RandomState(seed)
+    jm = JaxTransformer(JaxConfig.tiny())
+    tok = rng.randint(0, 256, (TINY_B, TINY_T)).astype(np.int32)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(tok))
+
+    def leaf(path, s):
+        k = path[-1].key
+        if k == "scale":
+            return np.ones(s.shape, np.float32)
+        std = 1.0 if k == "embedding" else s.shape[0] ** -0.5
+        return (rng.randn(*s.shape) * std).astype(np.float32)
+    variables = jax.tree_util.tree_map_with_path(leaf, shapes)
+    tm = Transformer(TransformerConfig.tiny())
+    tm.load_state_dict(convert.params_from_flax(variables["params"]))
+    batches = [rng.randint(0, 256, (TINY_B, TINY_T)).astype(np.int32)
+               for _ in range(2)]
+    jv = jax.tree_util.tree_map(jnp.asarray, variables)
+    return (lambda p, t: jm.apply(p, t)), jv, tm, tok, batches
