@@ -15,7 +15,8 @@ Parameter names: the JAX package keys a parameter by its tree path
 qualified module name (``layer_0.attn.wq.kernel``); ``port_param_name`` and
 ``jax_param_key`` map one to the other. ``encodings_from_jax`` carries a
 quantsim's encodings across (numpy fields, any object with the
-``AffineEncoding`` attributes).
+``AffineEncoding`` attributes). ``adapters_from_jax`` carries LoRA
+adapters (``algorithms/peft``) across.
 """
 from __future__ import annotations
 
@@ -120,4 +121,24 @@ def encodings_from_jax(encodings: Mapping[str, Any],
                   for f in _ENC_STATIC}
         name = name_map.get(key, port_param_name(key))
         out[name] = AffineEncoding(**fields, **static)
+    return out
+
+
+def adapters_from_jax(adapters_np: Mapping[str, Mapping[str, Any]],
+                      transposed=(), device: DeviceLike = None
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX LoRA adapters (``{jax key of the kernel: {"A", "B"}}``, numpy
+    leaves) -> the port's, keyed by port parameter name, on ``device``
+    (default ``cuda``). A and B take the layout of the kernel they adapt:
+    for a kernel named in ``transposed`` (held (out, in) in the port, (in,
+    out) in the JAX package) A becomes B^T and B becomes A^T, so that
+    ``A @ B`` is the transposed update."""
+    dev = resolve_device(device)
+    out = {}
+    for key, ab in adapters_np.items():
+        name = port_param_name(key)
+        a, b = _tensor(ab["A"]).to(dev), _tensor(ab["B"]).to(dev)
+        if name in transposed:
+            a, b = b.t().contiguous(), a.t().contiguous()
+        out[name] = {"A": a, "B": b}
     return out

@@ -14,7 +14,10 @@ order) and then the flattened inputs, with concrete shapes in each node's
     ops;
   - ``mm`` / ``bmm`` / ``addmm`` with a parameter operand is a ``linear``
     op (its bias add folds in), otherwise a ``matmul``; ``convolution`` is
-    a ``conv`` / ``depthwise_conv`` / ``conv_transpose``;
+    a ``conv`` / ``depthwise_conv`` / ``conv_transpose`` whose ``attrs``
+    hold its ``window_strides``, its ``padding`` (a ``constant_pad_nd`` of its
+    input folded in) and its kernel's axes (``dimension_numbers.rhs_spec``,
+    (0, 1, 2, 3) for OIHW);
   - a chain of elementwise ops each mixing data with a parameter or a
     literal becomes one ``scale`` op (``batchnorm`` when two or more carry
     parameters, ``relu`` / ``clip`` for literal max / min);
@@ -22,7 +25,9 @@ order) and then the flattened inputs, with concrete shapes in each node's
     ``permute``, ``expand``, ``clone``, ``_to_copy``, ``slice``,
     ``constant_pad_nd``, ...) pass through and never receive quantizers;
   - ``max_pool2d_with_indices`` with its values item is one ``maxpool``
-    op (the CNNs' pooling), ``mean`` over the spatial axes a ``mean``.
+    op (the CNNs' pooling), ``mean`` over the spatial axes a ``mean``;
+    any other aten op is named after itself, and an op outside ``aten``
+    (a custom op) is a ``custom`` op.
 
 Ops are named ``{type}_{n}`` in execution order, so the ``linear`` ops
 come out with the JAX package's names, in its order, on parameters whose
@@ -114,8 +119,27 @@ class Op:
         default_factory=dict)
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
+    @property
+    def input_ops(self) -> List["Op"]:
+        """The ops producing this op's data inputs."""
+        return [p.producer for p in self.inputs if p.producer is not None]
+
+    @property
+    def output_ops(self) -> List["Op"]:
+        """The ops consuming this op's output."""
+        return list(self.output.consumers)
+
     def __repr__(self):
         return f"Op({self.name}: {self.type})"
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvDimensionNumbers:
+    """The kernel's axes, as ``lax.ConvDimensionNumbers.rhs_spec`` orders
+    them: (out channels, in channels, spatial...). An OIHW conv weight is
+    (0, 1, 2, 3), a transposed conv's (I, O/g, kh, kw) weight (1, 0, 2,
+    3)."""
+    rhs_spec: Tuple[int, ...]
 
 
 def _meta(node: fx.Node):
@@ -327,6 +351,11 @@ class ConnectedGraph:
                     op_type = pk.__name__.split(".")[-1]
                     if pk is aten.pow and node.args[1] == 2:
                         op_type = "square"
+                    elif not getattr(pk, "_qualified_op_name",
+                                     "").startswith("aten::"):
+                        # a custom op no rule classifies (the JAX graph's
+                        # opaque custom_jvp_call)
+                        op_type = "custom"
                 self._new_op(op_type, [node],
                              _tensor_nodes((node.args, node.kwargs)), node,
                              counters)
@@ -371,7 +400,27 @@ class ConnectedGraph:
         op_type = ("conv_transpose" if transposed else
                    "depthwise_conv" if groups > 1 else "conv")
         self._new_op(op_type, group, [x], out, counters, params,
-                     {"transposed": transposed, "x_node": x})
+                     {"transposed": transposed, "x_node": x,
+                      "window_strides": tuple(int(v) for v in node.args[3]),
+                      "padding": self._conv_padding(x, node.args[4]),
+                      "dimension_numbers": ConvDimensionNumbers(
+                          (1, 0, 2, 3) if transposed else (0, 1, 2, 3))})
+
+    def _conv_padding(self, x, padding) -> Tuple[Tuple[int, int], ...]:
+        """((low, high) a spatial axis): the convolution's own padding
+        plus a ``constant_pad_nd`` of its input (through views), where a
+        flax-"SAME" conv pads its two sides unequally."""
+        pads = [[int(p), int(p)] for p in padding]
+        while isinstance(x, fx.Node) and x.op == "call_function" \
+                and _packet(x.target) in PASSTHROUGH:
+            if _packet(x.target) is aten.constant_pad_nd:
+                flat = list(x.args[1])     # last axis first, (low, high)
+                for i in range(min(len(flat) // 2, len(pads))):
+                    pads[-1 - i][0] += int(flat[2 * i])
+                    pads[-1 - i][1] += int(flat[2 * i + 1])
+                break
+            x = x.args[0]
+        return tuple((a, b) for a, b in pads)
 
     def _elementwise(self, node, pk, counters):
         a = node.args[0]
@@ -432,6 +481,11 @@ class ConnectedGraph:
 
     def ops_of_type(self, op_type: str) -> List[Op]:
         return [op for op in self.ops if op.type == op_type]
+
+    def downstream_op(self, op: Op) -> Optional[Op]:
+        """The unique consumer of op's output, or None."""
+        cons = op.output.consumers
+        return cons[0] if len(cons) == 1 else None
 
     def __repr__(self):
         lines = [f"ConnectedGraph({len(self.ops)} ops)"]

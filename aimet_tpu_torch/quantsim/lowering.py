@@ -24,6 +24,10 @@ quantsim simulated:
   - blockwise / LPBQ 4-bit kernels, whatever the mode: group-wise INT4
     (KW4G, ``matmul_w4_grouped``).
 
+A layer whose parameter quantizer is ``float`` (AMP's fp16 candidate)
+keeps its float weights and stays on the float path, in every mode
+(``skipped_ops``), as in the JAX package.
+
 Every ``conv`` / ``depthwise_conv`` / ``conv_transpose`` op lowers to the
 direct integer conv of ``ops/int_conv`` (no im2col of the activations in
 the weight-only modes), with the JAX package's mode table:
@@ -394,6 +398,11 @@ def lower_to_int(sim, params=None, mode: str = "w8",
             continue
         spec = sim.quantizers[kp.param_path]
         enc = sim.encodings[kp.param_path]
+        if spec.data_type == "float":
+            # a float-assigned layer (AMP's fp16 candidate) keeps its
+            # float weights: it stays on the float path
+            skipped.append(op.name)
+            continue
         if not spec.symmetric:
             skipped.append(op.name)
             continue

@@ -146,6 +146,13 @@ class QuantizationSimModel:
         self._frozen: set = set()
         self._build_quantizers()
 
+    def product_quantizer(self, prod) -> Optional[str]:
+        """The name of the activation or model-input quantizer on a graph
+        ``Product`` (what the JAX sim keys by the product's var in
+        ``_act_var_q`` / ``_input_var_q``), or None."""
+        node = self.graph.resolve(prod.node)
+        return self._act_node_q.get(node) or self._input_node_q.get(node)
+
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         """The model's parameters by qualified name (detached)."""

@@ -141,7 +141,18 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    held), lowered in ``w8a8`` (KSQ); then BN re-estimation on the
    ResNet-50 (against f64 statistics of the captured BN inputs) and
    QuantAnalyzer on the MobileNetV2;
-9. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
+9. runs AMP, AutoQuant and LoRA (``amp_peft``): on the ResNet-50
+   ``AutoQuantWithAutoMixedPrecision`` (4-bit per-channel weights, 8-bit
+   outputs, AdaRound, AMP over fp16 / (8, 8) / (8, 4)), again from its
+   stage cache (bit for bit), ``reduce_convert_ops``, ``lower_to_int``
+   in ``auto`` (KQ8's int32 entry for every conv) against the plain
+   versions and the sim, and ``ArchChecker``; on a float Llama-3-8B at 2
+   layers LoRA adapters trained 3 steps through the adapter sim's
+   ``static_grid_qat_fn``, merged, quantized for ``w4a8`` serving and
+   served (prefill, a per-slot step, ``generate``: K1 + K2's tile, K2's
+   fused decode kernel, K3, KSOL), held against ``quantized_lora_fn``
+   and the kernels against the plain versions;
+10. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
    decode kernel) alone at every shape they ran at on the main paths
    (``route_shape_gaps``) and prints the
    measurements, each kernel route's redesign score (its launches on the
@@ -399,6 +410,9 @@ PATH_KERNELS = {
     "qat_kd": ("act_quant", "w4a8_gemm"),
     "gptq": ("w4_gemm",),
     "smooth_quant": ("w8a8_staticq",),
+    "amp_resnet50": ("q8_gemm",),
+    "peft_llm": ("act_quant", "w4a8_gemm", "w4a8_fusedq", "sol_decode_layer",
+                 "decode_attention"),
 }
 # the lowered models: mode -> (lower_to_int mode, param bitwidth, the
 # launches of one forward by kernel, n = linears a forward)
@@ -4239,6 +4253,619 @@ def qat(torch, tim, counters, g, models, smi):
     return metrics, paths
 
 
+# phase 9: AutoQuant + AMP on ResNet-50, PEFT on a 2-layer Llama-3-8B
+AQ_ADA_ITERS = 100
+# AMP's budget (-relative MSE of the logits against the float model's, on
+# a held-out batch of 8): PERF.md §6 says why this value
+AQ_ALLOWED_DROP = 0.05
+# the lowered AutoQuant and AMP models against their sims' quantized
+# forwards, as the relative MSE of the logits: the 4-bit convs lower as
+# w4a8, whose activations are quantized per tensor at run time, symmetric,
+# where the sim holds static asymmetric 8-bit grids. The card read
+# 3.80e-2 and 3.99e-2 on the AdaRound model: 2.5 times that; a lowering
+# that ignores AMP's bitwidths must read above it (PERF.md §6)
+TOL_AQ_VS_SIM = 0.1
+TOL_LORA_FORMS = 1e-4    # unmerged against merged LoRA forward (f32)
+# LoRA: rank, alpha, AdamW's rate, steps; the adapter sim's activations at
+# 16 bits (W4A16, the LLM LoRA set-up: an 8-bit staircase hides steps this
+# small from the loss)
+PEFT_RANK, PEFT_ALPHA, PEFT_LR, PEFT_STEPS, PEFT_OUT_BW = 8, 16.0, 3e-4, 3, 16
+# the LoRA model's lowered and served logits (max |diff| / max |ref|).
+# The w4 lowering (the 4-bit codes, float activations) against the float
+# model on the weights the codes stand for, in f32. Against
+# quantized_lora_fn: the w4a8 lowering and the served prefill quantize
+# activations per row to INT8 (K1), which the sim does not: in f32 on
+# the same codes that alone read 3.49e-2 on the card, the lowering
+# 3.0-3.4e-2, the served prefill 3.9-4.4e-2 (PERF.md §6): both held to
+# TOL_LOGITS, the limit phase 8 holds its lowered forward to
+TOL_PEFT_WEIGHTS = 1e-4
+TOL_PEFT_LOWERED = TOL_PEFT_SERVED = TOL_LOGITS
+
+
+@contextlib.contextmanager
+def stage_clock(targets, times):
+    """Add each call's seconds (synchronized) to ``times[label]``;
+    ``targets``: (object, attribute, label) whose callable is wrapped."""
+    import torch
+    saved = []
+    for obj, attr, label in targets:
+        fn = getattr(obj, attr)
+
+        def wrapped(*a, fn=fn, label=label, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[label] = times.get(label, 0.0) + time.perf_counter() - t
+            return out
+        saved.append((obj, attr, fn))
+        setattr(obj, attr, wrapped)
+    try:
+        yield times
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def amp_autoquant(torch, tim, counters, g, model, smi):
+    """Phase 9a: AutoQuantWithAutoMixedPrecision on the CNN phase's
+    ResNet-50 (1000 classes, 224 x 224): min-max, 4-bit per-channel
+    parameters, 8-bit outputs, 2 calibration batches of 8 images,
+    AdaRound at AQ_ADA_ITERS iterations, AMP candidates fp16 > (8, 8) > (8, 4) scored by minus the
+    relative MSE of the logits against the float model's on a held-out
+    batch of 8; reduce_convert_ops; lower_to_int(mode="auto") and one
+    forward of the held-out batch with the launch counts read (against
+    the plain versions within TOL_CNN_LOGITS, against the sim's quantized
+    forward by relative MSE within TOL_AQ_VS_SIM); the same optimize
+    again on the same cache directory (no AdaRound layer optimized, the
+    same best stage, encodings and weights bit for bit); ArchChecker on
+    the graph. Returns (metrics, launches of the lowered forward)."""
+    import collections
+    import dataclasses
+    import shutil
+    from aimet_tpu_torch import QuantSimConfig, lower_to_int
+    from aimet_tpu_torch.algorithms import (AdaroundParameters, ArchChecker,
+                                            AutoQuantWithAutoMixedPrecision)
+    from aimet_tpu_torch.algorithms import adaround as ada
+    from aimet_tpu_torch.algorithms import amp
+    from aimet_tpu_torch.algorithms import auto_quant as taq
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    calib = resnet_inputs(torch, g, 2, batch=8)
+    held = resnet_inputs(torch, g, 1, batch=8)[0]
+    with torch.no_grad():
+        ref = model(held)
+    evals = [0]
+
+    def eval_fn(forward):
+        evals[0] += 1
+        out = forward(held)
+        return -(((out - ref) ** 2).mean() / (ref ** 2).mean()).item()
+
+    cands = [amp.fp16_candidate(), amp.Candidate(8, 8), amp.Candidate(8, 4)]
+    cache_dir = os.path.join(ROOT, "build", "autoquant_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+
+    def optimize():
+        aq = AutoQuantWithAutoMixedPrecision(
+            model, (calib[0],), params, calib, eval_fn,
+            config=QuantSimConfig.per_channel_default(),
+            quant_scheme="minmax", default_param_bw=4, default_output_bw=8,
+            adaround_params=AdaroundParameters(num_batches=2,
+                                               num_iterations=AQ_ADA_ITERS),
+            amp_candidates=cands, cache_dir=cache_dir)
+        times, evals[0] = {}, 0
+        targets = [(taq, "equalize_model", "cle"),
+                   (taq, "apply_adaround", "adaround"),
+                   (aq, "_calibrated_eval", "calibrate_and_eval"),
+                   (amp, "choose_mixed_precision", "amp")]
+        layers = [0]
+        run = ada._RoundingOptimizer.run
+
+        def counted(self, *a, **k):
+            layers[0] += 1
+            return run(self, *a, **k)
+        ada._RoundingOptimizer.run = counted
+        try:
+            with stage_clock(targets, times):
+                t = time.perf_counter()
+                res = aq.optimize(allowed_accuracy_drop=AQ_ALLOWED_DROP)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+        finally:
+            ada._RoundingOptimizer.run = run
+        return aq, res, wall, times, layers[0], evals[0]
+
+    aq, res, wall, times, n_layers, n_evals = optimize()
+    a = aq.amp_result
+    assert a is not None and [s.name for s in res.history] == \
+        ["fp32", "quantsim", "cle", "adaround", "amp"], res.history
+    kinds = collections.Counter(
+        f"{c.act_dtype}{c.act_bw}/{c.param_dtype}{c.param_bw}"
+        for c in a.group_bitwidths.values())
+    m = {"wall_s": wall, "stage_s": times, "adaround_layers": n_layers,
+         "evals": n_evals, "history": [(s.name, s.accuracy)
+                                       for s in res.history],
+         "best_stage": res.best_stage, "amp_groups": dict(kinds),
+         "amp_baseline": a.baseline_accuracy, "amp_final": a.final_accuracy,
+         "pareto_points": len(a.pareto_front)}
+    log(f"[amp] AutoQuant + AMP on ResNet-50: {wall:.1f} s ({smi}); stages "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+        + f"; {n_layers} AdaRound layers; {n_evals} evals; history "
+        + ", ".join(f"{n} {v:.5f}" for n, v in m["history"])
+        + f"; best {res.best_stage}; AMP groups {dict(kinds)}, baseline "
+        f"{a.baseline_accuracy:.5f} -> {a.final_accuracy:.5f}, "
+        f"{len(a.pareto_front)} pareto points")
+    # AdaRound froze the 4-bit weight grids, so AMP's flips of them change
+    # nothing here: amp_free below runs AMP on free grids
+    assert n_layers == 54, n_layers
+
+    # the same optimize again: every stage from the cache
+    aq2, res2, wall2, times2, n_layers2, n_evals2 = optimize()
+    same_enc = res2.sim.export_encodings() == res.sim.export_encodings()
+    same_w = res2.params.keys() == res.params.keys() and all(
+        torch.equal(res2.params[k], res.params[k]) for k in res.params)
+    m.update(resumed_wall_s=wall2, resumed_stage_s=times2,
+             resumed_adaround_layers=n_layers2, resumed_evals=n_evals2,
+             resumed_same_encodings=same_enc, resumed_same_weights=same_w)
+    log(f"[amp] resumed from {cache_dir}: {wall2:.1f} s against {wall:.1f} "
+        f"s ({smi}); stages " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in times2.items())
+        + f"; {n_layers2} AdaRound layers optimized, {n_evals2} evals; best "
+        f"{res2.best_stage}; encodings bit for bit {same_enc}, weights bit "
+        f"for bit {same_w}")
+    assert n_layers2 == 0 and res2.best_stage == res.best_stage
+    assert same_enc and same_w
+    assert {g_: dataclasses.astuple(c)
+            for g_, c in aq2.amp_result.group_bitwidths.items()} == \
+        {g_: dataclasses.astuple(c) for g_, c in a.group_bitwidths.items()}
+    del aq2, res2
+
+    sim, p = res.sim, res.params
+    co = amp.reduce_convert_ops(sim, a, cands)
+    m.update(converts_before=co.converts_before,
+             converts_after=co.converts_after, cost_ratio=co.cost_ratio)
+    log(f"[amp] reduce_convert_ops: {co.converts_before} -> "
+        f"{co.converts_after} convert ops, bit cost {co.cost_ratio:.4f} of "
+        "the highest precision's")
+    assert co.converts_after <= co.converts_before
+
+    low = lower_to_int(sim, p, mode="auto")
+    modes = collections.Counter(low.op_modes.values())
+    m.update(lowered=len(low.lowered_ops), skipped=len(low.skipped_ops),
+             downgraded=len(low.downgraded_ops), op_modes=dict(modes),
+             int_flops_fraction=low.int_flops_fraction)
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(p, held), counters)
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    assert counts.get("q8_gemm", 0) > 0, counts
+    fc_mode = low.op_modes.get("linear_0")
+    fc_kernels = {"w8a8": ("w8a8_staticq",), "w4a8": ("act_quant",
+                                                       "w4a8_gemm")}
+    for k in fc_kernels.get(fc_mode, ()):
+        assert counts.get(k, 0) > 0, (fc_mode, counts)
+    with plain_lowering(lw, tim), plain_ops(tim, tic):
+        plain = low(p, held)
+    q = sim.quantized_fn(p, held)
+    m.update(host_ms=host_ms, device_ms=dev_ms, launches=counts,
+             logits_vs_plain_rel_err=rel_err(out, plain),
+             vs_sim_rel_mse=(((out - q) ** 2).mean() / (q ** 2).mean())
+             .item(), vs_sim_rel_err=rel_err(out, q),
+             top1_vs_sim=(out.argmax(-1) == q.argmax(-1)).float().mean()
+             .item(), fc_mode=fc_mode, **vs_float(out, ref))
+    log(f"[amp] lower_to_int(auto): lowered {m['lowered']}, skipped "
+        f"{m['skipped']}, downgraded {m['downgraded']}; modes {dict(modes)};"
+        f" int_flops_fraction {low.int_flops_fraction:.6f}; forward 8 x 224 "
+        f"x 224: {host_ms:.1f} ms host, {dev_ms:.2f} ms device ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in top) + f"); launches "
+        f"{counts}; kernels vs plain {m['logits_vs_plain_rel_err']:.3e}; vs "
+        f"the sim's quantized forward: rel MSE {m['vs_sim_rel_mse']:.3e}, "
+        f"max {m['vs_sim_rel_err']:.3e}, top-1 {m['top1_vs_sim']:.3f}; vs "
+        f"float: rel MSE {m['rel_mse_vs_float']:.3e} ({smi})")
+    assert m["logits_vs_plain_rel_err"] < TOL_CNN_LOGITS, m
+    assert m["vs_sim_rel_mse"] < TOL_AQ_VS_SIM, m
+
+    found = collections.Counter(r.check
+                                for r in ArchChecker.check_model(sim.graph))
+    m["arch_checker"] = dict(found)
+    log(f"[amp] ArchChecker on the ResNet-50 graph: {sum(found.values())} "
+        "findings: " + ", ".join(f"{k} {v}" for k, v in found.items()))
+    del low, out, plain, q, sim, res, aq
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    m["free"], counts_free = amp_free(torch, tim, counters, model, params,
+                                      calib, held, ref, eval_fn, evals, cands,
+                                      smi)
+    return m, {k: counts.get(k, 0) + counts_free.get(k, 0)
+               for k in set(counts) | set(counts_free)}
+
+
+def amp_free(torch, tim, counters, model, params, calib, held, ref, eval_fn,
+             evals, cands, smi):
+    """Phase 9a, second half: AMP where the weight grids are free, on the
+    quantsim stage's sim (min-max, 4-bit per-channel parameters, 8-bit
+    outputs, no AdaRound): ``choose_mixed_precision`` with AQ_ALLOWED_DROP
+    must end with weighted groups at 8 bits and at 4, its fp16 baseline
+    above the all-4-bit sim; ``reduce_convert_ops``; then the weighted
+    group AMP found most sensitive at 4 bits set to fp16, so that
+    ``lower_to_int(mode="auto")`` leaves its layers float (skipped_ops).
+    The lowered forward against the plain versions (TOL_CNN_LOGITS) and
+    against the sim (TOL_AQ_VS_SIM), and the all-4-bit lowering made
+    before AMP, which ignores its bitwidths, against the same sim: above
+    TOL_AQ_VS_SIM. Returns (metrics, launches of the lowered forward)."""
+    import collections
+    from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig,
+                                 lower_to_int)
+    from aimet_tpu_torch.algorithms import amp
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    rel_mse = lambda a, b: (((a - b) ** 2).mean() / (b ** 2).mean()).item()
+    t = time.perf_counter()
+    sim = QuantizationSimModel(
+        model, (calib[0],), quant_scheme="minmax", default_param_bw=4,
+        default_output_bw=8, config=QuantSimConfig.per_channel_default())
+    sim.compute_encodings(params, calib)
+    all4 = eval_fn(lambda x: sim.quantized_fn(params, x))
+    with torch.no_grad():
+        ignoring = lower_to_int(sim, params, mode="auto")(params, held)
+    evals[0] = 0
+    t_amp = time.perf_counter()
+    a = amp.choose_mixed_precision(sim, params, cands, eval_fn,
+                                   AQ_ALLOWED_DROP)
+    torch.cuda.synchronize()
+    amp_s = time.perf_counter() - t_amp
+    groups = {g_.name: g_ for g_ in amp.find_quantizer_groups(sim)}
+    weighted = {n: c for n, c in a.group_bitwidths.items()
+                if groups[n].param_quantizers}
+    kind = lambda c: f"{c.act_dtype}{c.act_bw}/{c.param_dtype}{c.param_bw}"
+    kinds = collections.Counter(kind(c) for c in weighted.values())
+    co = amp.reduce_convert_ops(sim, a, cands)
+    m = {"amp_s": amp_s, "evals": evals[0], "all4": all4,
+         "baseline": a.baseline_accuracy, "final": a.final_accuracy,
+         "weighted_groups": dict(kinds), "groups": len(groups),
+         "pareto_points": len(a.pareto_front),
+         "converts_before": co.converts_before,
+         "converts_after": co.converts_after, "cost_ratio": co.cost_ratio}
+    log(f"[amp] AMP on the quantsim stage's sim (free 4-bit grids): "
+        f"{amp_s:.1f} s, {evals[0]} evals ({smi}); all-4-bit {all4:.5f}, "
+        f"fp16 baseline {a.baseline_accuracy:.5f} -> {a.final_accuracy:.5f};"
+        f" weighted groups {dict(kinds)} of {len(groups)} groups; "
+        f"{len(a.pareto_front)} pareto points; reduce_convert_ops "
+        f"{co.converts_before} -> {co.converts_after}, bit cost "
+        f"{co.cost_ratio:.4f}")
+    assert a.baseline_accuracy > all4, m
+    assert kinds.get("int8/int8") and kinds.get("int8/int4"), m
+
+    # the weighted group most sensitive at 4 bits (phase 1) to fp16
+    g16 = min((n for n in weighted if (n, cands[-1]) in a.phase1_scores),
+              key=lambda n: a.phase1_scores[(n, cands[-1])])
+    fp16 = cands[0]
+    for n in groups[g16].act_quantizers:
+        sim.set_quantizer_data_type(n, fp16.act_dtype, fp16.act_bw)
+    for n in groups[g16].param_quantizers:
+        sim.set_quantizer_data_type(n, fp16.param_dtype, fp16.param_bw)
+    float_ops = sorted(o.name for o in sim.graph.ops if any(
+        p.param_path in groups[g16].param_quantizers
+        for p in o.param_products.values()))
+    low = lower_to_int(sim, params, mode="auto")
+    modes = collections.Counter(low.op_modes.values())
+    m.update(fp16_group=g16, fp16_ops=float_ops,
+             lowered=len(low.lowered_ops), skipped=sorted(low.skipped_ops),
+             downgraded=len(low.downgraded_ops), op_modes=dict(modes),
+             int_flops_fraction=low.int_flops_fraction)
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, held), counters)
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    with plain_lowering(lw, tim), plain_ops(tim, tic):
+        plain = low(params, held)
+    q = sim.quantized_fn(params, held)
+    m.update(host_ms=host_ms, device_ms=dev_ms, launches=counts,
+             logits_vs_plain_rel_err=rel_err(out, plain),
+             vs_sim_rel_mse=rel_mse(out, q),
+             ignoring_amp_vs_sim_rel_mse=rel_mse(ignoring, q),
+             top1_vs_sim=(out.argmax(-1) == q.argmax(-1)).float().mean()
+             .item(), wall_s=time.perf_counter() - t, **vs_float(out, ref))
+    log(f"[amp] group {g16} ({', '.join(float_ops)}) set to fp16; "
+        f"lower_to_int(auto): lowered {m['lowered']}, skipped "
+        f"{m['skipped']}, downgraded {m['downgraded']}; modes {dict(modes)};"
+        f" int_flops_fraction {low.int_flops_fraction:.6f}; forward 8 x 224 "
+        f"x 224: {host_ms:.1f} ms host, {dev_ms:.2f} ms device ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in top) + f"); launches "
+        f"{counts}; kernels vs plain {m['logits_vs_plain_rel_err']:.3e}; vs "
+        f"the sim's quantized forward: rel MSE {m['vs_sim_rel_mse']:.3e} "
+        f"(limit {TOL_AQ_VS_SIM}), top-1 {m['top1_vs_sim']:.3f}; the "
+        f"all-4-bit lowering, ignoring AMP, against the same sim: rel MSE "
+        f"{m['ignoring_amp_vs_sim_rel_mse']:.3e}; vs float: rel MSE "
+        f"{m['rel_mse_vs_float']:.3e}; {m['wall_s']:.1f} s in all ({smi})")
+    assert float_ops and set(float_ops) <= set(low.skipped_ops), m
+    assert modes.get("w8a8") and modes.get("w4a8"), m
+    assert counts.get("q8_gemm", 0) > 0, counts
+    assert m["logits_vs_plain_rel_err"] < TOL_CNN_LOGITS, m
+    assert m["vs_sim_rel_mse"] < TOL_AQ_VS_SIM, m
+    assert m["ignoring_amp_vs_sim_rel_mse"] > TOL_AQ_VS_SIM, m
+    del low, out, plain, q, sim, ignoring
+    torch.cuda.empty_cache()
+    return m, counts
+
+
+def peft_llm(torch, tim, counters, g, cfg, model, smi, ops, qllm):
+    """Phase 9b: LoRA on the float Llama-3-8B at 2 layers (full width):
+    rank PEFT_RANK, alpha PEFT_ALPHA on every attention and MLP kernel; the
+    adapter sim (min-max, 4-bit per-channel symmetric parameters,
+    PEFT_OUT_BW-bit outputs) with ``set_bitwidth_for_lora_adapters(16, 16)``
+    and
+    ``freeze_base_model``, its adapter-path activation quantizers off
+    (``disable_adapter_activation_quantizers``: their ranges were
+    calibrated with B = 0); PEFT_STEPS AdamW steps on the
+    adapters only through ``static_grid_qat_fn`` (next-token CE on one 1 x
+    256 batch; the loss must fall every step; peak memory); the unmerged
+    and merged forwards within TOL_LORA_FORMS (computed in f32); then the
+    merged weights
+    quantized for ``w4a8`` serving, a prefill of 256 tokens, one decode
+    step at per-slot positions and ``generate`` of 8 with the launch counts
+    read; against ``quantized_lora_fn`` on a base sim of the same grids
+    (4-bit per-channel linear kernels only) the served prefill logits
+    within TOL_PEFT_SERVED and the same merged weights lowered in ``w4a8``
+    within TOL_PEFT_LOWERED, with the gap split into its parts
+    (``peft_gap_split``; the ``w4`` lowering against the float model on
+    its codes within TOL_PEFT_WEIGHTS); and
+    ``compare_whole_model``'s kernels-against-plain check (the prefill
+    bit for bit). Returns (metrics, launches of the served run)."""
+    from torch.nn import functional as F
+    from aimet_tpu_torch import (QuantizationSimModel, QuantSimConfig,
+                                 lower_to_int)
+    from aimet_tpu_torch.algorithms import peft
+    metrics = {}
+    toks = lambda b, n: torch.randint(0, cfg.vocab_size, (b, n),
+                                      generator=g, device="cuda")
+    calib, train, prompt = toks(1, 256), toks(1, 256), toks(1, 256)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    lcfg = peft.LoraConfig(rank=PEFT_RANK, alpha=PEFT_ALPHA,
+                           target_patterns=("attn", "mlp"))
+    adapters = peft.init_lora_params(
+        torch.Generator(device="cuda").manual_seed(3), params, lcfg)
+    assert len(adapters) == 7 * cfg.n_layers
+    grids = dict(quant_scheme="minmax", default_param_bw=4,
+                 config=QuantSimConfig.per_channel_default())
+    t = time.perf_counter()
+    sim, comb = peft.PeftQuantUtils.build_adapter_sim(
+        model, (train,), params, adapters, lcfg,
+        default_output_bw=PEFT_OUT_BW, **grids)
+    sim.compute_encodings(comb, [calib])
+    peft.PeftQuantUtils.set_bitwidth_for_lora_adapters(sim, 16, 16)
+    peft.PeftQuantUtils.freeze_base_model(sim)
+    adapter_acts = peft.PeftQuantUtils.disable_adapter_activation_quantizers(
+        sim)
+    torch.cuda.synchronize()
+    metrics["adapter_sim_s"] = time.perf_counter() - t
+    n_ad = sum(s.kind == "param" and n.startswith(
+        peft.PeftQuantUtils.ADAPTER_KEY) for n, s in sim.quantizers.items())
+    log(f"[peft] adapter sim: {len(sim.graph.ops)} ops, "
+        f"{len(sim.quantizers)} quantizers ({n_ad} adapter parameters, "
+        f"{len(adapter_acts)} adapter activations off, {len(sim._frozen)} "
+        f"frozen); built and calibrated in {metrics['adapter_sim_s']:.1f} s")
+
+    train_ad = {k: {r: v.clone().requires_grad_(True) for r, v in ab.items()}
+                for k, ab in adapters.items()}
+    opt = torch.optim.AdamW([v for ab in train_ad.values()
+                             for v in ab.values()], lr=PEFT_LR)
+    apply = sim.static_grid_qat_fn()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(PEFT_STEPS + 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        logits = apply(peft.combined_params(params, train_ad), train)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                               train[:, 1:].reshape(-1))
+        if i < PEFT_STEPS:
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        e1.record()
+        e1.synchronize()
+        losses.append(loss.item())
+        if i < PEFT_STEPS:
+            step_ms.append(e0.elapsed_time(e1))
+        del logits, loss
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    metrics.update(losses=losses, step_ms=step_ms, peak_gb=peak,
+                   median_step_ms=sorted(step_ms)[len(step_ms) // 2])
+    log(f"[peft] {PEFT_STEPS} AdamW steps (lr {PEFT_LR}) on the adapters "
+        "through static_grid_qat_fn, 1 x 256 tokens: losses "
+        + ", ".join(f"{v:.6f}" for v in losses) + f" (the last after the "
+        f"last step); median step {metrics['median_step_ms']:.1f} ms (CUDA "
+        f"events), peak {peak:.2f} GB allocated ({smi})")
+    assert all(math.isfinite(v) for v in losses), losses
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+    trained = {k: {r: v.detach() for r, v in ab.items()}
+               for k, ab in train_ad.items()}
+    del opt, train_ad, apply, sim, comb
+    torch.cuda.empty_cache()
+
+    # in f32: in the model's bf16 the merged kernel and the separate
+    # adapter path round apart (about 1e-2 of the max)
+    with torch.no_grad(), f32_compute(model):
+        unmerged = peft.lora_unmerged_fn(model, (prompt,), params, lcfg)(
+            {"base": params, "adapters": trained}, prompt)
+        merged = peft.lora_apply_fn(
+            lambda p_, *a: torch.func.functional_call(model, p_, a), params,
+            trained, lcfg)(trained, prompt)
+    metrics["unmerged_vs_merged_rel_err"] = rel_err(unmerged, merged)
+    log(f"[peft] unmerged against merged forward (f32): "
+        f"{metrics['unmerged_vs_merged_rel_err']:.3e}")
+    assert metrics["unmerged_vs_merged_rel_err"] < TOL_LORA_FORMS
+    del unmerged, merged
+
+    t = time.perf_counter()
+    merged_params = peft.merge_lora(params, trained, lcfg)
+    qw = qllm.quantize_transformer_weights(merged_params, cfg, mode="w4a8")
+    llm = qllm.QuantizedLLM.from_quantized(qw, cfg, mode="w4a8", max_len=512)
+    torch.cuda.synchronize()
+    metrics["quantize_s"] = time.perf_counter() - t
+    pos = torch.full((1,), 256, dtype=torch.int64, device="cuda")
+
+    def serve():
+        served, caches = llm.prefill(prompt, llm.new_caches(1))
+        # one step at per-slot positions (the batcher's step: K3 and K2's
+        # fused decode kernel), then greedy generation (KSOL)
+        step, _ = llm.decode(served[:, -1:].argmax(-1), caches, pos)
+        return served, step, llm.generate(prompt, 8)
+    serve()                                              # warm-up
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    t = time.perf_counter()
+    served, step, out = serve()
+    torch.cuda.synchronize()
+    metrics["serve_s"] = time.perf_counter() - t
+    counts = {k: c.launches for k, c in counters.items() if c.launches}
+    take_routes(counters)
+    assert out.shape == (1, 264) and torch.isfinite(served).all() \
+        and torch.isfinite(step).all()
+
+    base = QuantizationSimModel(model, (prompt,), **grids)
+    base.compute_param_encodings(params)
+    kernels = {o.param_products["kernel"].param_path
+               for o in base.graph.ops_of_type("linear")}
+    for n, s in base.quantizers.items():
+        if s.kind == "param" and n not in kernels:
+            base.set_quantizer_enabled(n, False)
+    peft.PeftQuantUtils.freeze_base_model(base)
+    q = peft.PeftQuantUtils.quantized_lora_fn(base, params, trained, lcfg)(
+        trained, prompt)
+    # the same merged weights through lower_to_int(w4a8) (K1 + K2 on the
+    # frozen base grids): what the sim simulates, without the INT8 cache
+    lowered = lower_to_int(base, merged_params, mode="w4a8")(merged_params,
+                                                            prompt)
+    gap = peft_gap_split(torch, qllm, cfg, model, params, trained,
+                         merged_params, qw, lcfg, grids, prompt, served,
+                         lowered, q, base)
+    metrics.update(
+        served_vs_sim_rel_err=rel_err(served, q),
+        served_vs_sim_top1=(served.argmax(-1) == q.argmax(-1)).float()
+        .mean().item(),
+        lowered_vs_sim_rel_err=rel_err(lowered, q),
+        served_vs_lowered_rel_err=rel_err(served, lowered), launches=counts,
+        gap=gap)
+    log(f"[peft] merged weights quantized (w4a8) in "
+        f"{metrics['quantize_s']:.1f} s; prefill 1 x 256, a per-slot step "
+        f"and generate 8: {metrics['serve_s']:.2f} s, launches {counts}; "
+        f"against quantized_lora_fn: served prefill "
+        f"{metrics['served_vs_sim_rel_err']:.3e} of the max (limit "
+        f"{TOL_PEFT_SERVED}; top-1 {metrics['served_vs_sim_top1']:.3f}), "
+        f"the lowered w4a8 forward {metrics['lowered_vs_sim_rel_err']:.3e} "
+        f"(limit {TOL_PEFT_LOWERED}); served against lowered "
+        f"{metrics['served_vs_lowered_rel_err']:.3e}; the gap split: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()) + f" ({smi})")
+    assert gap["lowering_f32"] < TOL_PEFT_WEIGHTS, gap
+    assert metrics["lowered_vs_sim_rel_err"] < TOL_PEFT_LOWERED, metrics
+    assert metrics["served_vs_sim_rel_err"] < TOL_PEFT_SERVED, metrics
+    del base, q, served, step, lowered, llm
+    torch.cuda.empty_cache()
+    m = compare_whole_model(torch, qllm, ops, qw, cfg, "w4a8", g,
+                            cfg.n_layers)
+    metrics.update({f"vs_plain_{k}": v for k, v in m.items()})
+    assert m["prefill_logits_rel_err"] == 0.0, m
+    del qw
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+def peft_gap_split(torch, qllm, cfg, model, params, trained, merged_params,
+                   qw, lcfg, grids, prompt, served, lowered, q, base):
+    """What parts the served LoRA prefill from the sim's
+    ``quantized_lora_fn`` (max |diff| / max |sim|), each pair differing in
+    one thing: ``sim_bf16`` the sim in the model's bf16 against the same
+    sim in f32; ``lowering_f32`` the ``w4`` lowering (KW4: the 4-bit codes,
+    activations float) against the float model on the weights its codes
+    stand for (each kernel through its encoding's stored step), in f32;
+    ``ties_f32`` that model against the sim, in f32: the sim's fake-quant
+    recomputes the step from (min, max) as the JAX package's does, so a
+    bf16 weight at exactly half a step (about one a column) rounds the
+    other way; ``k1_f32`` the
+    ``w4a8`` lowering (K1's per-row INT8 activations + K2) against the
+    ``w4`` one, both in f32; ``bf16_lowered`` the ``w4a8`` lowering in bf16
+    (weights merged in bf16) against it in f32; ``route`` the serving
+    route without a cache
+    (``quantized_forward``: grids of the merged weights, fused qkv and
+    gate|up) against the ``w4a8`` lowering; ``kv_int8`` the served prefill
+    (INT8 KV cache) against that cache-free forward; ``base_gap`` the
+    ``w4a8`` lowering against the sim for the base model, without
+    adapters."""
+    from aimet_tpu_torch import QuantizationSimModel, lower_to_int
+    from aimet_tpu_torch.algorithms import peft
+    from aimet_tpu_torch.quantization.affine import (
+        quantize_dequantize_encoding)
+    f32 = lambda d: {k: v.float() for k, v in d.items()}
+    out = {}
+    with torch.no_grad(), f32_compute(model):
+        p32 = f32(params)
+        t32 = {k: f32(ab) for k, ab in trained.items()}
+        m32 = peft.merge_lora(p32, t32, lcfg)       # merged in f32, as q32
+        sim32 = QuantizationSimModel(model, (prompt,), **grids)
+        sim32.compute_param_encodings(p32)
+        kernels = {o.param_products["kernel"].param_path
+                   for o in sim32.graph.ops_of_type("linear")}
+        for n, s in sim32.quantizers.items():
+            if s.kind == "param" and n not in kernels:
+                sim32.set_quantizer_enabled(n, False)
+        peft.PeftQuantUtils.freeze_base_model(sim32)
+        q32 = peft.PeftQuantUtils.quantized_lora_fn(sim32, p32, t32, lcfg)(
+            t32, prompt)
+        w4 = lower_to_int(sim32, m32, mode="w4")(m32, prompt)
+        a8 = lower_to_int(sim32, m32, mode="w4a8")(m32, prompt)
+        # the float model on the codes the lowering takes (each kernel
+        # through its encoding's stored step)
+        pq = dict(m32)
+        for k in kernels:
+            pq[k] = quantize_dequantize_encoding(
+                m32[k], sim32.encodings[k],
+                channel_axis=sim32.quantizers[k].channel_axis)
+        codes = torch.func.functional_call(model, pq, (prompt,))
+        del pq
+        del sim32, p32, m32, t32
+    with torch.no_grad():
+        cache_free, _ = qllm.quantized_forward(qw, cfg, prompt, mode="w4a8")
+        base_gap = rel_err(
+            lower_to_int(base, params, mode="w4a8")(params, prompt),
+            base.quantized_fn(params, prompt))
+    out.update(sim_bf16=rel_err(q, q32), lowering_f32=rel_err(w4, codes),
+               ties_f32=rel_err(codes, q32),
+               k1_f32=rel_err(a8, w4), bf16_lowered=rel_err(lowered, a8),
+               route=rel_err(cache_free, lowered),
+               kv_int8=rel_err(served, cache_free), base_gap=base_gap)
+    del q32, w4, a8, codes, cache_free
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_peft(torch, tim, counters, g, models, smi, ops, qllm):
+    """Phase 9: AutoQuant + AMP on the CNN phase's ResNet-50 (9a) and PEFT
+    on a float Llama-3-8B at 2 layers (full width, seed 3: phase 8's
+    weights) (9b). Returns (metrics, launches of each path)."""
+    import dataclasses
+    from aimet_tpu_torch.models.transformer import TransformerConfig
+    metrics, paths = {}, {}
+    t = time.perf_counter()
+    m, counts = amp_autoquant(torch, tim, counters, g, models["resnet50"],
+                              smi)
+    metrics["amp_resnet50"] = m
+    paths["amp_resnet50"] = counts
+    log(f"[amp] phase 9a took {time.perf_counter() - t:.1f} s; {smi}")
+    t = time.perf_counter()
+    cfg = dataclasses.replace(TransformerConfig.llama3_8b(), n_layers=2)
+    model = float_llama(torch, cfg, seed=3)
+    m, counts = peft_llm(torch, tim, counters, g, cfg, model, smi, ops, qllm)
+    metrics["peft_llm"] = m
+    paths["peft_llm"] = counts
+    del model
+    torch.cuda.empty_cache()
+    log(f"[peft] phase 9b took {time.perf_counter() - t:.1f} s; {smi}")
+    return metrics, paths
+
+
 # Variants of the whole-layer kernel for ``--layer-variants``: name ->
 # (text, replacement, occurrences) applied to csrc/fused_layer.cu: the
 # kAhead weight stages of the next GEMM phase that the producer issues
@@ -5685,6 +6312,23 @@ def q8_slice() -> int:
     return 0
 
 
+def kernel_counters(tim, dattn, flay, dsol, gqa):
+    """The kernels' wrappers by kernel name: each counts its launches."""
+    return {"act_quant": tim.quantize_activation_per_row,
+            "w4a8_gemm": tim.w4a8_gemm,
+            "decode_attention": dattn.fused_decode_attention,
+            "w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
+            "fused_wo_mlp": flay.fused_wo_mlp,
+            "sol_decode_layer": dsol.sol_decode_layer,
+            "w8a8_staticq": tim.matmul_w8a8_staticq,
+            "w4_grouped_gemm": tim.matmul_w4_grouped,
+            "w8a8_fusedq": tim.matmul_w8a8_fusedq,
+            "q8_gemm": tim.matmul_q8,
+            "w4a8_fusedq": tim.matmul_w4a8_fusedq,
+            "fused_decode_layer": flay.fused_decode_layer,
+            "gqa_decode_attention": gqa.fused_gqa_decode_attention}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5700,19 +6344,7 @@ def main() -> int:
     from aimet_tpu_torch.ops import int_matmul as tim
     from aimet_tpu_torch.serving import quantized_llm as qllm
     ops = (tim, dattn, flay, dsol, gqa)
-    counters = {"act_quant": tim.quantize_activation_per_row,
-                "w4a8_gemm": tim.w4a8_gemm,
-                "decode_attention": dattn.fused_decode_attention,
-                "w4_gemm": tim.matmul_w4, "w8_gemm": tim.matmul_w8,
-                "fused_wo_mlp": flay.fused_wo_mlp,
-                "sol_decode_layer": dsol.sol_decode_layer,
-                "w8a8_staticq": tim.matmul_w8a8_staticq,
-                "w4_grouped_gemm": tim.matmul_w4_grouped,
-                "w8a8_fusedq": tim.matmul_w8a8_fusedq,
-                "q8_gemm": tim.matmul_q8,
-                "w4a8_fusedq": tim.matmul_w4a8_fusedq,
-                "fused_decode_layer": flay.fused_decode_layer,
-                "gqa_decode_attention": gqa.fused_gqa_decode_attention}
+    counters = kernel_counters(*ops)
 
     KERNEL_FNS.update(counters)
     KERNEL_FNS.update({name: counters[kern] for name, (kern, _) in
@@ -5849,11 +6481,22 @@ def main() -> int:
     t = time.time()
     torch.cuda.empty_cache()
     m, path_counts = qat(torch, tim, counters, g, cnn_models, smi)
-    del cnn_models
     metrics.update(m)
     for path, counts in path_counts.items():
         add_path(path, counts)
     log(f"[qat] phase took {time.time() - t:.1f} s; {smi}")
+
+    # --- 9. AutoQuant + AMP on the ResNet-50, PEFT on a float Llama-3-8B
+    # (2 layers)
+    t = time.time()
+    torch.cuda.empty_cache()
+    m, path_counts = amp_peft(torch, tim, counters, g, cnn_models, smi, ops,
+                              qllm)
+    del cnn_models
+    metrics.update(m)
+    for path, counts in path_counts.items():
+        add_path(path, counts)
+    log(f"[amp, peft] phase took {time.time() - t:.1f} s; {smi}")
     for name, (kern, route) in ROUTE_KERNELS.items():
         launches[name] = ROUTE_LAUNCHES.get(f"{kern}:{route}", 0)
     for name in SOURCES:
@@ -5917,8 +6560,55 @@ def main() -> int:
     return 0
 
 
+def amp_peft_slice() -> int:
+    """``python3 chip_smoke.py --amp-peft-slice``: build the kernels and run
+    phase 9 alone (AutoQuant + AMP on the CNN phase's ResNet-50, drawn as
+    phase 6 draws it; PEFT on the 2-layer Llama-3-8B), with the same checks
+    and PATH_KERNELS as the whole script."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.resnet import ResNet50
+    from aimet_tpu_torch.ops import decode_attention as gqa
+    from aimet_tpu_torch.ops import decode_attention_fused as dattn
+    from aimet_tpu_torch.ops import decode_layer_sol as dsol
+    from aimet_tpu_torch.ops import fused_layer as flay
+    from aimet_tpu_torch.ops import int_matmul as tim
+    from aimet_tpu_torch.serving import quantized_llm as qllm
+    counters = kernel_counters(tim, dattn, flay, dsol, gqa)
+    KERNEL_FNS.update(counters)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xs = resnet_inputs(torch, g, 6)
+    model = float_cnn(torch, ResNet50, xs[5], seed=4)
+    del xs
+    t = time.time()
+    metrics, paths = amp_peft(torch, tim, counters, g, {"resnet50": model},
+                              smi, (tim, dattn, flay, dsol, gqa), qllm)
+    log(f"[amp, peft] phase took {time.time() - t:.1f} s; {smi}")
+    for path, counts in paths.items():
+        for name in PATH_KERNELS[path]:
+            assert counts.get(name, 0) > 0, \
+                f"kernel {name} never launched on the {path} path"
+    log(json.dumps(metrics, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     sys.exit(layer_variants() if sys.argv[1:] == ["--layer-variants"]
+             else amp_peft_slice() if sys.argv[1:] == ["--amp-peft-slice"]
              else decode_slice() if sys.argv[1:] == ["--decode-slice"]
              else w4_slice() if sys.argv[1:] == ["--w4-slice"]
              else prefill_slice() if sys.argv[1:] == ["--prefill-slice"]

@@ -71,6 +71,17 @@ def test_importing_port_leaves_jax_unloaded():
             "import aimet_tpu_torch.algorithms.smooth_quant; "
             "import aimet_tpu_torch.algorithms.gptq; "
             "import aimet_tpu_torch.algorithms.kd; "
+            "import aimet_tpu_torch.utils.cache; "
+            "import aimet_tpu_torch.algorithms.amp; "
+            "import aimet_tpu_torch.algorithms.auto_quant; "
+            "import aimet_tpu_torch.algorithms.peft; "
+            "import aimet_tpu_torch.graph.pattern_matcher; "
+            "import aimet_tpu_torch.algorithms.arch_checker; "
+            "import aimet_tpu_torch.quantsim.backend_aware; "
+            "import aimet_tpu_torch.quantsim.legacy; "
+            "import aimet_tpu_torch.utils.weight_padding; "
+            "import aimet_tpu_torch.utils.layer_output; "
+            "import aimet_tpu_torch.utils.visualization; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -16,9 +16,12 @@ from aimet_tpu.models.cnn import ConvBnRelu as JaxConvBnRelu
 from aimet_tpu.models.cnn import TinyCNN as JaxTinyCNN
 from aimet_tpu.models.cnn import TinyMLP as JaxTinyMLP
 from aimet_tpu.models.mobilenet_v2 import MobileNetV2 as JaxMobileNetV2
+from aimet_tpu.models.resnet import BasicBlock as JaxBasicBlock
+from aimet_tpu.models.resnet import ResNet as JaxResNet
 from aimet_tpu_torch import convert
 from aimet_tpu_torch.models.layers import BatchNorm, Conv, Dense
 from aimet_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from aimet_tpu_torch.models.resnet import BasicBlock, ResNet
 
 
 class JaxConvBnConv(nn.Module):
@@ -128,6 +131,10 @@ MODELS = {
     "mobilenet_v2": (lambda: JaxMobileNetV2(num_classes=10, width_mult=0.25),
                      lambda: MobileNetV2(num_classes=10, width_mult=0.25),
                      (2, 32, 32, 3)),
+    "resnet_basic": (lambda: JaxResNet([1, 1], JaxBasicBlock, num_classes=10,
+                                       num_filters=8),
+                     lambda: ResNet([1, 1], BasicBlock, num_classes=10,
+                                    num_filters=8), (2, 16, 16, 3)),
 }
 
 
