@@ -8,8 +8,11 @@ and ``w4a8``; ``quantization/``, ``graph/`` and ``quantsim/`` hold the
 quantization simulation (``QuantizationSimModel``, with quantization-aware
 training through ``qat_fn`` / ``static_grid_qat_fn`` and the differentiable
 ``quantize_dequantize``) and its lowering to the integer kernels
-(``lower_to_int``); ``algorithms/`` the PTQ and QAT algorithms. Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``.
+(``lower_to_int``), with loops and branches the sim sees inside
+(``graph/control_flow``) and recurrent quantsim (``quantsim/recurrent``);
+``algorithms/`` the PTQ and QAT algorithms; ``compression/`` SVD, channel
+pruning, winnow and ``ModelCompressor``. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 from .models.transformer import (Transformer, TransformerConfig,
                                  init_kv_caches)

@@ -13,7 +13,9 @@ pass through unchanged, since both packages share the storage contract.
 Parameter names: the JAX package keys a parameter by its tree path
 (``"['params']['layer_0']['attn']['wq']['kernel']"``), the port by its
 qualified module name (``layer_0.attn.wq.kernel``); ``port_param_name`` and
-``jax_param_key`` map one to the other. ``encodings_from_jax`` carries a
+``jax_param_key`` map one to the other (a list item ``['lstm'][0]`` is
+``lstm.0``). ``deepspeech_params_from_jax`` carries the DeepSpeech2 and
+recurrent-cell trees across. ``encodings_from_jax`` carries a
 quantsim's encodings across (numpy fields, any object with the
 ``AffineEncoding`` attributes). ``adapters_from_jax`` carries LoRA
 adapters (``algorithms/peft``) across.
@@ -76,7 +78,7 @@ def quantized_from_jax(qw_np, device: DeviceLike = None) -> Dict[str, Any]:
     return conv(qw_np)
 
 
-_KEY_PART = re.compile(r"\['([^']*)'\]")
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 _ENC_FIELDS = ("min", "max", "delta", "offset")
 _ENC_STATIC = ("bitwidth", "symmetric", "strict_symmetric",
                "unsigned_symmetric")
@@ -87,18 +89,44 @@ def port_param_name(jax_key: str) -> str:
     ``layer_0.attn.wq.kernel`` (and ``"['batch_stats']['BatchNorm_0']
     ['mean']"`` -> ``BatchNorm_0.mean``); any other name is returned
     unchanged."""
-    parts = _KEY_PART.findall(jax_key)
-    if not parts or "".join(f"['{p}']" for p in parts) != jax_key:
+    found = _KEY_PART.findall(jax_key)
+    if not found or "".join(f"['{k}']" if k else f"[{i}]"
+                            for k, i in found) != jax_key:
         return jax_key
-    if parts[0] in ("params", "batch_stats"):
+    parts = [k or i for k, i in found]
+    if found[0][0] in ("params", "batch_stats"):
         parts = parts[1:]
     return ".".join(parts)
 
 
-def jax_param_key(name: str) -> str:
+def jax_param_key(name: str, root: Optional[str] = "params") -> str:
     """``layer_0.attn.wq.kernel`` -> ``"['params']['layer_0']['attn']['wq']
-    ['kernel']"`` (the flax ``variables`` tree path)."""
-    return "['params']" + "".join(f"['{p}']" for p in name.split("."))
+    ['kernel']"`` (the flax ``variables`` tree path). ``root`` None: a plain
+    parameter dict whose lists index by integer, as the recurrent models'
+    (``lstm.0.fwd.kernel`` -> ``"['lstm'][0]['fwd']['kernel']"``)."""
+    if root is None:
+        return "".join(f"[{p}]" if p.isdigit() else f"['{p}']"
+                       for p in name.split("."))
+    return f"['{root}']" + "".join(f"['{p}']" for p in name.split("."))
+
+
+def deepspeech_params_from_jax(params_np) -> Dict[str, torch.Tensor]:
+    """The JAX package's DeepSpeech2 tree (numpy leaves: ``conv1``,
+    ``conv2``, ``lstm`` a list of ``{fwd, bwd}``, ``head``) -> the state
+    dict of ``models.deepspeech.DeepSpeech2``: conv kernels HWIO -> OIHW;
+    ``lstm[i]["fwd"]["kernel"]`` -> ``lstm.i.fwd.kernel``. Any other tree
+    of dicts and lists (a recurrent cell's) flattens the same way."""
+    def walk(tree, prefix):
+        items = tree.items() if hasattr(tree, "items") else enumerate(tree)
+        for k, v in items:
+            key = f"{prefix}{k}"
+            if hasattr(v, "items") or isinstance(v, (list, tuple)):
+                yield from walk(v, key + ".")
+            else:
+                yield key, _tensor(v)
+
+    return {k: v.permute(3, 2, 0, 1).contiguous() if v.dim() == 4 else v
+            for k, v in walk(params_np, "")}
 
 
 def encodings_from_jax(encodings: Mapping[str, Any],

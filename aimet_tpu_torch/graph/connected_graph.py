@@ -33,8 +33,21 @@ Ops are named ``{type}_{n}`` in execution order, so the ``linear`` ops
 come out with the JAX package's names, in its order, on parameters whose
 port names (``layer_0.attn.wq.kernel``) map one for one to the JAX key
 strings (``aimet_tpu_torch.convert``). ``silu`` is traced as
-``x * sigmoid(x)``, the form jax.nn.silu takes in a jaxpr. Control flow
-(``scan`` / ``while`` / ``cond`` sub-graphs) is not ported.
+``x * sigmoid(x)``, the form jax.nn.silu takes in a jaxpr, and
+``log_softmax`` as jax.nn.log_softmax's max / sub / exp / sum / log / sub.
+``split`` is one op whose value is its first piece, as JAX's ``split``
+primitive.
+
+Control flow (``graph/control_flow``: ``scan``, ``while_loop``, ``cond``)
+traces to one node whose body is a sub-graph. Its body's nodes become
+*inner ops* named under the enclosing op (``scan_0/linear_1``,
+``cond_0/b1/tanh_0``), each with ``Op.scope`` naming that op; the
+control-flow node itself is one ``scan`` / ``while`` / ``cond`` op. A
+parameter read inside a body reaches it as one of the node's consts (or,
+scanned over, as its xs), and ``_direct_param_leaf`` follows it back
+across that boundary to the parameter. ``subgraph_eqns`` records, per
+control-flow node, its kind and its inner ops. A conv or matmul in a
+``while_loop`` condition raises ``NotImplementedError``, as in JAX.
 """
 from __future__ import annotations
 
@@ -47,6 +60,8 @@ from torch import fx
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
+from . import control_flow
+
 aten = torch.ops.aten
 
 # Shape-only ops: never quantized, transparent for dataflow.
@@ -54,9 +69,10 @@ PASSTHROUGH = {
     aten.view, aten._unsafe_view, aten.reshape, aten.transpose,
     aten.permute, aten.t, aten.expand, aten.clone, aten._to_copy,
     aten.unsqueeze, aten.squeeze, aten.slice, aten.select, aten.alias,
-    aten.detach, aten.lift_fresh_copy, aten.split, aten.split_with_sizes,
-    aten.unbind, aten.constant_pad_nd,
+    aten.detach, aten.lift_fresh_copy, aten.unbind, aten.constant_pad_nd,
+    aten.flip,
 }
+_SPLIT = {aten.split, aten.split_with_sizes}
 # Passthroughs that swap a parameter's axes on its way to a product.
 TRANSPOSING = {aten.t, aten.transpose, aten.permute}
 # Elementwise ops of affine chains, by the JAX primitive they stand for.
@@ -76,9 +92,20 @@ NAMED = {
 }
 _LINEAR = {aten.mm, aten.bmm, aten.addmm}
 
-# silu as the jaxpr has it (jax.nn.silu = x * sigmoid(x)), so quantizers
-# sit on the same tensors in both packages
-_DECOMPOSITIONS = {aten.silu.default: lambda x: x * torch.sigmoid(x)}
+
+def _log_softmax(x, dim, half_to_float=False):
+    """jax.nn.log_softmax's eqns: max (with initial -inf: a clip), sub,
+    exp, sum, log, sub."""
+    m = torch.clamp_min(torch.amax(x, dim, keepdim=True), float("-inf"))
+    shifted = x - m
+    return shifted - torch.log(torch.sum(torch.exp(shifted), dim,
+                                         keepdim=True))
+
+
+# silu and log_softmax as the jaxpr has them (jax.nn.silu = x *
+# sigmoid(x)), so quantizers sit on the same tensors in both packages
+_DECOMPOSITIONS = {aten.silu.default: lambda x: x * torch.sigmoid(x),
+                   aten._log_softmax.default: _log_softmax}
 
 
 def _packet(target):
@@ -118,6 +145,7 @@ class Op:
     param_products: Dict[str, Product] = dataclasses.field(
         default_factory=dict)
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    scope: Optional[str] = None     # the enclosing scan / while / cond op
 
     @property
     def input_ops(self) -> List["Op"]:
@@ -173,9 +201,13 @@ class ConnectedGraph:
             return leaves
 
         with torch.no_grad():
+            # tensors the model holds outside its parameters (a compressed
+            # model's factored kernels) become constants of the graph
             self.gm = make_fx(fn, tracing_mode="fake",
-                              decomposition_table=_DECOMPOSITIONS)(
+                              decomposition_table=_DECOMPOSITIONS,
+                              _allow_non_fake_inputs=True)(
                 *params.values(), *flat_inputs)
+        control_flow.outline(self.gm)
         self.gm.graph.eliminate_dead_code()
         self.out_spec = spec["out"]
         self.nodes: List[fx.Node] = list(self.gm.graph.nodes)
@@ -231,6 +263,11 @@ class ConnectedGraph:
         for _ in range(8):
             if not isinstance(v, fx.Node):
                 return None, False
+            if v in self._invar_link:
+                # a body placeholder: its value comes from the enclosing
+                # control-flow node's operand
+                v = self._invar_link[v]
+                continue
             if v.op == "placeholder":
                 p = self.products.get(v)
                 return (p, transposed) if p is not None and \
@@ -248,14 +285,18 @@ class ConnectedGraph:
         inputs = [self._get_product(v) for v in data_in
                   if isinstance(v, fx.Node)]
         out_p = self._get_product(out_node)
-        op = Op(index=len(self.ops), type=op_type, name=f"{op_type}_{n}",
+        op = Op(index=len(self.ops), type=op_type,
+                name=f"{self._prefix}{op_type}_{n}",
                 nodes=list(nodes), inputs=inputs, output=out_p,
-                param_products=params or {}, attrs=attrs or {})
+                param_products=params or {}, attrs=attrs or {},
+                scope=self._scope_stack[-1] if self._scope_stack else None)
         out_p.producer = op
         out_p.name = f"{op.name}.out"
         for p in inputs:
             p.consumers.append(op)
         self.ops.append(op)
+        for sink in self._sink_stack:
+            sink.append(op)
         return op
 
     def _single_user(self, node: fx.Node) -> Optional[fx.Node]:
@@ -294,13 +335,29 @@ class ConnectedGraph:
         self._consumed: set = set()
         self._param_only: Dict[fx.Node, bool] = {}
         self._param_roots: Dict[fx.Node, set] = {}
+        self._invar_link: Dict[fx.Node, fx.Node] = {}  # body ph -> operand
+        self._scope_stack: List[str] = []
+        self._sink_stack: List[List[Op]] = []
+        self._prefix = ""
+        # control-flow node -> {"kind", "inner_ops"} (the JAX package keys
+        # it by eqn; here by fx node)
+        self.subgraph_eqns: Dict[fx.Node, Dict[str, Any]] = {}
+        names = {v: k for k, v in self.param_nodes.items()}
         for node in self.nodes:
             if node.op == "placeholder":
-                name = next((k for k, v in self.param_nodes.items()
-                             if v is node), None)
+                name = names.get(node)
                 self._param_only[node] = name is not None
                 self._param_roots[node] = {name} if name else set()
-            elif node.op == "get_attr":
+        self._classify(self.nodes)
+        self._build_scope(self.nodes, {})
+
+    def _classify(self, nodes):
+        """Classification prepass over one scope, recursing into bodies: it
+        runs to completion before any building, because the peephole
+        grouping (BN affine chains, bias folds) looks ahead at later nodes'
+        operand classes."""
+        for node in nodes:
+            if node.op == "get_attr":
                 self._param_only[node] = True
                 self._param_roots[node] = set()
             elif node.op == "call_function":
@@ -311,15 +368,87 @@ class ConnectedGraph:
                     if self._param_only[i]:
                         roots |= self._param_roots[i]
                 self._param_roots[node] = roots
+                kind = control_flow.CONTROL_FLOW.get(node.target)
+                if kind is not None and not self._param_only[node]:
+                    self._seed_bodies(node, kind)
 
-        counters: Dict[str, int] = {}
-        for node in self.nodes:
+    def _cf_parts(self, node, kind):
+        """[(body GraphModule, [(placeholder operand, forced data)], inner
+        prefix suffix)] of a control-flow node, in building order."""
+        def fetch(n):
+            # a nested body's sub-graphs hang on its own module
+            return getattr(n.graph.owning_module, n.target)
+
+        if kind == "scan":
+            body, init, xs, consts = node.args[:4]
+            ops = [(v, True) for v in init] + [(v, False) for v in xs] + \
+                [(v, False) for v in consts]
+            return [(fetch(body), ops, "")]
+        if kind == "while":
+            cond_g, body_g, init, _cc, bc = node.args[:5]
+            ops = [(v, True) for v in init] + [(v, False) for v in bc]
+            return [(fetch(body_g), ops, "")]
+        _pred, branches, operands, consts = node.args[:4]
+        return [(fetch(b), [(v, False) for v in list(operands) + list(c)],
+                 f"/b{i}") for i, (b, c) in enumerate(zip(branches, consts))]
+
+    def _is_literal(self, v) -> bool:
+        """A 0-dim constant computed from no parameter (``torch.zeros(())``,
+        a lifted ``torch.tensor(0)``)."""
+        v = self.resolve(v)
+        return self._param_only[v] and not self._param_roots[v] and \
+            v.op != "placeholder" and _meta(v)[0] == ()
+
+    def _seed_bodies(self, node, kind):
+        for body, operands, _ in self._cf_parts(node, kind):
+            phs = [n for n in body.graph.nodes if n.op == "placeholder"]
+            for ph, (v, as_data) in zip(phs, operands):
+                if not isinstance(v, fx.Node):
+                    self._param_only[ph] = True
+                    self._param_roots[ph] = set()
+                    continue
+                self._invar_link[ph] = v
+                if as_data and self._is_literal(v):
+                    # a scalar constant carry (a loop counter) is the JAX
+                    # graph's Literal: never data
+                    self._param_only[ph] = True
+                    self._param_roots[ph] = set()
+                elif as_data:
+                    self._param_only[ph] = False
+                    self._param_roots[ph] = set()
+                else:
+                    self._param_only[ph] = self._param_only[self.resolve(v)]
+                    self._param_roots[ph] = set(
+                        self._param_roots[self.resolve(v)])
+            self._classify(list(body.graph.nodes))
+
+    def _build_scope(self, nodes, counters: Dict[str, int]):
+        """Build the ops of one scope (the model's graph or a body's)."""
+        for node in nodes:
             if node.op != "call_function" or node in self._consumed \
                     or self._param_only[node]:
                 continue
             pk = _packet(node.target)
+            kind = control_flow.CONTROL_FLOW.get(node.target)
+            if kind is not None:
+                self._control_flow(node, kind, counters)
+                continue
+            if node.target is operator.getitem and (
+                    node.args[0].target in control_flow.CONTROL_FLOW
+                    or _packet(node.args[0].target) in _SPLIT):
+                continue      # each result of a loop or split: a product
             if pk in PASSTHROUGH or node.target is operator.getitem:
                 self.alias[node] = node.args[0]
+                continue
+            if pk in _SPLIT:
+                # one op valued by its first piece (JAX's split primitive);
+                # the other pieces are products of their own
+                first = [u for u in node.users
+                         if u.target is operator.getitem and u.args[1] == 0]
+                group = [node] + first[:1]
+                self._consumed.update(first[:1])
+                self._new_op("split", group, [node.args[0]], group[-1],
+                             counters)
                 continue
             if pk in _LINEAR:
                 self._linear(node, pk, counters)
@@ -347,6 +476,7 @@ class ConnectedGraph:
                                  _tensor_nodes(node.args), node, counters)
             else:
                 op_type = NAMED.get(pk)
+                attrs = {}
                 if op_type is None:
                     op_type = pk.__name__.split(".")[-1]
                     if pk is aten.pow and node.args[1] == 2:
@@ -356,9 +486,58 @@ class ConnectedGraph:
                         # a custom op no rule classifies (the JAX graph's
                         # opaque custom_jvp_call)
                         op_type = "custom"
+                elif op_type == "mean":
+                    nd = len(_meta(node.args[0])[0])
+                    dims = node.args[1] if len(node.args) > 1 else \
+                        range(nd)
+                    attrs["axes"] = tuple(sorted(int(d) % nd for d in dims))
+                elif op_type == "concat":
+                    nd = len(_meta(node)[0])
+                    dim = node.args[1] if len(node.args) > 1 else \
+                        node.kwargs.get("dim", 0)
+                    attrs["dimension"] = int(dim) % nd
                 self._new_op(op_type, [node],
                              _tensor_nodes((node.args, node.kwargs)), node,
-                             counters)
+                             counters, attrs=attrs)
+
+    def _control_flow(self, node, kind, counters):
+        """One scan / while / cond op, after the inner ops of its body
+        (each branch of a cond under ``{name}/b{i}``)."""
+        op_name = f"{self._prefix}{kind}_{counters.get(kind, 0)}"
+        inner: List[Op] = []
+        for body, _, suffix in self._cf_parts(node, kind):
+            scope = op_name + suffix
+            saved = self._prefix
+            self._scope_stack.append(scope)
+            self._sink_stack.append(inner)
+            self._prefix = scope + "/"
+            try:
+                self._build_scope(list(body.graph.nodes), {})
+            finally:
+                self._prefix = saved
+                self._sink_stack.pop()
+                self._scope_stack.pop()
+        self.subgraph_eqns[node] = {"kind": kind, "inner_ops": inner}
+        if kind == "scan":
+            data = list(node.args[1]) + list(node.args[2]) + \
+                list(node.args[3])
+            primary = len(node.args[1])
+            attrs = {"num_consts": len(node.args[3]),
+                     "num_carry": len(node.args[1]),
+                     "length": int(_meta(node.args[2][0])[0][0]),
+                     "reverse": bool(node.kwargs.get("reverse", False))}
+        elif kind == "while":
+            data, primary = list(node.args[2]), 0
+            attrs = {"cond_nconsts": len(node.args[3]),
+                     "body_nconsts": len(node.args[4])}
+        else:
+            data, primary, attrs = list(node.args[2]), 0, {}
+        data = [v for v in data if isinstance(v, fx.Node)
+                and not self._is_param_only(v)]
+        items = {u.args[1]: u for u in node.users
+                 if u.target is operator.getitem}
+        out = items.get(primary, node)
+        self._new_op(kind, [node], data, out, counters, attrs=attrs)
 
     def _linear(self, node, pk, counters):
         if pk is aten.addmm:

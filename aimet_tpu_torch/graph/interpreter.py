@@ -4,7 +4,11 @@
 ``run_graph`` executes the traced aten graph node by node, frees each
 value after its last use, and lets a caller rewrite a node's operands or
 result (the quantsim's observers and fake-quant) or compute a node's value
-in its place (an op replaced by an integer kernel).
+in its place (an op replaced by an integer kernel). A ``scan`` / ``while``
+/ ``cond`` node runs its body step by step in a Python loop, with the same
+hooks on the body's nodes (the JAX package threads its observer states
+through one fused ``lax.scan``; the port's observers live in a dict the
+hooks update, so a plain loop carries them).
 ``evaluate_with_replacements`` runs each replaced op's function on the
 op's data input in place of its nodes, as the JAX package's interpreter
 does with an op's eqns. ``OpReplay`` runs one op's own nodes alone, from
@@ -13,6 +17,7 @@ the batchnorm probes).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 from torch import fx
@@ -20,6 +25,7 @@ from torch.utils import _pytree as pytree
 
 from .._device import no_tf32
 from .connected_graph import ConnectedGraph, Op
+from .control_flow import CONTROL_FLOW
 
 # node -> fn(read) computing its value in place of running it; None: skip
 Emit = Dict[fx.Node, Optional[Callable[[Callable], Any]]]
@@ -51,7 +57,8 @@ def run_graph(graph: ConnectedGraph, flat_args, *,
               after: Optional[Callable] = None,
               at_output: Optional[Callable] = None,
               emit: Optional[Emit] = None,
-              emit_reads: Optional[Dict[fx.Node, List[fx.Node]]] = None):
+              emit_reads: Optional[Dict[fx.Node, List[fx.Node]]] = None,
+              enter: Optional[Callable] = None):
     """Execute the graph on ``flat_args`` (parameters, then the flattened
     inputs) and return the model's output structure.
 
@@ -59,43 +66,86 @@ def run_graph(graph: ConnectedGraph, flat_args, *,
     ``after(node, value)`` may replace a placeholder's or a call's value;
     ``at_output(node, value)`` may replace a model output; ``emit`` maps a
     node to ``fn(read)`` computing its value in place of running it (None:
-    skipped), ``emit_reads`` names the nodes such a function reads. f32
-    convolutions run in f32 (TF32 off, ``_device.no_tf32``)."""
+    skipped), ``emit_reads`` names the nodes such a function reads. A
+    control-flow node (``scan`` / ``while`` / ``cond``) runs its body step
+    by step with the same ``before`` / ``after`` hooks on the body's nodes
+    (a plain Python loop), unless ``enter(node)`` returns False: then the
+    body runs without hooks. f32 convolutions run in f32 (TF32 off,
+    ``_device.no_tf32``)."""
     with no_tf32():
-        return _run(graph, flat_args, before, after, at_output, emit or {},
-                    emit_reads or {})
+        runner = _Runner(graph, before, after, enter)
+        env: Dict[fx.Node, Any] = {}
+        args = iter(flat_args)
+        for node in graph.nodes:
+            if node.op == "placeholder":
+                val = next(args)
+                env[node] = after(node, val) if after is not None else val
+        runner.exec(graph.nodes, env, emit or {},
+                    _last_uses(graph.nodes, emit_reads or {}))
+        outs = [at_output(n, env[n]) if at_output else env[n]
+                for n in graph.output_nodes]
+        return pytree.tree_unflatten(outs, graph.out_spec)
 
 
-def _run(graph, flat_args, before, after, at_output, emit, emit_reads):
-    dead = _last_uses(graph.nodes, emit_reads)
-    env: Dict[fx.Node, Any] = {}
-    read = env.__getitem__
-    args = iter(flat_args)
-    for node in graph.nodes:
-        if node.op == "output":
-            outs = [at_output(n, read(n)) if at_output else read(n)
-                    for n in graph.output_nodes]
-            return pytree.tree_unflatten(outs, graph.out_spec)
-        if node.op == "placeholder":
-            val = next(args)
-        elif node.op == "get_attr":
-            val = _fetch_attr(graph.gm, node.target)
-        elif node in emit:
-            fn = emit[node]
-            if fn is None:
+class _Runner:
+    """Executes node lists; control-flow nodes run their sub-graphs."""
+
+    def __init__(self, graph, before, after, enter):
+        self.graph, self.before, self.after = graph, before, after
+        self.enter = enter
+        # sub-graph -> (nodes, placeholders, outputs, last uses)
+        self._plans: Dict[fx.GraphModule, tuple] = {}
+
+    def exec(self, nodes, env, emit, dead):
+        read = env.__getitem__
+        before, after = self.before, self.after
+        for node in nodes:
+            op = node.op
+            if op == "placeholder" or op == "output":
                 continue
-            val = fn(read)
-        else:
-            call = before(node, read) if before is not None else None
-            a, kw = call if call is not None else fx.node.map_arg(
-                (node.args, node.kwargs), read)
-            val = node.target(*a, **kw)
-        if after is not None:
-            val = after(node, val)
-        env[node] = val
-        for v in dead.get(node, ()):
-            env.pop(v, None)
-    raise RuntimeError("graph has no output node")
+            if op == "get_attr":
+                # a sub-graph's attributes live on its own module
+                val = _fetch_attr(node.graph.owning_module or self.graph.gm,
+                                  node.target)
+            elif node in emit:
+                fn = emit[node]
+                if fn is None:
+                    continue
+                val = fn(read)
+            else:
+                call = before(node, read) if before is not None else None
+                a, kw = call if call is not None else fx.node.map_arg(
+                    (node.args, node.kwargs), read)
+                if node.target in CONTROL_FLOW and (self.enter is None
+                                                    or self.enter(node)):
+                    # the loop runs its sub-graphs through the hooks
+                    a = pytree.tree_map(self._hooked, a)
+                val = node.target(*a, **kw)
+            if after is not None:
+                val = after(node, val)
+            env[node] = val
+            for v in dead.get(node, ()):
+                env.pop(v, None)
+
+    def _hooked(self, v):
+        """A sub-graph as a function that runs its nodes with the hooks."""
+        if not isinstance(v, fx.GraphModule):
+            return v
+        return lambda *args: self.body(v, args)
+
+    def body(self, gm: fx.GraphModule, args):
+        """One run of a sub-graph with the hooks: its output list."""
+        plan = self._plans.get(gm)
+        if plan is None:
+            nodes = list(gm.graph.nodes)
+            plan = self._plans[gm] = (
+                nodes, [n for n in nodes if n.op == "placeholder"],
+                next(n for n in reversed(nodes) if n.op == "output").args[0],
+                _last_uses(nodes, {}))
+        nodes, phs, outs, dead = plan
+        env = dict(zip(phs, args))
+        self.exec(nodes, env, {}, dead)
+        return [env[n] if isinstance(n, fx.Node) else n for n in outs]
 
 
 def flat_args(graph: ConnectedGraph, params: Dict[str, Any], args) -> list:
@@ -104,26 +154,44 @@ def flat_args(graph: ConnectedGraph, params: Dict[str, Any], args) -> list:
         pytree.tree_flatten(tuple(args))[0]
 
 
+def _as_shape(out, shape):
+    return out.reshape(shape) if out.numel() == math.prod(shape) else out
+
+
 def evaluate_with_replacements(graph: ConnectedGraph, params, args,
                                replacements: Optional[Dict[str, Callable]]
                                = None, out_tree=None):
     """Evaluate the graph; each op in ``replacements`` has its nodes skipped
     and its value set to ``replacement(x)``, x being the op's data operand
     as its first node reads it (after any dtype cast and view), reshaped to
-    the op's traced output shape. ``out_tree`` (a ``torch.utils._pytree``
-    spec) regroups the output leaves; by default they keep the model's
-    own structure."""
+    the op's traced output shape where it has as many elements (a
+    compression replacement's output may have lost channels). A
+    replacement with ``_nary`` set is called as
+    ``replacement(*inputs, read=read)`` on the values of all the op's data
+    input products. ``out_tree`` (a ``torch.utils._pytree`` spec)
+    regroups the output leaves; by default they keep the model's own
+    structure."""
     emit: Emit = {}
     reads: Dict[fx.Node, List[fx.Node]] = {}
     for name, fn in (replacements or {}).items():
         op = graph.get_op(name)
-        x_node = op.attrs["x_node"]
         last = op.nodes[-1]
         for n in op.nodes[:-1]:
             emit[n] = None
-        shape = tuple(last.meta["val"].shape)
-        emit[last] = (lambda read, fn=fn, x_node=x_node, shape=shape:
-                      fn(read(x_node)).reshape(shape))
+        if getattr(fn, "_nary", False):
+            # fn(*inputs, read=read): every data input product's value
+            # (and the graph's values, for what else the op reads); the
+            # op's shape may change (a winnowed channel count)
+            ins = [p.node for p in op.inputs]
+            emit[last] = (lambda read, fn=fn, ins=ins:
+                          fn(*[read(n) for n in ins], read=read))
+            reads[last] = ins + [a for n in op.nodes
+                                 for a in n.all_input_nodes]
+            continue
+        x_node = op.attrs.get("x_node", op.inputs[0].node)
+        emit[last] = (lambda read, fn=fn, x_node=x_node,
+                      shape=tuple(last.meta["val"].shape):
+                      _as_shape(fn(read(x_node)), shape))
         reads[last] = [x_node]
     out = run_graph(graph, flat_args(graph, params, args), emit=emit,
                     emit_reads=reads)

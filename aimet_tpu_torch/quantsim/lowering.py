@@ -46,6 +46,10 @@ the weight-only modes), with the JAX package's mode table:
 A transposed conv becomes the equivalent lhs-dilated conv (flipped,
 transposed kernel); a conv whose equivalent padding would be negative,
 or whose weight is not 4-D, stays on the float path (``skipped_ops``).
+So do ops inside a control-flow body (``Op.scope``; an LSTM's body runs
+in float, as traced) and layers whose kernel is a constant of
+the model rather than a parameter (a compressed model's factored or
+pruned layers), as in the JAX package.
 
 On CUDA parameters the replacements always launch the kernels; on CPU
 parameters the kernels' plain versions run. Activations between the ops
@@ -390,6 +394,11 @@ def lower_to_int(sim, params=None, mode: str = "w8",
     flops_lowered = flops_total = 0
     for op in graph.ops:
         if op.type not in ("linear",) + _CONV_TYPES:
+            continue
+        if op.scope is not None:
+            # inside a scan / while / cond body: the replacements act on
+            # the top-level graph only; the body runs in float as traced
+            skipped.append(op.name)
             continue
         flops_total += op_flops(op)
         kp = op.param_products.get("kernel")

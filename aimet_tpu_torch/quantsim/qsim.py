@@ -32,6 +32,14 @@ copies the rule as it is, including the quantizer on the masked attention
 scores (``select_n``), whose [-1e30, 0] range flattens attention in both
 packages.
 
+Ops inside a ``scan`` / ``while`` / ``cond`` body (``graph/control_flow``)
+get their quantizers as any op does, named under the enclosing op
+(``scan_0/linear_1``); the interpreter runs such a body step by step, so
+their observers see every step in calibration and their fake-quant acts
+at every step of the quantized and QAT forwards (``_sub_act_names``: the
+quantizers inside each body). The loop's parameters are quantized once,
+outside it, as the JAX package quantizes scan consts.
+
 Every public forward but the QAT ones runs under ``torch.no_grad()``.
 Not ported yet (it raises ``NotImplementedError``): the StableHLO export
 (``export_stablehlo``, which has no PyTorch counterpart yet).
@@ -145,6 +153,7 @@ class QuantizationSimModel:
         self._parked_encodings: Dict[str, AffineEncoding] = {}
         self._frozen: set = set()
         self._build_quantizers()
+        self._collect_sub_names()
 
     def product_quantizer(self, prod) -> Optional[str]:
         """The name of the activation or model-input quantizer on a graph
@@ -281,6 +290,23 @@ class QuantizationSimModel:
                 name = f"model_input_{i}"
                 self.quantizers[name] = self._act_spec(name, kind="input")
                 self._input_node_q[node] = name
+
+    def _collect_sub_names(self):
+        """Per control-flow node: the activation / input quantizer names
+        that live (transitively) inside its body — the observers a
+        calibration pass updates at every step of the loop (the
+        reference's per-timestep grouped quantizers,
+        qc_quantize_recurrent.py:191-306)."""
+        self._sub_act_names: Dict[fx.Node, list] = {}
+        for node, info in self.graph.subgraph_eqns.items():
+            names = []
+            for op in info["inner_ops"]:
+                spec = self.quantizers.get(op.name)
+                if spec is not None and spec.kind == "act":
+                    names.append(op.name)
+                if f"{op.name}_input" in self.quantizers:
+                    names.append(f"{op.name}_input")
+            self._sub_act_names[node] = sorted(set(names))
 
     # ------------------------------------------------------------------
     # Interpreter
@@ -420,9 +446,15 @@ class QuantizationSimModel:
             qname = self._output_node_q.get(self.graph.resolve(node))
             return val if qname is None else hook(qname, val)
 
+        def enter(node):
+            # a body with quantizers runs step by step with the hooks;
+            # otherwise (and in 'fp' mode) it runs as it was traced
+            return (mode != "fp" and bool(self._sub_act_names.get(node))) \
+                or bool(capture)
+
         out = run_graph(self.graph, flat_args(self.graph, params, args),
                         before=before if self._node_input_q else None,
-                        after=after, at_output=at_output)
+                        after=after, at_output=at_output, enter=enter)
         return out, obs_states, captured
 
     # ------------------------------------------------------------------

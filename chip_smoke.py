@@ -152,7 +152,17 @@ lowering mode; ResNet-50 and MobileNetV2 lowered the same way.
    served (prefill, a per-slot step, ``generate``: K1 + K2's tile, K2's
    fused decode kernel, K3, KSOL), held against ``quantized_lora_fn``
    and the kernels against the plain versions;
-10. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
+10. runs DeepSpeech2 at deepspeech.pytorch's LibriSpeech widths (161 mel
+   bins, 32 conv channels, 5 bidirectional LSTM layers of 1024, 29
+   characters; 16 x 1000 frames) through the QuantizationSimModel (10
+   ``scan`` ops: calibration, the fake-quant forward, a QAT step) and
+   ``lower_to_int`` in w8a8 (KQ8's int32 entry, KSQ) and w4a8 (KQ8, K1 +
+   K2), each lowered forward held against the plain versions, and
+   RecurrentQuantizer on an LSTM and a GRU; then compresses the ResNet-50
+   (channel pruning with reconstruction, spatial SVD, a greedy
+   selection) and lowers the result in w8a8 (KQ8)
+   (``recurrent_compression``; alone: ``--recurrent-compression-slice``);
+11. times the GEMM routes (KW4, KW8, KW4G, K2, KSQ, KQ8 and K2's fused
    decode kernel) alone at every shape they ran at on the main paths
    (``route_shape_gaps``) and prints the
    measurements, each kernel route's redesign score (its launches on the
@@ -201,6 +211,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -413,7 +424,28 @@ PATH_KERNELS = {
     "amp_resnet50": ("q8_gemm",),
     "peft_llm": ("act_quant", "w4a8_gemm", "w4a8_fusedq", "sol_decode_layer",
                  "decode_attention"),
+    "ds2_w8a8": ("q8_gemm", "w8a8_staticq"),
+    "ds2_w4a8": ("q8_gemm", "act_quant", "w4a8_gemm"),
+    "compressed_resnet50": ("q8_gemm",),
 }
+# phase 10a: DeepSpeech2 at the widths of deepspeech.pytorch's LibriSpeech
+# model (161 mel bins of a 20 ms window at 16 kHz, 32 conv channels,
+# 5 bidirectional LSTM layers of 1024, 29 characters), the JAX package's
+# 11 x 11 convs; batches of 16 utterances of 1000 frames (10 s)
+DS2_WIDTHS = dict(n_mels=161, conv_channels=32, hidden=1024, num_layers=5,
+                  vocab=29)
+DS2_BATCH, DS2_FRAMES = 16, 1000
+# the lowered DeepSpeech2 forwards: mode -> (param bitwidth, launches of
+# one forward); the two convs and the head lower, the 20 LSTM linears
+# stay in their scans
+DS2_MODES = {
+    "w8a8": (8, {"q8_gemm": 2, "w8a8_staticq": 1}),
+    "w4a8": (4, {"q8_gemm": 2, "act_quant": 1, "w4a8_gemm": 1}),
+}
+# lowered DeepSpeech2 log-probs, kernels vs plain (max |diff| / max
+# |plain|): the integer convs are bit-exact and the LSTMs run the same
+# float ops, so only the head's kernel (KSQ, or K1 + K2) differs
+TOL_DS2_LOGITS = 1e-4
 # the lowered models: mode -> (lower_to_int mode, param bitwidth, the
 # launches of one forward by kernel, n = linears a forward)
 LOWER_MODES = {
@@ -464,6 +496,20 @@ def profiled():
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda._sleep(1000)
+        yield prof
+
+
+@contextlib.contextmanager
+def cuda_profiled():
+    """torch.profiler over the CUDA activity alone: for windows of many
+    thousand small kernels (a recurrent model's per-step loop), where the
+    CPU activity's events would swamp the profiler. The spins of
+    ``profiled`` open it the same way."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         torch.cuda._sleep(1000)
         yield prof
@@ -3109,10 +3155,13 @@ def plain_ops(tim, tic):
         tim.matmul_w8a8, tic.matmul_w8a8, tic.int8_matmul_int32 = saved
 
 
-def forward_stats(torch, fn, counters):
+def forward_stats(torch, fn, counters, profiler=None, routes=None):
     """One forward with the launch counts set to 0 just before and read
     just after; then its device ms (profiler, by kernel) and host ms.
-    Returns (out, counts, host_ms, device_ms, top kernels)."""
+    ``profiler``: ``profiled`` by default, ``cuda_profiled`` for forwards
+    of many thousand kernels; ``routes``: a dict that receives the counted
+    forward's launches by route. Returns (out, counts, host_ms, device_ms,
+    top kernels)."""
     fn()                                   # warm-up (and retrace)
     zero_counts(counters)
     torch.cuda.synchronize()
@@ -3121,8 +3170,12 @@ def forward_stats(torch, fn, counters):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t) * 1e3
     counts = {k: c.launches for k, c in counters.items() if c.launches}
+    if routes is not None:
+        routes.update({k: {r: n for r, n in getattr(counters[k], "routes",
+                                                     {}).items() if n}
+                       for k in counts})
     take_routes(counters)
-    with profiled() as prof:
+    with (profiler or profiled)() as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
@@ -4866,6 +4919,410 @@ def amp_peft(torch, tim, counters, g, models, smi, ops, qllm):
     return metrics, paths
 
 
+def ds2_lowered(torch, tim, counters, sim, mode, expect, x, ref, params):
+    """One lowered DeepSpeech2 forward (``mode``), its launches (exactly
+    ``expect``) and the routes they took, against the same forward through
+    the plain versions (within TOL_DS2_LOGITS) and against the float
+    model. Returns (metrics, launches)."""
+    from aimet_tpu_torch import lower_to_int
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    t = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        low = lower_to_int(sim, None, mode=mode)
+    t_lower = time.time() - t
+    scoped = [op.name for op in sim.graph.ops
+              if op.scope is not None and op.type == "linear"]
+    assert len(scoped) == 4 * DS2_WIDTHS["num_layers"], scoped
+    assert low.lowered_ops == ["conv_0", "conv_1", "linear_0"], \
+        low.lowered_ops
+    assert low.skipped_ops == scoped, low.skipped_ops
+    routes = {}
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, x), counters, cuda_profiled, routes)
+    assert counts == expect, (mode, counts)
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    with plain_lowering(lw, tim), plain_ops(tim, tic):
+        plain = low(params, x)
+    m = {"lowered": low.lowered_ops, "skipped": len(low.skipped_ops),
+         "downgraded": low.downgraded_ops,
+         "warnings": len(caught), "lower_s": t_lower,
+         "int_flops_fraction": low.int_flops_fraction,
+         "host_ms": host_ms, "device_ms": dev_ms, "launches": counts,
+         "routes": routes, "top_kernels": top,
+         "logprobs_vs_plain_rel_err": rel_err(out, plain),
+         "vs_float_rel_err": rel_err(out, ref)}
+    log(f"[ds2 {mode}] lowered {low.lowered_ops}, {m['skipped']} scoped "
+        f"linears skipped, downgraded {low.downgraded_ops}; forward "
+        f"{DS2_BATCH} x {DS2_FRAMES} frames: {host_ms:.0f} ms host, "
+        f"{dev_ms:.1f} ms device; launches {counts}, routes {routes}; "
+        f"kernels vs plain {m['logprobs_vs_plain_rel_err']:.3e}; vs float "
+        f"{m['vs_float_rel_err']:.3e}")
+    assert m["logprobs_vs_plain_rel_err"] < TOL_DS2_LOGITS, (mode, m)
+    del low, out, plain
+    return m, counts
+
+
+def deepspeech2_phase(torch, tim, counters, g, smi):
+    """Phase 10a: DeepSpeech2 at DS2_WIDTHS (weights drawn from a seed, the
+    LSTMs' contractive) through the one QuantizationSimModel (10 scan
+    ops), calibrated (min-max) on 4 batches; its fake-quant forward; the
+    device-busy share of a 100-frame calibration pass; one range-learning
+    QAT step on 100 frames with the calibrated encodings; lower_to_int in
+    w8a8 and, on 4-bit parameters, w4a8 (DS2_MODES); RecurrentQuantizer
+    alone on one LSTM and one GRU at hidden 1024. Returns (metrics,
+    launches of each lowered path)."""
+    from aimet_tpu_torch import QuantizationSimModel
+    from aimet_tpu_torch.models.deepspeech import init_deepspeech2
+    from aimet_tpu_torch.quantsim.recurrent import (RecurrentQuantizer,
+                                                    init_gru_params,
+                                                    init_lstm_params)
+    metrics, paths = {"card": smi}, {}
+    t = time.time()
+    model = init_deepspeech2(torch.Generator().manual_seed(5), **DS2_WIDTHS)
+    # the JAX package's N(0, 0.1) LSTM kernels give a recurrent kernel of
+    # spectral radius about 0.1 * sqrt(1024) = 3.2 at this width: a chaotic
+    # recurrence, where any rounding grows with the steps. A trained
+    # network's recurrence contracts: input kernels N(0, 1 / in), recurrent
+    # kernels of radius about 0.5
+    gl = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():
+        for layer in model.lstm:
+            for cell in (layer.fwd, layer.bwd):
+                cell.kernel.normal_(0.0, cell.kernel.shape[0] ** -0.5,
+                                    generator=gl)
+                cell.recurrent_kernel.normal_(
+                    0.0, 0.5 * cell.recurrent_kernel.shape[0] ** -0.5,
+                    generator=gl)
+    n_params = sum(p.numel() for p in model.parameters())
+    data = [torch.randn((DS2_BATCH, DS2_FRAMES, DS2_WIDTHS["n_mels"]),
+                       generator=g, device="cuda") for _ in range(5)]
+    calib, x = data[:4], data[4]
+    with torch.no_grad():
+        model(x)                                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ref = model(x)
+        torch.cuda.synchronize()
+    metrics.update(params=n_params, init_s=t0 - t,
+                   float_forward_s=time.time() - t0)
+    log(f"[ds2] {n_params / 1e6:.1f} M parameters; float forward "
+        f"{DS2_BATCH} x {DS2_FRAMES} frames {metrics['float_forward_s']:.2f}"
+        f" s (eager, {DS2_WIDTHS['num_layers'] * 2} x {DS2_FRAMES // 2} "
+        "LSTM steps)")
+
+    # min-max observers: every step of every scan updates each of the
+    # 130 inner observers (the sqnr histograms launch ~30 kernels an update)
+    t = time.time()
+    sim = QuantizationSimModel(model, (x,), quant_scheme="minmax")
+    metrics["trace_s"] = time.time() - t
+    log(f"[ds2] traced in {metrics['trace_s']:.1f} s")
+    scans = sim.graph.ops_of_type("scan")
+    assert len(scans) == 2 * DS2_WIDTHS["num_layers"], len(scans)
+    assert [s.attrs["reverse"] for s in scans] == \
+        [False, True] * DS2_WIDTHS["num_layers"]
+    inner = sum(len(v) for v in sim._sub_act_names.values())
+    # how host-bound the per-step loop is: the device-busy share of one
+    # calibration pass over a 100-frame batch (50 steps a scan; a sim
+    # traced at that length), after a warm-up pass: the wall time
+    # unprofiled, the kernels' time profiled
+    short = x[:, :100].contiguous()
+    sim_short = QuantizationSimModel(model, (short,), quant_scheme="minmax")
+    sim_short.compute_encodings(None, [short])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim_short.compute_encodings(None, [short])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with cuda_profiled() as prof:
+        sim_short.compute_encodings(None, [short])
+        torch.cuda.synchronize()
+    events = _kernel_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    metrics.update(calib_pass_100_frames_s=wall,
+                   calib_pass_device_ms=busy,
+                   calib_pass_busy_share=busy / (wall * 1e3),
+                   calib_pass_kernels=len(events))
+    del prof, events
+    t = time.time()
+    sim.compute_encodings(None, calib)         # the 1000-frame encodings
+    torch.cuda.synchronize()
+    metrics.update(calibrate_s=time.time() - t, scans=len(scans),
+                   quantizers=len(sim.quantizers), inner_quantizers=inner)
+    log(f"[ds2] QuantizationSimModel: traced in {metrics['trace_s']:.1f} s,"
+        f" {len(sim.graph.ops)} ops ({len(scans)} scans), "
+        f"{len(sim.quantizers)} quantizers ({inner} inside the scans); "
+        f"compute_encodings (minmax, 4 batches) "
+        f"{metrics['calibrate_s']:.1f} s; a 100-frame calibration pass: "
+        f"{wall:.3f} s, kernels {busy:.1f} ms (busy "
+        f"{metrics['calib_pass_busy_share']:.3f}), "
+        f"{metrics['calib_pass_kernels']} kernels")
+
+    log(f"[ds2] calibrated: {metrics['calibrate_s']:.1f} s")
+    t = time.time()
+    q = sim.quantized_fn(None, x)
+    torch.cuda.synchronize()
+    metrics.update(quantized_fn_s=time.time() - t,
+                   quantized_vs_float_rel_err=rel_err(q, ref),
+                   quantized_vs_float_rel_l2=((q - ref).norm()
+                                              / ref.norm()).item(),
+                   quantized_top1_vs_float=(q.argmax(-1) == ref.argmax(-1))
+                   .float().mean().item())
+    assert torch.isfinite(q).all() and q.shape == ref.shape
+    del q
+    # one range-learning QAT step: gradients through every step's
+    # fake-quant to every LSTM kernel and to the encodings. On the
+    # 100-frame sim with the calibrated encodings: the per-step loop is
+    # host-bound, and a 500-step backward launches ~1,000 kernels a step
+    for name, e in sim.encodings.items():
+        sim_short.set_encoding(name, e)
+    apply_fn, enc = sim_short.qat_fn()
+    enc = {k: (a.requires_grad_(), b.requires_grad_())
+           for k, (a, b) in enc.items()}
+    params = {k: v.clone().requires_grad_()
+              for k, v in sim_short.params.items()}
+    opt = torch.optim.SGD(list(params.values())
+                          + [t for pair in enc.values() for t in pair],
+                          lr=1e-4)
+    log(f"[ds2] quantized forward {metrics['quantized_fn_s']:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with torch.no_grad():
+        ref_short = model(short)
+    loss = ((apply_fn(params, enc, short) - ref_short) ** 2).mean()
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    lstm = [k for k in params if k.startswith("lstm.")
+            and k.endswith("kernel")]
+    assert len(lstm) == 4 * DS2_WIDTHS["num_layers"]
+    for k in lstm:
+        gk = params[k].grad
+        assert gk is not None and torch.isfinite(gk).all() \
+            and gk.abs().sum() > 0, k
+    n_enc = sum(1 for a, b in enc.values() if a.grad is not None
+                and torch.isfinite(a.grad).all())
+    metrics.update(qat_step_s=time.time() - t, qat_loss=loss.item(),
+                   qat_encoding_grads=n_enc,
+                   qat_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[ds2] quantized forward {metrics['quantized_fn_s']:.1f} s, vs "
+        f"float: max rel {metrics['quantized_vs_float_rel_err']:.3e}, l2 rel "
+        f"{metrics['quantized_vs_float_rel_l2']:.3e}, top-1 "
+        f"{metrics['quantized_top1_vs_float']:.4f}; one QAT step (16 x "
+        f"100 frames) {metrics['qat_step_s']:.1f} s (loss "
+        f"{loss.item():.4e}; finite grads in all {len(lstm)} LSTM kernels "
+        f"and {n_enc} encodings)")
+    del apply_fn, enc, params, opt, loss, sim_short, ref_short
+    torch.cuda.empty_cache()
+
+    for mode, (bw, expect) in DS2_MODES.items():
+        s = sim
+        if bw == 4:
+            s = QuantizationSimModel(model, (x,), default_param_bw=4)
+            s.compute_param_encodings()
+        m, counts = ds2_lowered(torch, tim, counters, s, mode, expect, x,
+                                ref, s.params)
+        metrics[f"lowered_{mode}"] = m
+        paths[f"ds2_{mode}"] = counts
+        del s
+        torch.cuda.empty_cache()
+    del sim
+
+    # RecurrentQuantizer alone: one LSTM and one GRU at hidden 1024 on the
+    # first layer's inputs (16 x 500 steps of 1312 features)
+    T, I, H = DS2_FRAMES // 2, model.lstm[0].fwd.kernel.shape[0], 1024
+    for cell, init in (("lstm", init_lstm_params), ("gru", init_gru_params)):
+        p = init(torch.Generator().manual_seed(6), I, H, device="cuda")
+        xs = [torch.randn((DS2_BATCH, T, I), generator=g, device="cuda")
+              for _ in range(3)]
+        rq = RecurrentQuantizer(cell)
+        t = time.time()
+        rq.compute_encodings(p, xs[:2])
+        torch.cuda.synchronize()
+        t_cal = time.time() - t
+        with torch.no_grad():
+            t = time.time()
+            out_q, _ = rq.quantized_forward(p, xs[2])
+            torch.cuda.synchronize()
+            t_q = time.time() - t
+            out_fp, _ = rq.fp_forward(p, xs[2])
+        err = ((out_q - out_fp).abs().mean() / out_fp.abs().mean()).item()
+        assert torch.isfinite(out_q).all() and 0 < err < 0.3, (cell, err)
+        metrics[f"recurrent_{cell}"] = dict(
+            calibrate_s=t_cal, quantized_forward_s=t_q,
+            mean_abs_rel_err=err, encodings=sorted(rq.encodings))
+        log(f"[ds2] RecurrentQuantizer({cell!r}) 16 x {T} x {I} -> {H}: "
+            f"calibrate (2 batches) {t_cal:.1f} s, quantized forward "
+            f"{t_q:.2f} s, mean |q - fp| / mean |fp| {err:.3e}")
+        del p, xs, rq
+    del model, data, ref
+    torch.cuda.empty_cache()
+    return metrics, paths
+
+
+def trunk_readers(graph):
+    """The convs that read a residual trunk (a relu of an add)."""
+    out = []
+    for op in graph.ops_of_type("conv"):
+        p = op.inputs[0].producer
+        if p is not None and p.type == "relu" and p.inputs \
+                and p.inputs[0].producer is not None \
+                and p.inputs[0].producer.type == "add":
+            out.append(op.name)
+    return out
+
+
+def compression_phase(torch, tim, counters, g, model, smi):
+    """Phase 10b: the CNN phase's ResNet-50 (224 x 224, 1000 classes)
+    compressed: channel pruning at 0.5 with least-squares reconstruction
+    on every conv that reads a residual trunk, then spatial SVD at 0.5 on
+    the 8 heaviest remaining convs (the re-traced graph's MAC at most 0.55
+    of the original); one greedy spatial-SVD selection toward 0.5 MAC
+    (eval: top-1 agreement with the float model on 64 images); the
+    compressed model through the sim and lower_to_int in w8a8. Returns
+    (metrics, launches of the lowered forward)."""
+    from aimet_tpu_torch import QuantizationSimModel, lower_to_int
+    from aimet_tpu_torch.compression import (ModelCompressor, layer_cost,
+                                             model_cost)
+    from aimet_tpu_torch.graph.connected_graph import ConnectedGraph
+    from aimet_tpu_torch.ops import int_conv as tic
+    from aimet_tpu_torch.quantsim import lowering as lw
+    metrics = {"card": smi}
+    # 32 images a batch; a compressed model runs at the batch it was
+    # traced at (its graph's views hold the shapes)
+    xs = resnet_inputs(torch, g, 4)
+    x, x_eval = xs[0], xs[1]
+    with torch.no_grad():
+        ref = model(x_eval)
+    t = time.time()
+    sim = QuantizationSimModel(model, (x,))
+    seeds = trunk_readers(sim.graph)
+    names = []
+    for n in seeds:
+        op = sim.graph.get_op(n)
+        names += [op.inputs[0].name, op.output.name]
+    caps = sim.collect_activations(None, (x,), names)
+    act = {n: (caps[sim.graph.get_op(n).inputs[0].name],
+               caps[sim.graph.get_op(n).output.name]) for n in seeds}
+    del sim, caps
+    m1, s1 = ModelCompressor.compress_model(
+        model, (x,), None, "channel_pruning",
+        manual_ratios={n: 0.5 for n in seeds}, act_samples=act)
+    g2 = ConnectedGraph(m1, (x,))
+    mac1 = model_cost(g2).mac / s1.original_cost.mac
+    costs = sorted(((layer_cost(op).mac, op.name)
+                    for op in g2.ops_of_type("conv")), reverse=True)
+    heavy = [n for _, n in costs[:8]]
+    m2, s2 = ModelCompressor.compress_model(
+        m1, (x,), None, "spatial_svd", manual_ratios={n: 0.5 for n in heavy})
+    g3 = ConnectedGraph(m2, (x,))
+    mac2 = model_cost(g3).mac / s1.original_cost.mac
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        out = m2(x_eval)
+    assert torch.isfinite(out).all() and out.shape == ref.shape
+    corr = torch.corrcoef(torch.stack([ref.flatten(), out.flatten()]))[
+        0, 1].item()
+    metrics.update(pipeline_s=time.time() - t, seeds=seeds, svd_layers=heavy,
+                   mac_after_pruning=mac1,
+                   mac_stats=s2.compressed_cost.mac / s1.original_cost.mac,
+                   mac_retraced=mac2, output_corr=corr,
+                   top1_vs_float=(out.argmax(-1) == ref.argmax(-1)).float()
+                   .mean().item())
+    log(f"[compress] channel pruning (0.5, reconstructed) on {len(seeds)} "
+        f"trunk-reading convs: MAC {mac1:.4f}; spatial SVD (0.5) on "
+        f"{heavy}: MAC {mac2:.4f} re-traced ({metrics['mac_stats']:.4f} "
+        f"by the stats); output corr with the float model {corr:.4f}, "
+        f"top-1 {metrics['top1_vs_float']:.3f}; "
+        f"{metrics['pipeline_s']:.1f} s")
+    assert mac2 <= 0.55, mac2
+
+    # one greedy spatial-SVD selection over the spatial (k > 1) convs
+    x64 = torch.cat(xs[2:4])
+    with torch.no_grad():
+        ref64 = model(x64).argmax(-1)
+    graph = ConnectedGraph(model, (x64,))
+    ignore = [op.name for op in graph.ops_of_type("conv")
+              if tuple(op.param_products["kernel"].shape[2:]) == (1, 1)]
+    evals = []
+
+    def eval_fn(m):
+        with torch.no_grad():
+            evals.append(1)
+            return (m(x64).argmax(-1) == ref64).float().mean().item()
+
+    t = time.time()
+    _, sg = ModelCompressor.compress_model(
+        model, (x64,), None, "spatial_svd", eval_fn=eval_fn,
+        target_comp_ratio=0.5, num_candidates=4, ignore_layers=ignore)
+    torch.cuda.synchronize()
+    sel = {k: v for k, v in sg.per_layer_ratios.items() if v < 1.0}
+    metrics.update(greedy_s=time.time() - t, greedy_evals=len(evals),
+                   greedy_layers=len(graph.ops_of_type("conv"))
+                   - len(ignore), greedy_selected=sel,
+                   greedy_mac_ratio=sg.mac_compression_ratio)
+    log(f"[compress] greedy spatial SVD toward 0.5 over "
+        f"{metrics['greedy_layers']} spatial convs: {len(evals)} evals "
+        f"(top-1 on 64 images) in {metrics['greedy_s']:.1f} s; "
+        f"{len(sel)} layers compressed, model MAC ratio "
+        f"{sg.mac_compression_ratio:.4f}")
+    del graph
+
+    # the compressed model lowered in w8a8: its factored and pruned
+    # layers compute with constant kernels (skipped), the rest lower
+    t = time.time()
+    sim = QuantizationSimModel(m2, (x,))
+    sim.compute_encodings(None, xs[2:4])
+    low = lower_to_int(sim, None, mode="w8a8")
+    const = [op.name for op in sim.graph.ops
+             if op.type in ("conv", "linear")
+             and "kernel" not in op.param_products]
+    assert const and set(const) <= set(low.skipped_ops), (const,
+                                                           low.skipped_ops)
+    # the pruned trunk reaches the head: its kernel is sliced, a constant
+    n_conv = sum(n.startswith("conv_") for n in low.lowered_ops)
+    expect = {"q8_gemm": n_conv}
+    if "linear_0" in low.lowered_ops:
+        expect["w8_gemm"] = 1                    # downgraded, as phase 6
+    params = sim.params
+    out, counts, host_ms, dev_ms, top = forward_stats(
+        torch, lambda: low(params, x_eval), counters)
+    assert counts == expect, counts
+    with plain_lowering(lw, tim), plain_ops(tim, tic):
+        plain = low(params, x_eval)
+    err = rel_err(out, plain)
+    metrics["lowered_w8a8"] = dict(
+        lowered=len(low.lowered_ops), skipped=len(low.skipped_ops),
+        constant_kernel_layers=len(const), launches=counts,
+        host_ms=host_ms, device_ms=dev_ms, top_kernels=top,
+        logits_vs_plain_rel_err=err, s=time.time() - t, **vs_float(out, ref))
+    log(f"[compress w8a8] lowered {len(low.lowered_ops)}, skipped "
+        f"{len(low.skipped_ops)} ({len(const)} constant-kernel layers); "
+        f"forward 32 x 224 x 224 {host_ms:.1f} ms host, {dev_ms:.2f} ms "
+        f"device; launches {counts}; kernels vs plain {err:.3e}; vs float "
+        f"{vs_float(out, ref)}")
+    assert err < TOL_CNN_LOGITS, err
+    del sim, low, m1, m2, out, plain, xs
+    torch.cuda.empty_cache()
+    return metrics, counts
+
+
+def recurrent_compression(torch, tim, counters, g, model, smi):
+    """Phase 10: DeepSpeech2 (10a) and compression of the CNN phase's
+    ResNet-50 (10b). Returns (metrics, launches of each path)."""
+    t = time.perf_counter()
+    m, paths = deepspeech2_phase(torch, tim, counters, g, smi)
+    metrics = {"ds2": m}
+    log(f"[ds2] phase 10a took {time.perf_counter() - t:.1f} s; {smi}")
+    t = time.perf_counter()
+    m, counts = compression_phase(torch, tim, counters, g, model, smi)
+    metrics["compression"] = m
+    paths["compressed_resnet50"] = counts
+    log(f"[compress] phase 10b took {time.perf_counter() - t:.1f} s; {smi}")
+    return metrics, paths
+
+
 # Variants of the whole-layer kernel for ``--layer-variants``: name ->
 # (text, replacement, occurrences) applied to csrc/fused_layer.cu: the
 # kAhead weight stages of the next GEMM phase that the producer issues
@@ -6492,11 +6949,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     m, path_counts = amp_peft(torch, tim, counters, g, cnn_models, smi, ops,
                               qllm)
-    del cnn_models
     metrics.update(m)
     for path, counts in path_counts.items():
         add_path(path, counts)
     log(f"[amp, peft] phase took {time.time() - t:.1f} s; {smi}")
+
+    # --- 10. DeepSpeech2 through the sim (scans) and lowered; compression
+    # of the ResNet-50
+    t = time.time()
+    torch.cuda.empty_cache()
+    m, path_counts = recurrent_compression(torch, tim, counters, g,
+                                           cnn_models["resnet50"], smi)
+    del cnn_models
+    metrics["recurrent_compression"] = m
+    for path, counts in path_counts.items():
+        add_path(path, counts)
+    log(f"[recurrent, compression] phase took {time.time() - t:.1f} s; "
+        f"{smi}")
     for name, (kern, route) in ROUTE_KERNELS.items():
         launches[name] = ROUTE_LAUNCHES.get(f"{kern}:{route}", 0)
     for name in SOURCES:
@@ -6606,9 +7075,57 @@ def amp_peft_slice() -> int:
     return 0
 
 
+def recurrent_compression_slice() -> int:
+    """``python3 chip_smoke.py --recurrent-compression-slice``: build the
+    kernels and run phase 10 alone (DeepSpeech2; compression of the CNN
+    phase's ResNet-50, drawn as phase 6 draws it), with the same checks and
+    PATH_KERNELS as the whole script."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from aimet_tpu_torch import _build
+    from aimet_tpu_torch.models.resnet import ResNet50
+    from aimet_tpu_torch.ops import decode_attention as gqa
+    from aimet_tpu_torch.ops import decode_attention_fused as dattn
+    from aimet_tpu_torch.ops import decode_layer_sol as dsol
+    from aimet_tpu_torch.ops import fused_layer as flay
+    from aimet_tpu_torch.ops import int_matmul as tim
+    counters = kernel_counters(tim, dattn, flay, dsol, gqa)
+    KERNEL_FNS.update(counters)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.time()
+    _build.build()
+    _build.library()
+    log(f"build: {time.time() - t:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xs = resnet_inputs(torch, g, 6)
+    model = float_cnn(torch, ResNet50, xs[5], seed=4)
+    del xs
+    t = time.time()
+    metrics, paths = recurrent_compression(torch, tim, counters, g, model,
+                                           smi)
+    log(f"[recurrent, compression] phase took {time.time() - t:.1f} s; "
+        f"{smi}")
+    for path, counts in paths.items():
+        for name in PATH_KERNELS[path]:
+            assert counts.get(name, 0) > 0, \
+                f"kernel {name} never launched on the {path} path"
+    log(json.dumps(metrics, default=str))
+    return 0
+
+
 if __name__ == "__main__":
     sys.exit(layer_variants() if sys.argv[1:] == ["--layer-variants"]
              else amp_peft_slice() if sys.argv[1:] == ["--amp-peft-slice"]
+             else recurrent_compression_slice()
+             if sys.argv[1:] == ["--recurrent-compression-slice"]
              else decode_slice() if sys.argv[1:] == ["--decode-slice"]
              else w4_slice() if sys.argv[1:] == ["--w4-slice"]
              else prefill_slice() if sys.argv[1:] == ["--prefill-slice"]

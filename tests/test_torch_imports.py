@@ -82,6 +82,11 @@ def test_importing_port_leaves_jax_unloaded():
             "import aimet_tpu_torch.utils.weight_padding; "
             "import aimet_tpu_torch.utils.layer_output; "
             "import aimet_tpu_torch.utils.visualization; "
+            "import aimet_tpu_torch.graph.control_flow; "
+            "import aimet_tpu_torch.quantsim.recurrent; "
+            "import aimet_tpu_torch.models.deepspeech; "
+            "import aimet_tpu_torch.models.cnn; "
+            "import aimet_tpu_torch.compression; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'aimet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

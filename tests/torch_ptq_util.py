@@ -10,7 +10,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.nn import functional as F
 
 from aimet_tpu.models.cnn import ConvBnRelu as JaxConvBnRelu
 from aimet_tpu.models.cnn import TinyCNN as JaxTinyCNN
@@ -19,7 +18,8 @@ from aimet_tpu.models.mobilenet_v2 import MobileNetV2 as JaxMobileNetV2
 from aimet_tpu.models.resnet import BasicBlock as JaxBasicBlock
 from aimet_tpu.models.resnet import ResNet as JaxResNet
 from aimet_tpu_torch import convert
-from aimet_tpu_torch.models.layers import BatchNorm, Conv, Dense
+from aimet_tpu_torch.models.cnn import ConvBnRelu, TinyCNN, TinyMLP
+from aimet_tpu_torch.models.layers import BatchNorm, Conv
 from aimet_tpu_torch.models.mobilenet_v2 import MobileNetV2
 from aimet_tpu_torch.models.resnet import BasicBlock, ResNet
 
@@ -66,47 +66,6 @@ class DwSeparable(torch.nn.Module):
         return self.Conv_2(x)
 
 
-class ConvBnRelu(torch.nn.Module):
-    def __init__(self, in_ch=3, features=8, use_bias=True):
-        super().__init__()
-        self.Conv_0 = Conv(in_ch, features, (3, 3), use_bias=use_bias)
-        self.BatchNorm_0 = BatchNorm(features)
-
-    def forward(self, x):
-        return torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-
-
-class TinyCNN(torch.nn.Module):
-    """aimet_tpu.models.cnn.TinyCNN on 8 x 8 inputs; features flattened
-    in NHWC order, as flax flattens them."""
-    def __init__(self, in_ch=1, num_classes=10, hw=8):
-        super().__init__()
-        self.Conv_0 = Conv(in_ch, 8, (3, 3))
-        self.BatchNorm_0 = BatchNorm(8)
-        self.Conv_1 = Conv(8, 16, (3, 3), use_bias=True)
-        self.Dense_0 = Dense(16 * (hw // 4) ** 2, num_classes)
-
-    def forward(self, x):
-        x = F.max_pool2d(torch.relu(self.BatchNorm_0(self.Conv_0(x))), 2, 2)
-        x = F.avg_pool2d(torch.relu(self.Conv_1(x)), 2, 2)
-        # a copy in NHWC order: the trace may see the conv's output in
-        # channels-last strides (one input channel), the forward not
-        x = x.permute(0, 2, 3, 1).clone(memory_format=torch.contiguous_format)
-        return self.Dense_0(x.view(x.shape[0], -1))
-
-
-class TinyMLP(torch.nn.Module):
-    def __init__(self, in_features=16, features=16, num_classes=10):
-        super().__init__()
-        self.Dense_0 = Dense(in_features, features)
-        self.Dense_1 = Dense(features, features)
-        self.Dense_2 = Dense(features, num_classes)
-
-    def forward(self, x):
-        x = torch.relu(self.Dense_0(x))
-        return self.Dense_2(torch.relu(self.Dense_1(x)))
-
-
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """One intra-op thread while a PTQ parity file runs (import it into the
@@ -127,7 +86,7 @@ MODELS = {
                             lambda: ConvBnRelu(use_bias=False), (2, 8, 8, 3)),
     "tiny_cnn": (JaxTinyCNN, TinyCNN, (2, 8, 8, 1)),
     "tiny_mlp": (lambda: JaxTinyMLP(features=16),
-                 TinyMLP, (8, 16)),
+                 lambda: TinyMLP(features=16), (8, 16)),
     "mobilenet_v2": (lambda: JaxMobileNetV2(num_classes=10, width_mult=0.25),
                      lambda: MobileNetV2(num_classes=10, width_mult=0.25),
                      (2, 32, 32, 3)),
